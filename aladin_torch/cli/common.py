@@ -1,0 +1,148 @@
+"""Shared CLI plumbing: flags, model construction, data wiring (mirrors
+aladin_tpu/cli/common.py for the evaluation path)."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+
+import torch
+
+from aladin_torch.config import DataArgs, ExperimentConfig
+from aladin_torch.data.dataset import make_synthetic_dataset
+from aladin_torch.data.tokenizer import BertWordPieceTokenizer
+from aladin_torch.io.checkpoint import load_state_dict_report
+from aladin_torch.io.convert import load_oscar_checkpoint
+from aladin_torch.models.aladin import ALADIN
+from aladin_torch.models.bert_img import BertImgConfig
+
+logger = logging.getLogger("vlpretrain")
+
+
+def add_shared_flags(p: argparse.ArgumentParser) -> None:
+    """aladin_tpu's flag surface, plus ``--device``."""
+    p.add_argument("--data_dir", default="datasets/coco_ir")
+    p.add_argument("--img_feat_file", default="datasets/coco_ir/features.tsv")
+    p.add_argument("--eval_model_dir", default="", help="OSCAR/VinVL checkpoint dir (backbone + vocab)")
+    p.add_argument("--output_dir", default="output/")
+    p.add_argument("--logger_name", default="runs/runX")
+    p.add_argument("--max_seq_length", type=int, default=70)
+    p.add_argument("--max_img_seq_length", type=int, default=50)
+    p.add_argument("--img_feature_dim", type=int, default=2054)
+    p.add_argument("--img_feature_type", default="frcnn")
+    p.add_argument("--use_img_layernorm", type=int, default=1)
+    p.add_argument("--img_layer_norm_eps", type=float, default=1e-12)
+    p.add_argument("--add_od_labels", action="store_true", default=False)
+    p.add_argument("--od_label_type", default="vg")
+    p.add_argument("--att_mask_type", default="CLR")
+    p.add_argument("--do_lower_case", action="store_true", default=True)
+    p.add_argument("--num_captions_per_img_train", type=int, default=5)
+    p.add_argument("--num_captions_per_img_val", type=int, default=5)
+    p.add_argument("--eval_img_keys_file", default="")
+    p.add_argument("--eval_caption_index_file", default="")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--seed", type=int, default=88)
+    p.add_argument("--num_epochs", type=int, default=20)
+    p.add_argument("--log_step", type=int, default=10)
+    p.add_argument("--val_step", type=int, default=500)
+    p.add_argument("--resume", default="")
+    p.add_argument("--load-teacher-model", dest="load_teacher_model", default="")
+    p.add_argument("--reinitialize-scheduler", dest="reinitialize_scheduler", action="store_true")
+    p.add_argument("--config", default="")
+    p.add_argument("--mesh_shape", default="dp=-1",
+                   help="one device only in the port: dp=-1 or dp=1")
+    p.add_argument("--ndcg", action="store_true", default=False,
+                   help="NDCG@25 from relevance matrices (not ported yet)")
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32", "int8"],
+                   help="bfloat16/float32: encoder dtype. int8: the encoder stays bfloat16 and "
+                        "the alignment scoring kernel runs on int8 operands")
+    p.add_argument("--int8_encoder", action="store_true",
+                   help="W8A8 encoder matmuls (needs kernel K4; not ported yet)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="build a tiny on-disk synthetic dataset + random backbone")
+    p.add_argument("--profile_dir", default="")
+    p.add_argument("--profile_steps", type=int, default=5)
+    p.add_argument("--steps_per_dispatch", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; entry points need CUDA unless this is 'cpu'")
+
+
+def to_data_args(ns: argparse.Namespace) -> DataArgs:
+    keep = {f.name for f in dataclasses.fields(DataArgs)}
+    return DataArgs(**{k: v for k, v in vars(ns).items() if k in keep})
+
+
+def restore_training_settings(args: DataArgs) -> DataArgs:
+    """Override data flags from the OSCAR checkpoint's training_args.bin
+    (a pickled namespace: read only checkpoints you trust)."""
+    bin_path = os.path.join(args.eval_model_dir, "training_args.bin")
+    if not (args.eval_model_dir and os.path.exists(bin_path)):
+        return args
+    train_args = torch.load(bin_path, map_location="cpu", weights_only=False)
+    for param in ("do_lower_case", "img_feature_type", "add_od_labels",
+                  "od_label_type", "use_img_layernorm", "img_layer_norm_eps"):
+        if hasattr(train_args, param):
+            setattr(args, param, getattr(train_args, param))
+    return args
+
+
+def build_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device) -> ALADIN:
+    """ALADIN in eval mode on ``device``: heads random from a generator
+    seeded with ``args.seed``, the backbone from the OSCAR directory when
+    given. The encoder runs in f32 for ``--compute_dtype float32`` and in
+    bf16 otherwise."""
+    dtype = torch.float32 if args.compute_dtype == "float32" else torch.bfloat16
+    backbone_sd = None
+    if args.eval_model_dir and os.path.isdir(args.eval_model_dir):
+        backbone_sd, bert_cfg = load_oscar_checkpoint(args.eval_model_dir)
+        # the checkpoint's activation wins unless the recipe opts into gelu-tanh
+        act = cfg.model.hidden_act if cfg.model.hidden_act != "gelu" else bert_cfg.hidden_act
+        if act != cfg.model.hidden_act:
+            logger.warning("hidden-act: checkpoint declares %r, config has %r; following the "
+                           "checkpoint", bert_cfg.hidden_act, cfg.model.hidden_act)
+        bert_cfg = dataclasses.replace(bert_cfg, hidden_act=act)
+        if cfg.model.embed_size != bert_cfg.hidden_size:
+            logger.warning("embed-size %d != checkpoint hidden %d; using the checkpoint's",
+                           cfg.model.embed_size, bert_cfg.hidden_size)
+            d = cfg.to_dict()
+            d["model"]["embed-size"] = bert_cfg.hidden_size
+            cfg = ExperimentConfig.from_dict(d)
+    elif args.synthetic:  # tiny backbone for smoke runs
+        bert_cfg = BertImgConfig(
+            vocab_size=512, hidden_size=cfg.model.embed_size, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=2 * cfg.model.embed_size,
+            max_position_embeddings=128, img_feature_dim=args.img_feature_dim,
+            hidden_act=cfg.model.hidden_act)
+    else:
+        bert_cfg = BertImgConfig(img_feature_dim=args.img_feature_dim,
+                                 hidden_act=cfg.model.hidden_act)
+    model = ALADIN(cfg, bert_cfg)
+    model.reset_parameters(torch.Generator().manual_seed(args.seed))
+    if backbone_sd is not None:
+        stats = load_state_dict_report(model.oscar_model.bert, backbone_sd)
+        if stats["missing"]:
+            raise ValueError(f"{args.eval_model_dir}: backbone tensors missing from "
+                             f"pytorch_model.bin: {stats['missing'][:8]}")
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def build_tokenizer(args: DataArgs) -> BertWordPieceTokenizer:
+    if args.eval_model_dir and os.path.isdir(args.eval_model_dir):
+        return BertWordPieceTokenizer.from_pretrained(args.eval_model_dir,
+                                                      do_lower_case=args.do_lower_case)
+    base = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words = ["a", "photo", "of", "the", "dog", "cat", "car", "tree", "person",
+             "boat", "bird", "house", "number"] + [str(i) for i in range(10)]
+    return BertWordPieceTokenizer({t: i for i, t in enumerate(base + words)}, do_lower_case=True)
+
+
+def prepare_synthetic(args: DataArgs, n_images: int = 8) -> DataArgs:
+    root = os.path.join(args.output_dir, "synthetic_coco_ir")
+    make_synthetic_dataset(root, n_images=n_images, feat_dim=args.img_feature_dim)
+    args.data_dir = root
+    args.img_feat_file = os.path.join(root, "features.tsv")
+    args.add_od_labels = True
+    return args
