@@ -1,5 +1,5 @@
 """Shared CLI plumbing: flags, model construction, data wiring (mirrors
-aladin_tpu/cli/common.py for the evaluation path)."""
+aladin_tpu/cli/common.py for evaluation and training)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import os
 import torch
 
 from aladin_torch.config import DataArgs, ExperimentConfig
-from aladin_torch.data.dataset import make_synthetic_dataset
+from aladin_torch.data.dataset import RetrievalDataset, make_synthetic_dataset
+from aladin_torch.data.pipeline import BatchLoader
 from aladin_torch.data.tokenizer import BertWordPieceTokenizer
 from aladin_torch.io.checkpoint import load_state_dict_report
 from aladin_torch.io.convert import load_oscar_checkpoint
@@ -90,11 +91,28 @@ def restore_training_settings(args: DataArgs) -> DataArgs:
 
 
 def build_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device) -> ALADIN:
-    """ALADIN in eval mode on ``device``: heads random from a generator
+    """ALADIN in eval mode on ``device`` for evaluation: the encoder's
+    parameters in f32 for ``--compute_dtype float32`` and in bf16
+    otherwise."""
+    return _build_aladin(cfg, args).to(device=device, dtype=compute_dtype_of(args)).eval()
+
+
+def build_train_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device) -> ALADIN:
+    """ALADIN with f32 parameters in train mode on ``device``: the train
+    step computes in ``compute_dtype_of(args)`` under autocast."""
+    return _build_aladin(cfg, args).to(device=device).train()
+
+
+def compute_dtype_of(args: DataArgs) -> torch.dtype:
+    """The encoder's compute dtype: f32 for ``--compute_dtype float32``,
+    bf16 otherwise (int8 quantizes only the alignment scoring)."""
+    return torch.float32 if args.compute_dtype == "float32" else torch.bfloat16
+
+
+def _build_aladin(cfg: ExperimentConfig, args: DataArgs) -> ALADIN:
+    """ALADIN on the CPU with f32 parameters: heads random from a generator
     seeded with ``args.seed``, the backbone from the OSCAR directory when
-    given. The encoder runs in f32 for ``--compute_dtype float32`` and in
-    bf16 otherwise."""
-    dtype = torch.float32 if args.compute_dtype == "float32" else torch.bfloat16
+    given."""
     backbone_sd = None
     if args.eval_model_dir and os.path.isdir(args.eval_model_dir):
         backbone_sd, bert_cfg = load_oscar_checkpoint(args.eval_model_dir)
@@ -121,12 +139,13 @@ def build_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device) -> 
                                  hidden_act=cfg.model.hidden_act)
     model = ALADIN(cfg, bert_cfg)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
+    model.oscar_model.bert.seed_generator.manual_seed(args.seed)
     if backbone_sd is not None:
         stats = load_state_dict_report(model.oscar_model.bert, backbone_sd)
         if stats["missing"]:
             raise ValueError(f"{args.eval_model_dir}: backbone tensors missing from "
                              f"pytorch_model.bin: {stats['missing'][:8]}")
-    return model.to(device=device, dtype=dtype).eval()
+    return model
 
 
 def build_tokenizer(args: DataArgs) -> BertWordPieceTokenizer:
@@ -146,3 +165,17 @@ def prepare_synthetic(args: DataArgs, n_images: int = 8) -> DataArgs:
     args.img_feat_file = os.path.join(root, "features.tsv")
     args.add_od_labels = True
     return args
+
+
+def build_loaders(tokenizer, args: DataArgs, cfg: ExperimentConfig, device,
+                  train_split: str = "train", val_split: str = "minival"):
+    """(train loader, shuffled, whole batches; validation loader, in order).
+    The validation set is built with is_train=True, as the reference does."""
+    bs = cfg.training.bs
+    train_ds = RetrievalDataset(tokenizer, args, train_split, is_train=True)
+    val_ds = RetrievalDataset(tokenizer, args, val_split, is_train=True)
+    train_loader = BatchLoader(train_ds, bs, shuffle=True, seed=args.seed, device=device,
+                               num_threads=args.num_workers)
+    val_loader = BatchLoader(val_ds, bs, shuffle=False, drop_last=False, device=device,
+                             num_threads=args.num_workers)
+    return train_loader, val_loader

@@ -1,0 +1,113 @@
+"""Training CLI (mirrors aladin_tpu/cli/train.py on one device).
+
+    python -m aladin_torch.cli.train --config aladin_torch/configs/<recipe>.json \\
+        --data_dir datasets/coco_ir --img_feat_file datasets/coco_ir/features.tsv \\
+        --eval_model_dir <vinvl-checkpoint-dir> --add_od_labels \\
+        --max_seq_length 50 --max_img_seq_length 34 --val_step 7000 \\
+        --logger_name runs/<exp> [--device cuda]
+
+``--synthetic`` builds a tiny on-disk dataset and a small random backbone
+and runs the whole loop (``--device cpu`` runs it without a card). The
+model keeps f32 parameters and computes in bf16 under autocast unless
+``--compute_dtype float32``; validation scores the alignment head with the
+MrSw kernel on the card. Checkpoints are ``<logger_name>/checkpoint.pth.tar``
+and ``model_best_rsum.pth.tar``; ``--resume`` continues from one.
+
+``run(argv)`` returns {"trainer", "state", "checkpoint"}; ``main`` returns 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from aladin_torch.cli.common import (
+    add_shared_flags,
+    build_loaders,
+    build_tokenizer,
+    build_train_model,
+    compute_dtype_of,
+    prepare_synthetic,
+    restore_training_settings,
+    to_data_args,
+)
+from aladin_torch.config import load_config
+from aladin_torch.io.checkpoint import load_teacher_params, resume_state
+from aladin_torch.train.loop import Trainer
+from aladin_torch.train.state import TrainState
+from aladin_torch.utils.device import resolve_device
+from aladin_torch.utils.logging import setup_logger
+
+
+def _parse(argv):
+    parser = argparse.ArgumentParser(description="ALADIN training (PyTorch)")
+    add_shared_flags(parser)
+    ns = parser.parse_args(argv)
+    if ns.int8_encoder:
+        # quantization rounds are gradient-dead; the flag is eval/serving only
+        parser.error("--int8_encoder is an evaluation/serving flag (cli/test); training runs bf16")
+    unported = {
+        "--ndcg": ns.ndcg,
+        "--steps_per_dispatch > 1 (queue 1, item 8)": ns.steps_per_dispatch > 1,
+        "--profile_dir (queue 1, item 8)": bool(ns.profile_dir),
+        "a multi-device --mesh_shape (queue 1, item 6)": ns.mesh_shape not in ("dp=-1", "dp=1"),
+    }
+    for flag, given in unported.items():
+        if given:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md)")
+    if not ns.config:
+        parser.error("--config is required (see aladin_torch/configs/)")
+    return ns
+
+
+def run(argv=None) -> Dict[str, Any]:
+    ns = _parse(argv)
+    args = to_data_args(ns)
+    device = resolve_device(ns.device)
+    logger = setup_logger("vlpretrain", args.logger_name)
+    cfg = load_config(ns.config)
+    # batch sizes come from the experiment config
+    args.per_gpu_train_batch_size = cfg.training.bs
+    args.per_gpu_eval_batch_size = cfg.training.bs
+    if args.synthetic:
+        args = prepare_synthetic(args)
+    args = restore_training_settings(args)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+
+    tokenizer = build_tokenizer(args)
+    train_loader, val_loader = build_loaders(tokenizer, args, cfg, device)
+    logger.info(f"train batches/epoch: {len(train_loader)}  val: {len(val_loader)}")
+    model = build_train_model(cfg, args, device)
+    state = TrainState(cfg, model, steps_per_epoch=max(len(train_loader), 1))
+
+    start_epoch, best = 0, -1.0
+    if args.resume:
+        state, start_epoch, best = resume_state(state, args.resume)
+        logger.info(f"resumed from {args.resume} at epoch {start_epoch}, step {state.step} "
+                    f"(best rsum {best})")
+    elif args.load_teacher_model:
+        stats = load_teacher_params(state, args.load_teacher_model)
+        logger.info(f"teacher weights from {args.load_teacher_model}: {stats['matched']} loaded, "
+                    f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")
+
+    trainer = Trainer(cfg, args, model, state, train_loader, val_loader, device,
+                      compute_dtype=compute_dtype_of(args))
+    trainer.best_rsum = best
+    trainer.fit(start_epoch)
+    logger.info(f"done; best rsum {trainer.best_rsum:.2f}")
+    return {"trainer": trainer, "state": state,
+            "checkpoint": os.path.join(args.logger_name, "checkpoint.pth.tar")}
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

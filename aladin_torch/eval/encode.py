@@ -18,13 +18,16 @@ from torch import nn
 from aladin_torch.utils.logging import AverageMeter, LogCollector, setup_logger
 
 
-def encode_data(model: nn.Module, loader, buffer_len: Optional[int] = None, log_step: int = 10,
+def encode_data(model, loader, buffer_len: Optional[int] = None, log_step: int = 10,
                 logger=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (img_embs (N, S, D), cap_embs (N, S, D), img_lens, cap_lens)."""
+    """Returns (img_embs (N, S, D), cap_embs (N, S, D), img_lens, cap_lens).
+    ``model``: an ALADIN module (run in eval mode) or an eval step of
+    train/step.py::make_eval_step."""
     logger = logger or setup_logger()
     batch_time = AverageMeter()
     collector = LogCollector()
-    model.eval()
+    if isinstance(model, nn.Module):
+        model.eval()
 
     img_embs = cap_embs = None
     img_lens, cap_lens = [], []

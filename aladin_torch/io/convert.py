@@ -10,7 +10,10 @@ The port's module names are the reference torch names, so:
     loads into ``ALADIN`` after removing ``img_txt_enc.``;
   * ``aladin_tpu``'s Flax parameter tree, as numpy arrays, becomes the
     port's state dict through the inverse of its key maps
-    (``state_dict_from_flax``; aladin_tpu/io/convert.py:254-305).
+    (``state_dict_from_flax``; aladin_tpu/io/convert.py:254-305), and a
+    train state's {"model", "aux"} tree becomes the port's named parameters
+    (``params_from_flax``). A gradient tree has the same structure, so the
+    same maps name its entries.
 
 Orbax checkpoint directories are a JAX format and are not read here.
 """
@@ -106,6 +109,24 @@ def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if name in tree:
             sd.update(te_state_dict(tree[name], name + "."))
     return sd
+
+
+def aux_from_flax(aux: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """aladin_tpu's aux learnables -> the port's TrainState.aux names
+    (``loss_weights.<loss>``, ``distill_wb``); the placeholder ``_`` that
+    keeps the Flax tree non-empty has no counterpart."""
+    out = {f"loss_weights.{k}": _t(v) for k, v in aux.get("loss_weights", {}).items()}
+    if "distill_wb" in aux:
+        out["distill_wb"] = _t(aux["distill_wb"])
+    return out
+
+
+def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A train state's {"model": ..., "aux": ...} tree (or its gradient
+    tree) -> {model state-dict name or ``aux.<name>``: tensor}."""
+    out = state_dict_from_flax(params["model"])
+    out.update({f"aux.{k}": v for k, v in aux_from_flax(params.get("aux", {})).items()})
+    return out
 
 
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

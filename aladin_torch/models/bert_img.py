@@ -18,11 +18,23 @@ Behaviour:
     attentions (L, B, H, S, S) or None).
 
 Attention is a plain matmul/softmax chain, as aladin_tpu leaves it to XLA:
-scores and softmax in f32, the rest in the module's parameter dtype.
+scores and softmax in f32, the rest in v's dtype (the parameter dtype, or
+the autocast dtype in training). Two knobs route to the port's kernels, as
+in aladin_tpu:
+
+  * ``fused_attention``: kernel K2 (ops/kernels/attention_kernel.py) on
+    ``bias[:, 0]`` with one dropout seed per layer call, drawn from the
+    model's CPU ``seed_generator`` (no card sync); it returns no probs, so
+    ``output_attentions`` raises;
+  * ``fused_layernorm``: kernel K3a (ops/kernels/layernorm.py) on
+    ``(x, sublayer_out)`` cast to the sublayer's dtype.
+
 Module names follow OSCAR's state-dict keys (``embeddings.LayerNorm``,
-``encoder.layer.N.attention.self.query``, ``img_embedding``, ``LayerNorm``
-for the image LN, ``pooler.dense``), so ``pytorch_model.bin`` loads with
-``load_state_dict`` after removing the ``bert.`` prefix.
+``encoder.layer.N.attention.self.query``,
+``encoder.layer.N.attention.output.LayerNorm``, ``img_embedding``,
+``LayerNorm`` for the image LN, ``pooler.dense``) whatever the knobs, so
+``pytorch_model.bin`` loads with ``load_state_dict`` after removing the
+``bert.`` prefix.
 """
 
 from __future__ import annotations
@@ -35,11 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aladin_torch.ops.kernels.attention_kernel import fused_attention
+from aladin_torch.ops.kernels.layernorm import residual_layernorm
 from aladin_torch.ops.masking import additive_attention_bias
 
 _UNPORTED_KERNELS = {
-    "fused_attention": "K2 (ops/pallas/attention_kernel.py::fused_attention)",
-    "fused_layernorm": "K3 (ops/pallas/layernorm.py::residual_layernorm)",
     "quant_matmuls": "K4 (ops/pallas/quant_matmul.py::w8a8_matmul)",
 }
 
@@ -116,12 +128,14 @@ class BertSelfAttention(nn.Module):
         self.num_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.fused_qkv = cfg.fused_qkv
+        self.fused_attention = cfg.fused_attention
+        self.dropout_rate = cfg.attention_probs_dropout_prob
         self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.dropout = nn.Dropout(cfg.attention_probs_dropout_prob)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, seed: Optional[int] = None):
         b, s, _ = x.shape
         if self.fused_qkv:  # one GEMM over the concatenated weights: same math
             w = torch.cat([self.query.weight, self.key.weight, self.value.weight], dim=0)
@@ -129,11 +143,16 @@ class BertSelfAttention(nn.Module):
             q, k, v = F.linear(x, w, bb).chunk(3, dim=-1)
         else:
             q, k, v = self.query(x), self.key(x), self.value(x)
-        q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
-                   for t in (q, k, v))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim) for t in (q, k, v))
+        if self.fused_attention:  # (B, S, H, d) as projected: no transposes
+            ctx = fused_attention(q, k, v, bias[:, 0], seed, self.dropout_rate,
+                                  self.training and seed is not None)
+            return ctx.reshape(b, s, -1), None
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        with torch.autocast(x.device.type, enabled=False):  # f32 scores, as in JAX
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores / math.sqrt(self.head_dim) + bias
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ctx = torch.matmul(self.dropout(probs), v)
         return ctx.transpose(1, 2).reshape(b, s, -1), probs
 
@@ -146,9 +165,14 @@ class BertSelfOutput(nn.Module):
         self.dense = nn.Linear(in_features or cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.fused_layernorm = cfg.fused_layernorm
 
     def forward(self, h, res):
-        return self.LayerNorm(res + self.dropout(self.dense(h)))
+        h = self.dropout(self.dense(h))
+        if self.fused_layernorm:  # K3a on (x, sublayer out) in the sublayer's dtype
+            ln = self.LayerNorm
+            return residual_layernorm(res.to(h.dtype), h, ln.weight, ln.bias, ln.eps)
+        return self.LayerNorm(res + h)
 
 
 class BertAttention(nn.Module):
@@ -157,8 +181,8 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
 
-    def forward(self, x, bias):
-        ctx, probs = self.self(x, bias)
+    def forward(self, x, bias, seed=None):
+        ctx, probs = self.self(x, bias, seed)
         return self.output(ctx, x), probs
 
 
@@ -181,8 +205,8 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertSelfOutput(cfg, cfg.intermediate_size)
 
-    def forward(self, x, bias):
-        x, probs = self.attention(x, bias)
+    def forward(self, x, bias, seed=None):
+        x, probs = self.attention(x, bias, seed)
         return self.output(self.intermediate(x), x), probs
 
 
@@ -215,7 +239,12 @@ class BertImgModel(nn.Module):
                 raise NotImplementedError(
                     f"BertImgConfig.{knob} needs TPU kernel {kernel}, which the port has not "
                     "ported yet (ROADMAP.md, queue 2)")
+        if cfg.remat:
+            raise NotImplementedError("BertImgConfig.remat (the B >= 512 memory lever) is not "
+                                      "ported yet (ROADMAP.md, queue 1, item 4)")
         self.cfg = cfg
+        # per-call dropout seeds of the fused attention kernel (a CPU draw)
+        self.seed_generator = torch.Generator().manual_seed(0)
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
         self.pooler = BertPooler(cfg)
@@ -236,11 +265,22 @@ class BertImgModel(nn.Module):
             if self.cfg.use_img_layernorm:
                 img = self.LayerNorm(img)
             x = torch.cat([x, self.img_dropout(img)], dim=1)  # text first
+        if output_attentions and self.cfg.fused_attention:
+            raise ValueError(
+                "fused_attention never materializes the attention probs; "
+                "disable BertImgConfig.fused_attention for "
+                "output_attentions consumers (attention distillation, "
+                "probe tooling)")
         bias = additive_attention_bias(attention_mask, dtype=torch.float32)
+        layers = self.encoder.layer
+        seeds = [None] * len(layers)
+        if self.cfg.fused_attention and self.training and self.cfg.attention_probs_dropout_prob > 0:
+            seeds = torch.randint(0, 2 ** 31 - 1, (len(layers),),
+                                  generator=self.seed_generator).tolist()
 
         hidden, attentions = [x], []
-        for layer in self.encoder.layer:
-            x, probs = layer(x, bias)
+        for layer, seed in zip(layers, seeds):
+            x, probs = layer(x, bias, seed)
             if output_hidden_states:
                 hidden.append(x)
             if output_attentions:

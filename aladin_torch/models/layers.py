@@ -37,10 +37,11 @@ class TorchMultiheadAttention(nn.Module):
         d = e // self.num_heads
         q, k, v = (t.reshape(b, s, self.num_heads, d).transpose(1, 2)
                    for t in F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+        with torch.autocast(x.device.type, enabled=False):  # f32 scores, as in JAX
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
         if key_padding_mask is not None:  # True = padding
             scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-        probs = self.dropout(torch.softmax(scores, dim=-1).to(x.dtype))
+        probs = self.dropout(torch.softmax(scores, dim=-1).to(v.dtype))
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, e)
         return self.out_proj(ctx)
 

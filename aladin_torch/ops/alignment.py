@@ -14,6 +14,7 @@ buffer has the floor and the 'mean' denominator is the static area.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aladin_torch.ops.masking import valid_mask
 from aladin_torch.ops.similarity import l2norm
@@ -81,6 +82,28 @@ def _scan_sentences(im_set, s_seq, im_valid, pair_valid, align):
     den = torch.clamp(torch.linalg.norm(im, dim=3) * torch.linalg.norm(att_vec, dim=3), min=1e-8)
     cos = torch.where(im_valid[:, None, :], num / den, torch.zeros_like(num))
     return cos.sum(dim=2)
+
+
+def alignment_scores_chunked(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torch.Tensor,
+                             s_len: torch.Tensor, aggregation: str = "MrSw", chunk: int = 64, *,
+                             normalized: bool = False) -> torch.Tensor:
+    """``alignment_scores`` with bounded memory, differentiable: the caption
+    axis goes in ``chunk``-sized blocks and each block is recomputed in the
+    backward pass (``torch.utils.checkpoint``, JAX's remat), so the
+    (B_i, B_c, R, W) tensor never exists whole in either direction. The last
+    block may be short: no padding captions are needed."""
+    if not normalized:
+        im_set = l2norm(im_set, eps=1e-12)
+        s_seq = l2norm(s_seq, eps=1e-12)
+
+    def block(ims, seq, il, sl):
+        return alignment_scores(ims, seq, il, sl, aggregation, normalized=True)
+
+    return torch.cat([
+        checkpoint(block, im_set, s_seq[s:s + chunk], im_len, s_len[s:s + chunk],
+                   use_reentrant=False)
+        for s in range(0, s_seq.shape[0], chunk)
+    ], dim=1)
 
 
 @torch.no_grad()

@@ -8,8 +8,8 @@ loss meter} and validation scalars {matching/r*, alignment/r*, rsum}
 (ref:alad/train.py:441-446,483-528). Scalar names are kept identical so
 dashboards transfer.
 
-A copy of aladin_tpu/utils/logging.py without the TensorBoard writer
-(training-only, not ported yet).
+A copy of aladin_tpu/utils/logging.py without the TensorBoard writer: the
+port's Trainer writes its meters and validation recalls to the log only.
 """
 
 from __future__ import annotations

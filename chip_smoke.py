@@ -6,8 +6,10 @@
 Phases, each printing one JSON line:
 
   1. env    - torch/CUDA versions, the card's name and power limit, yaml.
-  2. build  - every CUDA kernel of the serving path built from the sources
-              in this checkout with nvcc (sm_90a), and the seconds taken.
+  2. build  - every CUDA kernel built from the sources in this checkout
+              with nvcc (sm_90a), one nvcc a source, all started together,
+              and the seconds taken (the Triton kernel compiles at its
+              first launch, in k3).
   3. k1     - the MrSw all-pairs kernel (csrc/mrsw_kernel.cu) against its
               plain PyTorch version on the card: bf16 and int8, plain and
               length-bucketed, at 1000 x 5000 pairs with uniform lengths and
@@ -19,6 +21,25 @@ Phases, each printing one JSON line:
               aladin_torch.cli.test over 1000 images / 5000 captions, once
               with bf16 scoring and once with int8 scoring. Each run must
               launch the kernel and give finite metrics.
+  5. k2     - the fused attention kernels (csrc/attention_kernel.cu, forward
+              and backward) against their plain versions at the training
+              path's shapes (B 128, S 50 and 84, 12 heads of 64, bf16), both
+              bias shapes, dropout 0 and 0.1, a fully padded row; then
+              kernel, plain and scaled_dot_product_attention times.
+  6. k3     - the fused residual+LayerNorm Triton kernel and its analytic
+              backward against the plain version at M = 128 x 84 and
+              128 x 50 rows of 768; kernel, plain and F.layer_norm times.
+  7. train_fused - the train step (train.step.make_train_step) on the
+              flagship recipe at VinVL-base width, B 128, with
+              fused_attention and fused_layernorm on, as
+              benchmarks/train_bench.py runs it: a few steps at dropout 0.1
+              that must launch K2 and K3; then one step at dropout 0 from
+              the same params and batch with the knobs on and off, whose
+              loss and grad_norm must agree; the step times.
+  8. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
+              bs 32 over a synthetic corpus of 200 images with the
+              VinVL-base-shaped random backbone: finite losses, validation
+              launching K1, and a checkpoint that loads back.
 
 Then the kernels line ({"kernels": [...]}), the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -29,6 +50,7 @@ refuses to run without a CUDA device or outside the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,7 +60,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RECIPE = "alad-alignment-and-matching-distill.json"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12,  # dense tensor-core peaks
+                  "f32": 67e12}  # f32 outside the tensor cores
 # bf16: kernel and plain version multiply the same bf16-rounded operands
 # exactly in f32 and differ only in the order of the f32 sums over D=768 and
 # over the words (~1e-6 on scores of O(10)); 1e-3 leaves that room and still
@@ -46,6 +69,23 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 # exactly, so only the f32 descale may round.
 BF16_ATOL = 1e-3
 INT8_RTOL = 1e-5
+# K2 and K3a outputs are bf16: kernel and plain version compute the same f32
+# values with sums in another order (~1e-6 relative), then round once to
+# bf16, which can move an element by one bf16 unit in the last place; one
+# such unit at the largest output's magnitude is max|want| * 2^-7.
+BF16_ULP = 2.0 ** -7
+# f32 results of a reduction in another order (LayerNorm statistics, the
+# dgamma / dbeta column sums over ~10^4 rows): relative to the largest.
+F32_SUM_RTOL = 1e-4
+# knobs on vs off, one train step at dropout 0: the fused path keeps the
+# residual stream in bf16 (the kernel's y has x's dtype, as in aladin_tpu)
+# where autocast's LayerNorm returns f32, so 24 LayerNorms differ by bf16
+# roundings; the loss must agree to 1% and grad_norm to 5%.
+KNOB_LOSS_RTOL = 1e-2
+KNOB_GNORM_RTOL = 5e-2
+SYNTH_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "photo", "of", "the", "dog",
+                "cat", "car", "tree", "person", "boat", "bird", "house", "number"]
+               + [str(i) for i in range(10)])
 
 
 def emit(obj) -> None:
@@ -72,6 +112,38 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of card time per call of ``fn``: CUDA events around
+    ``reps`` back-to-back calls that the host queues while a spin kernel
+    holds the card, so the card runs them without waiting for the host.
+    Unlike ``cuda_ms`` this leaves out the host's launch cost, which
+    dominates short kernels. The spin lasts twice the time the host took to
+    queue the calls; if the card still catches up with the host, the spin
+    doubles and the measurement repeats."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * (time.perf_counter() - t0)
+    for _ in range(4):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * 2e9))  # cycles: at most 2 GHz, so at least spin_s
+        start.record()
+        for _ in range(reps):
+            fn()
+        caught_up = start.query()  # the spin ended before the last call was queued
+        stop.record()
+        torch.cuda.synchronize()
+        if not caught_up:
+            return start.elapsed_time(stop) / reps
+        spin_s *= 2
+    raise RuntimeError("the card kept catching up with the host; no device time measured")
 
 
 def corpus(gen, n_im, n_cap, s_im, s_s, d=768):
@@ -259,9 +331,7 @@ def phase_main() -> dict:
     from aladin_torch.data.dataset import make_synthetic_dataset
     from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 
-    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "photo", "of", "the", "dog",
-              "cat", "car", "tree", "person", "boat", "bird", "house", "number"]
-             + [str(i) for i in range(10)])
+    vocab = SYNTH_VOCAB
     launches, results = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -306,6 +376,381 @@ def phase_main() -> dict:
     return launches
 
 
+def bound(n_bytes: float, ops: float, peak: str):
+    """(ms, "bytes" | "operations"): the larger of bytes over HBM bandwidth
+    and operations over the ``peak`` rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[peak]
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops else "operations")
+
+
+def attention_bound(b, s, h, d, q_dim, backward: bool):
+    """K2's least time: 4 (forward) or 10 (backward) x B*H*S^2*d operations
+    at the bf16 peak, against q, k, v (and g) read and ctx (dq, dk, dv)
+    written once in bf16 plus the f32 bias read once."""
+    ops = (10.0 if backward else 4.0) * b * h * s * s * d
+    n_bytes = (7 if backward else 4) * b * s * h * d * 2 + b * q_dim * s * 4
+    return bound(n_bytes, ops, "bf16")
+
+
+def check_close(checks, what, tag, got, want, tol):
+    """Append {case, max_abs_err, tol, ok} and raise unless got is finite and
+    within ``tol`` of want everywhere; returns the error."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    checks.append({"case": tag, "max_abs_err": err, "tol": tol, "ok": err <= tol and finite})
+    if not checks[-1]["ok"]:
+        raise AssertionError(f"{what} disagrees with its plain version: {checks[-1]}")
+    return err
+
+
+def phase_k2() -> dict:
+    """K2 forward and backward against the plain versions at B 128, S 50 and
+    84, H 12, d 64, bf16; then their times at the path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.ops.kernels import attention_kernel as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, d = 128, 12, 64
+    checks, max_err = [], {"fwd": 0.0, "bwd": 0.0}
+
+    def inputs(s, q_dim):
+        q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+        if q_dim == 1:  # a key-padding mask, as the model passes it
+            lens = torch.randint(4, s + 1, (b,), generator=gen, device="cuda")
+            keep = (torch.arange(s, device="cuda")[None] < lens[:, None])[:, None, :]
+        else:  # a 2-D mask
+            keep = torch.rand(b, s, s, generator=gen, device="cuda") > 0.2
+        keep[0] = False  # a fully padded row stays finite (-10000, not -inf)
+        return q, k, v, g, (~keep).float() * -10000.0
+
+    for s in (50, 84):
+        for q_dim in (1, s):
+            q, k, v, g, bias = inputs(s, q_dim)
+            for rate in (0.0, 0.1):
+                tag = f"S{s} Q{q_dim} rate{rate}"
+                args = (q, k, v, bias)
+                extra = (1000 + s, rate, True)
+                want = ak.attention_forward_plain(*args, *extra)
+                got = ak.attention_forward(*args, *extra)
+                max_err["fwd"] = max(max_err["fwd"], check_close(
+                    checks, "K2 forward", tag + " ctx", got, want,
+                    BF16_ULP * want.float().abs().max().item()))
+                wants = ak.attention_backward_plain(q, k, v, bias, g, *extra)
+                gots = ak.attention_backward(q, k, v, bias, g, *extra)
+                for name, gt, wt in zip(("dq", "dk", "dv"), gots, wants):
+                    max_err["bwd"] = max(max_err["bwd"], check_close(
+                        checks, "K2 backward", f"{tag} {name}", gt, wt,
+                        BF16_ULP * wt.float().abs().max().item()))
+
+    # times at the path's shapes: key-padding bias, dropout 0.1 (the
+    # library call at rate 0: its dropout draws its own mask)
+    timings = {}
+    for s in (50, 84):
+        q, k, v, g, bias = inputs(s, 1)
+        extra = (7, 0.1, True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = bias[:, None].to(torch.bfloat16)  # (B, 1, 1, S)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        gt = g.transpose(1, 2)
+        fwd_bound, fwd_by = attention_bound(b, s, h, d, 1, False)
+        bwd_bound, bwd_by = attention_bound(b, s, h, d, 1, True)
+        timings[s] = {
+            "fwd": {"ms": device_ms(lambda: ak.attention_forward(q, k, v, bias, *extra), 20),
+                    "event_ms": cuda_ms(lambda: ak.attention_forward(q, k, v, bias, *extra), 20),
+                    "plain_ms": device_ms(
+                        lambda: ak.attention_forward_plain(q, k, v, bias, *extra), 5),
+                    "library_ms": device_ms(sdpa_fwd, 20),
+                    "bound_ms": fwd_bound, "bound_by": fwd_by},
+            "bwd": {"ms": device_ms(lambda: ak.attention_backward(q, k, v, bias, g, *extra), 20),
+                    "event_ms": cuda_ms(
+                        lambda: ak.attention_backward(q, k, v, bias, g, *extra), 20),
+                    "plain_ms": device_ms(
+                        lambda: ak.attention_backward_plain(q, k, v, bias, g, *extra), 5),
+                    "library_ms": device_ms(lambda: torch.autograd.grad(
+                        out, (qt, kt, vt), gt, retain_graph=True), 20),
+                    "bound_ms": bwd_bound, "bound_by": bwd_by},
+        }
+        del out
+    emit({"phase": "k2", "checks": checks, "tolerance": "max|want| * 2^-7 (one bf16 ulp)",
+          "timings": {f"B{b} S{s} H{h} d{d} bf16": t for s, t in timings.items()},
+          "timing": "ms, plain_ms, library_ms: card time (device_ms); event_ms: CUDA events "
+                    "around back-to-back wrapper calls (host launch cost included)",
+          "library": "F.scaled_dot_product_attention with the bias as a bf16 mask, rate 0; "
+                     "backward: torch.autograd.grad through it"})
+    return {"max_err": max_err, "timings": timings}
+
+
+def phase_k3() -> dict:
+    """K3a forward (Triton) and the analytic backward against the plain
+    version at M = 128 x 84 and 128 x 50 rows of D 768; then times."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.ops.kernels import layernorm as lk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    d, eps = 768, 1e-12
+    checks, max_err, timings = [], 0.0, {}
+    for s in (84, 50):
+        m = 128 * s
+
+        def randn(scale=1.0):
+            return scale * torch.randn(m, d, generator=gen, device="cuda")
+
+        x, res, gy = randn().to(torch.bfloat16), randn(0.5).to(torch.bfloat16), randn()
+        gy = gy.to(torch.bfloat16)
+        gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        y, mean, rstd = lk.residual_layernorm_forward(x, res, gamma, beta, eps)
+        wy, wmean, wrstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta, eps)
+        tag = f"M{m}"
+        max_err = max(max_err, check_close(checks, "K3a", tag + " y", y, wy,
+                                           BF16_ULP * wy.float().abs().max().item()))
+        check_close(checks, "K3a", tag + " mean", mean, wmean,
+                    F32_SUM_RTOL * wmean.abs().max().item())
+        check_close(checks, "K3a", tag + " rstd", rstd, wrstd,
+                    F32_SUM_RTOL * wrstd.abs().max().item())
+        # the autograd Function's backward (analytic) against autograd
+        # through the plain version
+        grads = lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy)
+        leaves = [t.clone().requires_grad_() for t in (x, res, gamma, beta)]
+        lk.residual_layernorm_plain(*leaves, eps).backward(gy)
+        for name, got, leaf in zip(("dx", "dres", "dgamma", "dbeta"), grads, leaves):
+            want = leaf.grad
+            rel = BF16_ULP if want.dtype == torch.bfloat16 else F32_SUM_RTOL
+            check_close(checks, "K3a backward", f"{tag} {name}", got, want,
+                        rel * want.float().abs().max().item())
+
+        g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+        bound_ms, bound_by = bound(3 * m * d * 2 + 2 * m * 4 + 2 * d * 4, 8.0 * m * d, "f32")
+        timings[s] = {
+            "ms": device_ms(lambda: lk.residual_layernorm_forward(x, res, gamma, beta, eps), 50),
+            "event_ms": cuda_ms(
+                lambda: lk.residual_layernorm_forward(x, res, gamma, beta, eps), 50),
+            "plain_ms": device_ms(
+                lambda: lk.residual_layernorm_forward_plain(x, res, gamma, beta, eps), 20),
+            "library_ms": device_ms(lambda: F.layer_norm(x + res, (d,), g16, b16, eps), 50),
+            "backward_ms": device_ms(
+                lambda: lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    emit({"phase": "k3", "checks": checks,
+          "tolerance": "bf16 outputs max|want| * 2^-7 (one bf16 ulp); f32 sums 1e-4 of max|want|",
+          "timings": {f"M{128 * s} D{d} bf16": t for s, t in timings.items()},
+          "timing": "ms, plain_ms, library_ms, backward_ms: card time (device_ms); "
+                    "event_ms: CUDA events around back-to-back calls",
+          "library": "F.layer_norm(x + res): two calls (the add, then the LayerNorm); "
+                     "backward_ms: the analytic backward in torch ops (no kernel of its own, "
+                     "XLA in aladin_tpu)"})
+    return {"max_err": max_err, "timings": timings}
+
+
+def flagship_train_model(fused: bool, dropout: float, state_dict=None):
+    """(cfg, ALADIN on the card in train mode): the flagship recipe at bs 128
+    and VinVL-base width, as benchmarks/train_bench.py builds it, with both
+    kernel knobs set to ``fused``; random weights from a seed unless
+    ``state_dict`` is given."""
+    import torch
+
+    from aladin_torch.config import ExperimentConfig
+    from aladin_torch.models.aladin import ALADIN
+    from aladin_torch.models.bert_img import BertImgConfig
+
+    with open(os.path.join(ROOT, "aladin_torch", "configs", RECIPE)) as f:
+        recipe = json.load(f)
+    recipe["training"]["bs"] = 128
+    recipe["model"]["dropout"] = dropout
+    cfg = ExperimentConfig.from_dict(recipe)
+    bert_cfg = BertImgConfig(fused_attention=fused, fused_layernorm=fused,
+                             hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
+    model = ALADIN(cfg, bert_cfg)
+    if state_dict is None:
+        model.reset_parameters(torch.Generator().manual_seed(4321))
+    else:
+        model.load_state_dict(state_dict)
+    return cfg, model.cuda().train()
+
+
+def synth_train_batch(b: int, l: int = 50, r: int = 34, feat_dim: int = 2054,
+                      vocab: int = 30522):
+    """A random disentangled batch on the card (benchmarks/
+    retrieval_eval_bench.py::synth_batch's distributions)."""
+    import torch
+
+    from aladin_torch.models.aladin import Batch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    cap_len, img_len, lab_len = ints(8, l + 1, (b,)), ints(4, r + 1, (b,)), ints(4, l + 1, (b,))
+    pos_l, pos_r = torch.arange(l, device="cuda")[None], torch.arange(r, device="cuda")[None]
+    return Batch(
+        txt_ids=ints(3, vocab, (b, l)), txt_mask=(pos_l < cap_len[:, None]).int(),
+        txt_type=torch.zeros(b, l, dtype=torch.int32, device="cuda"), cap_len=cap_len,
+        img_ids=ints(3, vocab, (b, l)),
+        img_mask=torch.cat([pos_l < lab_len[:, None], pos_r < img_len[:, None]], dim=1).int(),
+        img_type=torch.ones(b, l, dtype=torch.int32, device="cuda"),
+        img_feats=torch.randn(b, r, feat_dim, generator=gen, device="cuda"), img_len=img_len)
+
+
+def device_profile(fn, n: int, top: int = 12) -> dict:
+    """torch.profiler over ``n`` calls of ``fn``: per call, the wall ms
+    under the profiler, the device ms (the sum of the device-side events'
+    times: kernels, copies, fills; one stream, so they do not overlap), and
+    the ``top`` device events by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),  # spans, not work
+                  key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+            "top": [{"name": name[:80], "ms": ms, "calls": calls} for name, ms, calls in rows[:top]]}
+
+
+def phase_train_fused() -> dict:
+    """The train step with K2 and K3a engaged at B 128 (the path that runs
+    them), then knobs on vs off at dropout 0."""
+    import torch
+
+    from aladin_torch.ops.kernels import attention_kernel as ak
+    from aladin_torch.ops.kernels import layernorm as lk
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_train_step
+
+    counters = {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
+                "k3a": lk.residual_layernorm_forward}
+    batch = synth_train_batch(128)
+
+    def run_steps(step, state, n):
+        """(per-step metric dicts on the host, per-step ms)."""
+        out, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch, 0)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out.append({k: v.item() for k, v in m.items()})
+        return out, ms
+
+    cfg, model = flagship_train_model(True, 0.1)
+    state = TrainState(cfg, model, steps_per_epoch=100)
+    n_steps = 4
+    for fn in counters.values():
+        fn.launches = 0
+    metrics, ms = run_steps(make_train_step(model, cfg, torch.bfloat16), state, n_steps)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    layers = model.oscar_model.bert.cfg.num_hidden_layers
+    want = {"k2_fwd": n_steps * 2 * layers, "k2_bwd": n_steps * 2 * layers,
+            "k3a": n_steps * 2 * 2 * layers}  # 2 passes; 2 LayerNorms a layer
+    if launches != want:
+        raise AssertionError(f"train step launches {launches}, expected {want}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite train metrics: {metrics}")
+    del model, state
+
+    # knobs on vs off from the same params and batch at dropout 0
+    cfg0, on = flagship_train_model(True, 0.0)
+    _, off = flagship_train_model(False, 0.0, on.state_dict())
+    pair = {"on": (on, TrainState(cfg0, on, steps_per_epoch=100)),
+            "off": (off, TrainState(cfg0, off, steps_per_epoch=100))}
+    steps = {k: make_train_step(m, cfg0, torch.bfloat16) for k, (m, _) in pair.items()}
+    first = {k: run_steps(steps[k], pair[k][1], 1)[0][0] for k in ("on", "off")}
+    agree = {
+        "loss_rel_diff": abs(first["on"]["loss"] - first["off"]["loss"]) / abs(first["off"]["loss"]),
+        "grad_norm_rel_diff": abs(first["on"]["grad_norm"] - first["off"]["grad_norm"])
+        / abs(first["off"]["grad_norm"]),
+    }
+    if not (agree["loss_rel_diff"] <= KNOB_LOSS_RTOL
+            and agree["grad_norm_rel_diff"] <= KNOB_GNORM_RTOL):
+        raise AssertionError(f"knobs on vs off disagree: {first} {agree}")
+    step_ms = {"on": [], "off": []}
+    for k in ("on", "off", "off", "on"):  # in turns
+        step_ms[k] += run_steps(steps[k], pair[k][1], 2)[1]
+    mean_ms = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    profiles = {k: device_profile(lambda k=k: steps[k](pair[k][1], batch, 0), 2)
+                for k in ("on", "off")}
+    emit({"phase": "train_fused", "batch": 128, "steps": n_steps, "launches": launches,
+          "metrics_last": metrics[-1], "step_ms_dropout0.1_on": ms,
+          "knob_check_dropout0": {"first_step": first, **agree, "loss_rtol": KNOB_LOSS_RTOL,
+                                  "grad_norm_rtol": KNOB_GNORM_RTOL},
+          "step_ms_dropout0": mean_ms,
+          # the profiler slows the host, so the busy share is taken against
+          # the unprofiled step time
+          "device_busy_share_dropout0": {k: profiles[k]["device_ms"] / mean_ms[k]
+                                         for k in mean_ms},
+          "device_profile_dropout0": profiles,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return {"launches": launches}
+
+
+def phase_train_cli() -> dict:
+    """aladin_torch.cli.train end to end: one epoch, validation, checkpoint."""
+    import torch
+
+    from aladin_torch.cli import train as cli_train
+    from aladin_torch.data.dataset import make_synthetic_dataset
+    from aladin_torch.io.checkpoint import load_checkpoint
+    from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        oscar, data = os.path.join(tmp, "oscar"), os.path.join(tmp, "coco_ir")
+        write_oscar_dir(oscar, SYNTH_VOCAB)
+        make_synthetic_dataset(data, n_images=200, feat_dim=2054)
+        setup_s = time.perf_counter() - t0
+        argv = ["--config", os.path.join(ROOT, "aladin_torch", "configs", RECIPE),
+                "--eval_model_dir", oscar, "--data_dir", data,
+                "--img_feat_file", os.path.join(data, "features.tsv"), "--max_seq_length", "50",
+                "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
+                "--logger_name", os.path.join(tmp, "run"), "--num_epochs", "1",
+                "--val_step", "0", "--log_step", "10", "--device", "cuda"]
+        mrsw_scores.launches = 0
+        t0 = time.perf_counter()
+        out = cli_train.run(argv)
+        run_s = time.perf_counter() - t0
+        launches = mrsw_scores.launches
+        trainer, state = out["trainer"], out["state"]
+        if launches == 0:
+            raise AssertionError("cli/train's validation never launched the MrSw kernel")
+        metrics = trainer.last_metrics
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"cli/train metrics not finite: {metrics}")
+        payload, _ = load_checkpoint(out["checkpoint"])
+        sd = state.model.state_dict()
+        if (payload["step"] != state.step or set(payload["model"]) != set(sd)
+                or not all(torch.equal(payload["model"][k], v.cpu()) for k, v in sd.items())):
+            raise AssertionError("the checkpoint cli/train wrote does not load back equal")
+    emit({"phase": "train_cli", "images": 200, "bs": 32, "steps": state.step,
+          "setup_seconds": setup_s, "run_seconds": run_s, "k1_launches": launches,
+          "best_rsum": trainer.best_rsum, "metrics_last": metrics,
+          "checkpoint_loads_back": True})
+    return {"launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "aladin_torch")):
         print("chip_smoke.py must run from a checkout of the repository (aladin_torch/ "
@@ -324,6 +769,10 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     launches = phase_main()
+    k2 = phase_k2()
+    k3 = phase_k3()
+    fused = phase_train_fused()["launches"]
+    phase_train_cli()
     kernels = [{
         "name": f"mrsw_scores ({name})", "route": "cuda", "source": "aladin_torch/csrc/mrsw_kernel.cu",
         "replaces": "aladin_tpu/ops/pallas/alignment_kernel.py:59", "launches": launches[name],
@@ -331,6 +780,24 @@ def main() -> int:
         "plain_ms": k1["timings"][name]["plain_ms"], "bound_ms": k1["timings"][name]["bound_ms"],
         "bound_by": k1["timings"][name]["bound_by"], "library_ms": None,
     } for name in ("bf16", "int8")]
+    # K2 and K3a times at the longer of the path's two sequences (S 84)
+    for name, key, line in (("fused_attention forward", "fwd", 79),
+                            ("fused_attention backward", "bwd", 88)):
+        t = k2["timings"][84][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "aladin_torch/csrc/attention_kernel.cu",
+            "replaces": f"aladin_tpu/ops/pallas/attention_kernel.py:{line}",
+            "launches": fused[f"k2_{key}"], "max_abs_err": k2["max_err"][key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16"})
+    t = k3["timings"][84]
+    kernels.append({
+        "name": "residual_layernorm forward", "route": "triton",
+        "source": "aladin_torch/ops/kernels/layernorm.py",
+        "replaces": "aladin_tpu/ops/pallas/layernorm.py:70", "launches": fused["k3a"],
+        "max_abs_err": k3["max_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": "M10752 D768 bf16"})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,0 +1,290 @@
+"""The port's training slice against aladin_tpu on the CPU: the LR schedule,
+one train step (every loss term, grad_norm, the gradients by name, the
+params after clip + Adam), learning over steps, and cli/train end to end.
+
+Both packages start from the same seeded Flax parameters (carried across by
+``params_from_flax``) and the same numpy batch, in f32 with dropout 0.
+Tolerances:
+  * loss terms and grad_norm: rtol 1e-4, the same f32 math summed in
+    another order (observed ~1e-6 relative);
+  * gradients: atol 1e-5 of the largest gradient entry plus rtol 1e-4,
+    for the same reason (observed up to 6.3e-7 of the largest entry);
+  * params after one clip + Adam step: atol 1e-6 where |g| exceeds 1e-4 of
+    the largest gradient entry, 100 times the gradients' disagreement.
+    Nearer 0 a gradient can be rounding noise (the key biases' true
+    gradient is zero: softmax ignores a per-row shift), and Adam's first
+    step -lr * g / (|g| + eps) turns noise of either sign into an update of
+    up to lr; there the update must only stay within lr.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from aladin_tpu.config import ExperimentConfig as JaxExperimentConfig
+from aladin_tpu.config import TrainingConfig as JaxTrainingConfig
+from aladin_tpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
+from aladin_tpu.io.checkpoint import load_teacher_params as jax_load_teacher_params
+from aladin_tpu.models.aladin import ALADIN as JaxALADIN
+from aladin_tpu.train.schedule import make_lr_schedule as jax_schedule
+from aladin_tpu.train.state import create_train_state
+from aladin_tpu.train.step import make_loss_fn as jax_make_loss_fn
+from aladin_tpu.train.step import make_train_step as jax_make_train_step
+from aladin_torch.cli import train as torch_train_cli
+from aladin_torch.config import ExperimentConfig, TrainingConfig
+from aladin_torch.io.checkpoint import (
+    load_checkpoint,
+    load_teacher_params,
+    resume_state,
+    save_checkpoint,
+)
+from aladin_torch.io.convert import aux_from_flax, params_from_flax, state_dict_from_flax
+from aladin_torch.models.aladin import ALADIN, Batch
+from aladin_torch.models.bert_img import BertImgConfig
+from aladin_torch.train.schedule import make_adamw, make_lr_schedule, warmup_linear_schedule
+from aladin_torch.train.state import TrainState
+from aladin_torch.train.step import make_loss_fn, make_train_step
+from tests.test_models import SMALL, make_batch, small_cfg
+
+LR = 1e-3
+NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+
+CASES = {
+    "flagship": {"loss-type": "alignment-distillation", "loss-weights": [1, 1]},
+    "auto": {"loss-type": "alignment-distillation-matching", "loss-weights": "auto"},
+    "gate_closed": {"loss-type": "alignment-distillation", "loss-weights": "auto",
+                    "activate-distillation-after": 2},
+    "mse_entropy": {"loss-type": "matching-distillation-entropy", "loss-weights": [1, 0.5, 0.1],
+                    "distillation-mode": "mse"},
+    "freeze_teran": {"loss-type": "alignment-distillation", "loss-weights": [1, 1],
+                     "model": {"freeze-teran": True}},
+}
+
+
+def _recipe(case):
+    training = {k: v for k, v in CASES[case].items() if k != "model"}
+    return {"model": {"embed-size": SMALL["hidden_size"], "tern-layers": 1, "dropout": 0.0,
+                      **CASES[case].get("model", {})},
+            "training": {**training, "lr": LR, "bs": 4, "grad-clip": 2.0}}
+
+
+def _torch_batch(jb) -> Batch:
+    return Batch(**{f: torch.from_numpy(np.array(getattr(jb, f)))
+                    for f in Batch.__dataclass_fields__})
+
+
+def _both(case, rng):
+    """(jax model, jax state, port model, port state, jax batch, port batch)."""
+    d = _recipe(case)
+    jmodel = JaxALADIN(JaxExperimentConfig.from_dict(d),
+                       dataclasses.replace(small_cfg(), **NO_DROPOUT))
+    jbatch = make_batch(rng)
+    params = jmodel.init(jax.random.PRNGKey(0), jbatch, True)["params"]
+    jstate = create_train_state(JaxExperimentConfig.from_dict(d), params, steps_per_epoch=10)
+    model = ALADIN(ExperimentConfig.from_dict(d), BertImgConfig(**SMALL, **NO_DROPOUT))
+    model.load_state_dict(state_dict_from_flax(jax.tree.map(np.asarray, params)), strict=True)
+    state = TrainState(ExperimentConfig.from_dict(d), model, steps_per_epoch=10)
+    with torch.no_grad():
+        for k, v in aux_from_flax(jax.tree.map(np.asarray, jstate.params["aux"])).items():
+            state.aux[k].copy_(v)
+    return jmodel, jstate, model, state, jbatch, _torch_batch(jbatch)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_loss_terms_and_gradients_match(rng, case):
+    jmodel, jstate, model, state, jbatch, batch = _both(case, rng)
+    epoch = 0
+    jcfg = JaxExperimentConfig.from_dict(_recipe(case))
+    (_, jm), jgrads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jmodel, jcfg), has_aux=True))(
+        jstate.params, jbatch, jnp.int32(epoch), jax.random.PRNGKey(1))
+    model.train()
+    total, metrics = make_loss_fn(model, state.cfg)(state.aux, batch, epoch)
+    total.backward()
+    assert set(metrics) == set(jm)
+    for k, v in jm.items():
+        np.testing.assert_allclose(metrics[k].item(), float(v), rtol=1e-4, err_msg=k)
+
+    want = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    got = state.named_params()
+    assert set(want) == set(got)
+    scale = max(float(np.abs(w.numpy()).max()) for w in want.values())
+    for name, w in want.items():
+        g = got[name].grad
+        g = torch.zeros_like(got[name]) if g is None else g
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4, atol=1e-5 * scale,
+                                   err_msg=name)
+    if case == "gate_closed":  # the whole distillation term is gated, its +s included
+        assert want["aux.loss_weights.distillation"].abs().max().item() == 0.0
+        assert got["aux.loss_weights.distillation"].grad.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_one_step_matches(rng, case):
+    """grad_norm (over every gradient) and the params after clip + Adam."""
+    jmodel, jstate, model, state, jbatch, batch = _both(case, rng)
+    jcfg = JaxExperimentConfig.from_dict(_recipe(case))
+    _, jgrads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jmodel, jcfg), has_aux=True))(
+        jstate.params, jbatch, jnp.int32(0), jax.random.PRNGKey(1))
+    grads = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    before = params_from_flax(jax.tree.map(np.asarray, jstate.params))  # the step donates them
+    new_jstate, jm = jax_make_train_step(jmodel, jcfg)(jstate, jbatch, jnp.int32(0),
+                                                       jax.random.PRNGKey(1))
+    metrics = make_train_step(model, state.cfg)(state, batch, 0)
+    assert state.step == int(new_jstate.step) == 1
+    np.testing.assert_allclose(metrics["grad_norm"].item(), float(jm["grad_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(metrics["loss"].item(), float(jm["loss"]), rtol=1e-4)
+
+    want = params_from_flax(jax.tree.map(np.asarray, new_jstate.params))
+    scale = max(float(np.abs(g.numpy()).max()) for g in grads.values())
+    for name, p in state.named_params().items():
+        got, w = p.detach().numpy(), want[name].numpy()
+        live = np.abs(grads[name].numpy()) > 1e-4 * scale
+        np.testing.assert_allclose(got[live], w[live], atol=1e-6, err_msg=name)
+        assert np.all(np.abs(got - before[name].numpy()) <= LR * 1.001), name
+    if case == "freeze_teran":
+        for name, p in model.oscar_model.named_parameters():
+            assert torch.equal(p.detach(), before["oscar_model." + name]), name
+
+
+def test_loss_falls_over_steps(rng):
+    """The recipe learns: 8 steps on one batch lower the loss (with dropout
+    at its default 0.1)."""
+    d = _recipe("flagship")
+    d["model"]["dropout"] = 0.1
+    model = ALADIN(ExperimentConfig.from_dict(d), BertImgConfig(**SMALL))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = TrainState(ExperimentConfig.from_dict(d), model, steps_per_epoch=10)
+    step = make_train_step(model, state.cfg)
+    batch = _torch_batch(make_batch(rng))
+    losses = [step(state, batch, 0)["loss"].item() for _ in range(8)]
+    assert losses[-1] < losses[0], losses
+    assert state.step == 8
+
+
+@pytest.mark.parametrize("over", [
+    {"scheduler": "steplr", "step-size": 2, "gamma": 0.1},
+    {"scheduler": None, "warmup": "linear", "warmup-period": 7},
+    {"scheduler": "steplr", "step-size": 1, "gamma": 0.5, "warmup": "linear",
+     "warmup-period": 5},
+])
+def test_lr_schedule_matches(over):
+    d = {"lr": 2e-4, **over}
+    ours = make_lr_schedule(TrainingConfig.from_dict(d), steps_per_epoch=3)
+    ref = jax_schedule(JaxTrainingConfig.from_dict(d), steps_per_epoch=3)
+    for step in range(20):
+        np.testing.assert_allclose(ours(step), float(ref(step)), rtol=1e-6, err_msg=str(step))
+
+
+CLI = ["--config", os.path.join(os.path.dirname(os.path.dirname(__file__)), "aladin_torch",
+                                "configs", "alad-alignment-and-matching-distill.json"),
+       "--synthetic", "--device", "cpu", "--max_seq_length", "20", "--max_img_seq_length", "12",
+       "--img_feature_dim", "32", "--num_workers", "1", "--log_step", "1", "--val_step", "0"]
+
+
+def test_train_cli_runs_saves_and_resumes(tmp_path):
+    """One epoch writes a checkpoint the port and aladin_tpu both read with
+    equal weights; --resume continues the step count and the epoch."""
+    run = str(tmp_path / "run")
+    out = torch_train_cli.run(CLI + ["--output_dir", str(tmp_path), "--logger_name", run,
+                                     "--num_epochs", "1"])
+    steps = out["state"].step
+    assert steps == len(out["trainer"].train_loader) >= 1
+    assert all(np.isfinite(v) for v in out["trainer"].last_metrics.values())
+    path = out["checkpoint"]
+    assert os.path.exists(os.path.join(run, "model_best_rsum.pth.tar"))
+
+    payload, config = load_checkpoint(path)
+    assert payload["step"] == steps and payload["epoch"] == 1
+    assert config["training"]["loss-type"] == "alignment-distillation"
+    jpayload, _ = jax_load_checkpoint(path)
+    want = state_dict_from_flax(jpayload["params"]["model"])
+    sd = out["state"].model.state_dict()
+    assert set(want) == set(sd)
+    for k, v in want.items():
+        assert torch.equal(v, sd[k].cpu()), k
+
+    again = torch_train_cli.run(CLI + ["--output_dir", str(tmp_path), "--logger_name", run,
+                                       "--num_epochs", "2", "--resume", path])
+    assert again["state"].step == 2 * steps
+    assert load_checkpoint(again["checkpoint"])[0]["epoch"] == 2
+
+
+@pytest.mark.parametrize("flags", [["--ndcg"], ["--steps_per_dispatch", "2"],
+                                   ["--profile_dir", "x"], ["--mesh_shape", "dp=2"]])
+def test_train_cli_unported_flags_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_train_cli.main(CLI + ["--output_dir", str(tmp_path), *flags])
+
+
+def test_train_cli_refuses_int8_encoder(tmp_path):
+    with pytest.raises(SystemExit):
+        torch_train_cli.main(CLI + ["--output_dir", str(tmp_path), "--int8_encoder"])
+
+
+def _small_state(d, seed):
+    model = ALADIN(ExperimentConfig.from_dict(d), BertImgConfig(**SMALL, **NO_DROPOUT))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return TrainState(ExperimentConfig.from_dict(d), model, steps_per_epoch=10)
+
+
+def test_load_teacher_params_matches_jax(rng, tmp_path):
+    """A file the port saved from a 2-layer matching head, merged
+    non-strictly into a 1-layer student by both packages: the same params
+    after, and the teacher's second layer reported unused."""
+    d = _recipe("flagship")
+    teacher = _small_state({**d, "model": {**d["model"], "tern-layers": 2}}, seed=3)
+    path = save_checkpoint(str(tmp_path), teacher, 1, teacher.cfg.to_dict(), 0.0)
+
+    jmodel, jstate, _, state, _, _ = _both("flagship", rng)
+    want = params_from_flax(jax.tree.map(np.asarray, jax_load_teacher_params(jstate, path).params))
+    stats = load_teacher_params(state, path)
+    assert stats["unused"] and all(k.startswith("final_projection_net.layers.1.")
+                                   for k in stats["unused"])
+    assert stats["missing"] == [] and stats["matched"] == len(state.model.state_dict())
+    for name, p in state.named_params().items():
+        assert torch.equal(p.detach(), want[name]), name
+
+
+def test_resume_from_a_weights_only_file_restarts_the_optimizer(rng, tmp_path):
+    """A .pth.tar without the port's optimizer state (the reference's
+    released layout) restores weights, epoch and step; Adam starts fresh."""
+    src = _small_state(_recipe("auto"), seed=4)
+    src.step = 7
+    path = save_checkpoint(str(tmp_path), src, 3, src.cfg.to_dict(), 12.5)
+    ckpt = torch.load(path, weights_only=False)
+    ref = str(tmp_path / "reference.pth.tar")
+    torch.save({k: ckpt[k] for k in ("epoch", "model", "opt", "config", "Eiters")}, ref)
+
+    state = _small_state(_recipe("auto"), seed=5)
+    state, epoch, best = resume_state(state, ref)
+    assert (state.step, epoch, best) == (7, 3, 0.0)
+    assert state.optimizer.state_dict()["state"] == {}
+    for (name, p), q in zip(state.model.named_parameters(), src.model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_unported_training_levers_raise():
+    d = _recipe("flagship")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ALADIN(ExperimentConfig.from_dict(d), BertImgConfig(**SMALL, remat=True))
+    micro = {**d, "training": {**d["training"], "encoder-microbatch": 2}}
+    model = ALADIN(ExperimentConfig.from_dict(micro), BertImgConfig(**SMALL))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_loss_fn(model, ExperimentConfig.from_dict(micro))
+    for fn in (make_adamw, warmup_linear_schedule):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn()
+
+
+def test_orbax_directories_are_refused(tmp_path):
+    state = _small_state(_recipe("flagship"), seed=6)
+    for fn in (load_checkpoint, lambda p: resume_state(state, p),
+               lambda p: load_teacher_params(state, p)):
+        with pytest.raises(NotImplementedError, match="orbax"):
+            fn(str(tmp_path))
