@@ -61,7 +61,8 @@ def add_shared_flags(p: argparse.ArgumentParser) -> None:
                    help="bfloat16/float32: encoder dtype. int8: the encoder stays bfloat16 and "
                         "the alignment scoring kernel runs on int8 operands")
     p.add_argument("--int8_encoder", action="store_true",
-                   help="W8A8 encoder matmuls (needs kernel K4; not ported yet)")
+                   help="run the encoder's QKV and FFN-up projections as W8A8 int8 (kernel "
+                        "K4); evaluation/serving only (cli/test)")
     p.add_argument("--synthetic", action="store_true",
                    help="build a tiny on-disk synthetic dataset + random backbone")
     p.add_argument("--profile_dir", default="")
@@ -90,11 +91,14 @@ def restore_training_settings(args: DataArgs) -> DataArgs:
     return args
 
 
-def build_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device) -> ALADIN:
+def build_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device,
+                **bert_knobs) -> ALADIN:
     """ALADIN in eval mode on ``device`` for evaluation: the encoder's
-    parameters in f32 for ``--compute_dtype float32`` and in bf16
-    otherwise."""
-    return _build_aladin(cfg, args).to(device=device, dtype=compute_dtype_of(args)).eval()
+    parameters in f32 for ``--compute_dtype float32`` and in bf16 otherwise
+    (the W8A8 layers of ``--int8_encoder`` keep theirs in f32).
+    ``bert_knobs``: further BertImgConfig fields (``fused_layernorm``...)."""
+    model = _build_aladin(cfg, args, **bert_knobs)
+    return model.to(device=device, dtype=compute_dtype_of(args)).eval()
 
 
 def build_train_model(cfg: ExperimentConfig, args: DataArgs, device: torch.device) -> ALADIN:
@@ -109,10 +113,12 @@ def compute_dtype_of(args: DataArgs) -> torch.dtype:
     return torch.float32 if args.compute_dtype == "float32" else torch.bfloat16
 
 
-def _build_aladin(cfg: ExperimentConfig, args: DataArgs) -> ALADIN:
+def _build_aladin(cfg: ExperimentConfig, args: DataArgs, **bert_knobs) -> ALADIN:
     """ALADIN on the CPU with f32 parameters: heads random from a generator
     seeded with ``args.seed``, the backbone from the OSCAR directory when
-    given."""
+    given; ``--int8_encoder`` sets ``quant_matmuls`` in every branch."""
+    if args.int8_encoder:
+        bert_knobs = {"quant_matmuls": True, **bert_knobs}
     backbone_sd = None
     if args.eval_model_dir and os.path.isdir(args.eval_model_dir):
         backbone_sd, bert_cfg = load_oscar_checkpoint(args.eval_model_dir)
@@ -121,7 +127,7 @@ def _build_aladin(cfg: ExperimentConfig, args: DataArgs) -> ALADIN:
         if act != cfg.model.hidden_act:
             logger.warning("hidden-act: checkpoint declares %r, config has %r; following the "
                            "checkpoint", bert_cfg.hidden_act, cfg.model.hidden_act)
-        bert_cfg = dataclasses.replace(bert_cfg, hidden_act=act)
+        bert_cfg = dataclasses.replace(bert_cfg, hidden_act=act, **bert_knobs)
         if cfg.model.embed_size != bert_cfg.hidden_size:
             logger.warning("embed-size %d != checkpoint hidden %d; using the checkpoint's",
                            cfg.model.embed_size, bert_cfg.hidden_size)
@@ -133,10 +139,10 @@ def _build_aladin(cfg: ExperimentConfig, args: DataArgs) -> ALADIN:
             vocab_size=512, hidden_size=cfg.model.embed_size, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=2 * cfg.model.embed_size,
             max_position_embeddings=128, img_feature_dim=args.img_feature_dim,
-            hidden_act=cfg.model.hidden_act)
+            hidden_act=cfg.model.hidden_act, **bert_knobs)
     else:
         bert_cfg = BertImgConfig(img_feature_dim=args.img_feature_dim,
-                                 hidden_act=cfg.model.hidden_act)
+                                 hidden_act=cfg.model.hidden_act, **bert_knobs)
     model = ALADIN(cfg, bert_cfg)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     model.oscar_model.bert.seed_generator.manual_seed(args.seed)

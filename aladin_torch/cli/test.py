@@ -5,7 +5,8 @@ is the config) or builds the model from ``--config`` (+ an OSCAR directory
 in ``--eval_model_dir``), encodes the test split with both heads, and
 reports matching-head R@K and alignment-head R@K from the all-pairs MrSw
 scores (the CUDA kernel on the card; ``--compute_dtype int8`` scores with
-int8 operands).
+int8 operands). ``--int8_encoder`` runs the encoder's QKV and FFN-up
+projections as W8A8 int8 GEMMs (kernel K4-dynx on the card).
 
     python -m aladin_torch.cli.test --config aladin_torch/configs/<recipe>.json \\
         --eval_model_dir <oscar dir> --data_dir <coco_ir> --img_feat_file <features.tsv> \\
@@ -59,7 +60,6 @@ def _parse(argv) -> argparse.Namespace:
     ns = parser.parse_args(argv)
     unported = {
         "--ndcg": ns.ndcg,
-        "--int8_encoder (kernel K4)": ns.int8_encoder,
         "a multi-device --mesh_shape": ns.mesh_shape not in ("dp=-1", "dp=1"),
     }
     for flag, given in unported.items():
@@ -102,6 +102,8 @@ def run(argv=None) -> Dict[str, Any]:
     logger.info(f"test set: {len(test_ds.img_keys)} images / {len(test_ds)} captions")
 
     model = build_model(cfg, args, device)
+    if ns.int8_encoder:
+        logger.info("encoder: W8A8 int8 QKV and FFN-up projections")
     if payload is not None:
         stats = load_state_dict_report(model, payload["model"])
         logger.info(f"checkpoint: {stats['matched']} params loaded, "

@@ -29,6 +29,17 @@ in aladin_tpu:
   * ``fused_layernorm``: kernel K3a (ops/kernels/layernorm.py) on
     ``(x, sublayer_out)`` cast to the sublayer's dtype.
 
+and the int8 serving encoder (``quant_matmuls``, evaluation only):
+
+  * the Q/K/V projections run as one W8A8 GEMM over their concatenated
+    weights and the FFN-up projection as another with the activation in its
+    epilogue (models/quant.py: K4-dynx, quantizing the activations inside
+    the GEMM); the attention-output and FFN-down projections stay float;
+  * with ``fused_layernorm`` as well, both residual LayerNorms of every
+    layer are K3b, which also emits the int8 rows of its output: the
+    attention LN's feed FFN-up and the output LN's the next layer's QKV,
+    through K4; layer 0's QKV takes ``layernorm_q8`` of the embeddings.
+
 Module names follow OSCAR's state-dict keys (``embeddings.LayerNorm``,
 ``encoder.layer.N.attention.self.query``,
 ``encoder.layer.N.attention.output.LayerNorm``, ``img_embedding``,
@@ -47,13 +58,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aladin_torch.models.quant import FusedQuantLinear, QuantLinear
 from aladin_torch.ops.kernels.attention_kernel import fused_attention
-from aladin_torch.ops.kernels.layernorm import residual_layernorm
+from aladin_torch.ops.kernels.layernorm import (layernorm_q8, residual_layernorm,
+                                                residual_layernorm_q8)
 from aladin_torch.ops.masking import additive_attention_bias
-
-_UNPORTED_KERNELS = {
-    "quant_matmuls": "K4 (ops/pallas/quant_matmul.py::w8a8_matmul)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,14 +139,20 @@ class BertSelfAttention(nn.Module):
         self.fused_qkv = cfg.fused_qkv
         self.fused_attention = cfg.fused_attention
         self.dropout_rate = cfg.attention_probs_dropout_prob
-        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        linear = QuantLinear if cfg.quant_matmuls else nn.Linear
+        self.query = linear(cfg.hidden_size, cfg.hidden_size)
+        self.key = linear(cfg.hidden_size, cfg.hidden_size)
+        self.value = linear(cfg.hidden_size, cfg.hidden_size)
         self.dropout = nn.Dropout(cfg.attention_probs_dropout_prob)
+        self.qkv = (FusedQuantLinear([self.query, self.key, self.value]) if cfg.quant_matmuls
+                    else None)
 
-    def forward(self, x, bias, seed: Optional[int] = None):
+    def forward(self, x, bias, seed: Optional[int] = None, x_q8=None):
         b, s, _ = x.shape
-        if self.fused_qkv:  # one GEMM over the concatenated weights: same math
+        if self.qkv is not None:  # one W8A8 GEMM; x_q8: x quantized upstream
+            qkv = self.qkv(x) if x_q8 is None else self.qkv.forward_xq(*x_q8, x.dtype)
+            q, k, v = qkv.chunk(3, dim=-1)
+        elif self.fused_qkv:  # one GEMM over the concatenated weights: same math
             w = torch.cat([self.query.weight, self.key.weight, self.value.weight], dim=0)
             bb = torch.cat([self.query.bias, self.key.bias, self.value.bias])
             q, k, v = F.linear(x, w, bb).chunk(3, dim=-1)
@@ -166,13 +181,19 @@ class BertSelfOutput(nn.Module):
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
         self.fused_layernorm = cfg.fused_layernorm
+        self.emit_q8 = cfg.fused_layernorm and cfg.quant_matmuls
 
     def forward(self, h, res):
+        """(LN(res + dropout(dense(h))), its (q, s) from K3b with ``emit_q8``
+        or None)."""
         h = self.dropout(self.dense(h))
+        ln = self.LayerNorm
+        if self.emit_q8:
+            y, q, s = residual_layernorm_q8(res.to(h.dtype), h, ln.weight, ln.bias, ln.eps)
+            return y, (q, s)
         if self.fused_layernorm:  # K3a on (x, sublayer out) in the sublayer's dtype
-            ln = self.LayerNorm
-            return residual_layernorm(res.to(h.dtype), h, ln.weight, ln.bias, ln.eps)
-        return self.LayerNorm(res + h)
+            return residual_layernorm(res.to(h.dtype), h, ln.weight, ln.bias, ln.eps), None
+        return self.LayerNorm(res + h), None
 
 
 class BertAttention(nn.Module):
@@ -181,23 +202,31 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
 
-    def forward(self, x, bias, seed=None):
-        ctx, probs = self.self(x, bias, seed)
-        return self.output(ctx, x), probs
+    def forward(self, x, bias, seed=None, x_q8=None):
+        ctx, probs = self.self(x, bias, seed, x_q8)
+        return (*self.output(ctx, x), probs)
 
 
 class BertIntermediate(nn.Module):
     def __init__(self, cfg: BertImgConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.act = cfg.hidden_act
+        self.quant = cfg.quant_matmuls
+        if self.quant:  # the activation rides the W8A8 GEMM's epilogue
+            self.dense = QuantLinear(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act)
+        else:
+            self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
 
-    def forward(self, x):
-        return ffn_act(self.dense(x), self.act)
+    def forward(self, x, x_q8=None):
+        if not self.quant:
+            return ffn_act(self.dense(x), self.act)
+        return self.dense(x) if x_q8 is None else self.dense.forward_xq(*x_q8, x.dtype)
 
 
 class BertLayer(nn.Module):
-    """One post-LN BERT encoder layer."""
+    """One post-LN BERT encoder layer. ``x_q8`` (the int8 serving encoder
+    with ``fused_layernorm``) is x quantized by the previous layer's output
+    LayerNorm (or the layer-0 seed); the layer returns its own output's."""
 
     def __init__(self, cfg: BertImgConfig):
         super().__init__()
@@ -205,9 +234,11 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertSelfOutput(cfg, cfg.intermediate_size)
 
-    def forward(self, x, bias, seed=None):
-        x, probs = self.attention(x, bias, seed)
-        return self.output(self.intermediate(x), x), probs
+    def forward(self, x, bias, seed=None, x_q8=None):
+        """(output, attention probs or None, the output's (q, s) or None)."""
+        x, ln1_q8, probs = self.attention(x, bias, seed, x_q8)
+        out, ln2_q8 = self.output(self.intermediate(x, ln1_q8), x)
+        return out, probs, ln2_q8
 
 
 class BertEncoder(nn.Module):
@@ -234,11 +265,6 @@ class BertImgModel(nn.Module):
 
     def __init__(self, cfg: BertImgConfig):
         super().__init__()
-        for knob, kernel in _UNPORTED_KERNELS.items():
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"BertImgConfig.{knob} needs TPU kernel {kernel}, which the port has not "
-                    "ported yet (ROADMAP.md, queue 2)")
         if cfg.remat:
             raise NotImplementedError("BertImgConfig.remat (the B >= 512 memory lever) is not "
                                       "ported yet (ROADMAP.md, queue 1, item 4)")
@@ -278,9 +304,11 @@ class BertImgModel(nn.Module):
             seeds = torch.randint(0, 2 ** 31 - 1, (len(layers),),
                                   generator=self.seed_generator).tolist()
 
+        # the int8 stream of the quantized encoder with fused LayerNorms
+        x_q8 = layernorm_q8(x) if self.cfg.quant_matmuls and self.cfg.fused_layernorm else None
         hidden, attentions = [x], []
         for layer, seed in zip(layers, seeds):
-            x, probs = layer(x, bias, seed)
+            x, probs, x_q8 = layer(x, bias, seed, x_q8)
             if output_hidden_states:
                 hidden.append(x)
             if output_attentions:

@@ -22,6 +22,15 @@ the row padded to a power of two (1024 for D = 768) and masked.
     launching function, never at import);
   * CPU tensors run the plain version, ``residual_layernorm_forward_plain``.
 
+The same kernel with ``Q8`` on is K3b, replacing ``_fwd_kernel_q8`` (reached
+through ``residual_layernorm_q8``) for the int8 serving encoder: instead of
+the statistics it writes the per-row int8 of the f32 y, as
+``quantize_rowwise`` computes it (scale = max(absmax, 1e-8) / 127 and
+q = rint(y / scale) clipped to +-127, both divisions IEEE), so
+(y, q, s) = (M, D) in x's dtype, (M, D) int8, (M, 1) f32; one more byte a
+element to write, still bytes-bound. ``layernorm_q8`` (the layer-0 seed) is
+plain torch, as it is plain XLA in aladin_tpu.
+
 The backward is ``_rln_bwd``'s analytic formula (XLA in the JAX package),
 here in torch ops on either device:
 
@@ -36,6 +45,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from aladin_torch.ops.kernels.quant_matmul import quantize_rowwise
 
 _BLOCK_M = 4  # rows per program
 _MAX_D = 8192
@@ -61,10 +72,12 @@ def residual_layernorm_forward_plain(x, res, gamma, beta, eps: float = 1e-12):
 def _triton_kernel():
     import triton
     import triton.language as tl
+    from triton.language.extra import libdevice
 
     @triton.jit
-    def rln_fwd(x_ptr, r_ptr, g_ptr, b_ptr, y_ptr, mean_ptr, rstd_ptr, m, d, eps,
-                BLOCK_M: tl.constexpr, BLOCK_D: tl.constexpr):
+    def rln_fwd(x_ptr, r_ptr, g_ptr, b_ptr, y_ptr, a_ptr, s_ptr, m, d, eps,
+                BLOCK_M: tl.constexpr, BLOCK_D: tl.constexpr, Q8: tl.constexpr):
+        """Q8 off: (a, s) = (mean, rstd). Q8 on: (a, s) = (q int8, scale)."""
         rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
         cols = tl.arange(0, BLOCK_D)
         rmask = rows < m
@@ -80,32 +93,54 @@ def _triton_kernel():
         beta = tl.load(b_ptr + cols, mask=cmask, other=0.0)
         y = (h - mean[:, None]) * rstd[:, None] * gamma[None, :] + beta[None, :]
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-        tl.store(mean_ptr + rows, mean, mask=rmask)
-        tl.store(rstd_ptr + rows, rstd, mask=rmask)
+        if Q8:  # quantize the f32 y per row; IEEE divisions, half-to-even rounding
+            absmax = tl.max(tl.where(mask, tl.abs(y), 0.0), axis=1)
+            scale = libdevice.div_rn(tl.maximum(absmax, 1e-8), 127.0)
+            q = libdevice.rint(libdevice.div_rn(y, scale[:, None]))
+            q = tl.minimum(tl.maximum(q, -127.0), 127.0)
+            tl.store(a_ptr + offs, q.to(tl.int8), mask=mask)
+            tl.store(s_ptr + rows, scale, mask=rmask)
+        else:
+            tl.store(a_ptr + rows, mean, mask=rmask)
+            tl.store(s_ptr + rows, rstd, mask=rmask)
 
     return triton, rln_fwd
 
 
-def _launch(x2, r2, gamma, beta, eps):
-    m, d = x2.shape
+def _launch(x, res, gamma, beta, eps, q8: bool):
+    """Run the kernel on CUDA tensors: (y (M, D) in x's dtype, a, s) with
+    (a, s) = (mean, rstd) (M, 1) f32, or with ``q8`` (q (M, D) int8,
+    scale (M, 1) f32)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"residual_layernorm runs on cpu or cuda tensors, got {x.device}")
+    if res.shape != x.shape or gamma.shape != x.shape[-1:] or beta.shape != x.shape[-1:]:
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, res {tuple(res.shape)}, "
+                         f"gamma {tuple(gamma.shape)}, beta {tuple(beta.shape)}")
+    d = x.shape[-1]
     if d > _MAX_D:
         raise ValueError(f"the residual LayerNorm kernel takes D <= {_MAX_D}, got {d}")
-    if x2.dtype not in (torch.bfloat16, torch.float16, torch.float32) or r2.dtype not in (
-            torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"the residual LayerNorm kernel takes float x/res, got {x2.dtype}/{r2.dtype}")
+    floats = (torch.bfloat16, torch.float16, torch.float32)
+    if x.dtype not in floats or res.dtype not in floats:
+        raise ValueError("the residual LayerNorm kernel takes float x/res, got "
+                         f"{x.dtype}/{res.dtype}")
+    x2, r2 = x.reshape(-1, d).contiguous(), res.reshape(-1, d).contiguous()
+    m = x2.shape[0]
     y = torch.empty_like(x2)
-    mean = torch.empty(m, 1, dtype=torch.float32, device=x2.device)
-    rstd = torch.empty(m, 1, dtype=torch.float32, device=x2.device)
+    a = (torch.empty(m, d, dtype=torch.int8, device=x.device) if q8
+         else torch.empty(m, 1, dtype=torch.float32, device=x.device))
+    s = torch.empty(m, 1, dtype=torch.float32, device=x.device)
     if m == 0:
-        return y, mean, rstd
+        return y, a, s
     triton, kernel = _triton_kernel()
-    block_d = triton.next_power_of_2(d)
-    with torch.cuda.device(x2.device):
+    with torch.cuda.device(x.device):
         kernel[(triton.cdiv(m, _BLOCK_M),)](
-            x2, r2, gamma, beta, y, mean, rstd, m, d, float(eps),
-            BLOCK_M=_BLOCK_M, BLOCK_D=block_d, num_warps=4)
-    residual_layernorm_forward.launches += 1
-    return y, mean, rstd
+            x2, r2, gamma.float().contiguous(), beta.float().contiguous(), y, a, s, m, d,
+            float(eps), BLOCK_M=_BLOCK_M, BLOCK_D=triton.next_power_of_2(d), Q8=q8, num_warps=4)
+    if q8:
+        residual_layernorm_q8.launches += 1
+    else:
+        residual_layernorm_forward.launches += 1
+    return y, a, s
 
 
 def residual_layernorm_forward(x, res, gamma, beta, eps: float = 1e-12):
@@ -113,14 +148,7 @@ def residual_layernorm_forward(x, res, gamma, beta, eps: float = 1e-12):
     version for CPU tensors."""
     if x.device.type == "cpu":
         return residual_layernorm_forward_plain(x, res, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"residual_layernorm runs on cpu or cuda tensors, got {x.device}")
-    if res.shape != x.shape or gamma.shape != x.shape[-1:] or beta.shape != x.shape[-1:]:
-        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, res {tuple(res.shape)}, "
-                         f"gamma {tuple(gamma.shape)}, beta {tuple(beta.shape)}")
-    d = x.shape[-1]
-    y, mean, rstd = _launch(x.reshape(-1, d).contiguous(), res.reshape(-1, d).contiguous(),
-                            gamma.float().contiguous(), beta.float().contiguous(), eps)
+    y, mean, rstd = _launch(x, res, gamma, beta, eps, q8=False)
     return y.reshape(x.shape), mean, rstd
 
 
@@ -171,3 +199,41 @@ def residual_layernorm_plain(x: torch.Tensor, res: torch.Tensor, gamma: torch.Te
     """The same function as plain differentiable PyTorch: autograd derives
     its backward, which the analytic one is held to."""
     return residual_layernorm_forward_plain(x, res, gamma, beta, eps)[0]
+
+
+# serving path (no gradient): K3b and the layer-0 seed
+
+
+def residual_layernorm_q8_plain(x, res, gamma, beta, eps: float = 1e-12):
+    """K3b's arithmetic in PyTorch: (y in x's dtype, q int8, s f32) where
+    (q, s) is ``quantize_rowwise`` of the f32 y over the last axis; shapes
+    (..., D), (..., D), (..., 1)."""
+    d = x.shape[-1]
+    h = x.reshape(-1, d).float() + res.reshape(-1, d).float()
+    mean, rstd = _stats_plain(h, eps)
+    y = (h - mean) * rstd * gamma.float() + beta.float()
+    q, s = quantize_rowwise(y, dim=-1)
+    return y.to(x.dtype).reshape(x.shape), q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
+
+
+def residual_layernorm_q8(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
+                          beta: torch.Tensor, eps: float = 1e-12):
+    """LayerNorm(x + res) * gamma + beta and the per-row int8 of its f32
+    value, (y, q, s) as ``residual_layernorm_q8_plain`` gives them: the
+    Triton kernel (K3b) for CUDA tensors, the plain version for CPU tensors.
+    Serving only: no gradient flows through it."""
+    with torch.no_grad():
+        if x.device.type == "cpu":
+            return residual_layernorm_q8_plain(x, res, gamma, beta, eps)
+        y, q, s = _launch(x, res, gamma, beta, eps, q8=True)
+    return y.reshape(x.shape), q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
+
+
+residual_layernorm_q8.launches = 0  # kernel launches; the plain version does not count
+
+
+def layernorm_q8(x: torch.Tensor):
+    """(q, s): the per-row int8 of an already normalised hidden state, the
+    layer-0 seed of the quantized encoder; plain torch on either device, as
+    it is plain XLA in aladin_tpu."""
+    return quantize_rowwise(x.detach().float(), dim=-1)

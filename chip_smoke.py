@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
   2. build  - every CUDA kernel built from the sources in this checkout
               with nvcc (sm_90a), one nvcc a source, all started together,
               and the seconds taken (the Triton kernel compiles at its
-              first launch, in k3).
+              first launch).
   3. k1     - the MrSw all-pairs kernel (csrc/mrsw_kernel.cu) against its
               plain PyTorch version on the card: bf16 and int8, plain and
               length-bucketed, at 1000 x 5000 pairs with uniform lengths and
@@ -18,25 +18,42 @@ Phases, each printing one JSON line:
               5k x 25k benchmark shape.
   4. main   - the serving path end to end at VinVL-base width (12 layers,
               hidden 768, 2054-d regions) on random weights from a seed:
-              aladin_torch.cli.test over 1000 images / 5000 captions, once
-              with bf16 scoring and once with int8 scoring. Each run must
-              launch the kernel and give finite metrics.
-  5. k2     - the fused attention kernels (csrc/attention_kernel.cu, forward
+              aladin_torch.cli.test over 1000 images / 5000 captions, with
+              bf16 scoring, with int8 scoring, and with the int8 encoder
+              (--int8_encoder, bf16 scoring). Each run must launch K1 and
+              give finite metrics; the int8-encoder run must launch K4-dynx
+              exactly 48 times an encode batch (12 layers x {QKV, FFN-up} x
+              2 passes) and its scores correlate with the bf16 run's > 0.99.
+  5. encode_q8ln - eval.encode.encode_data over 1000 rows of that corpus
+              with quant_matmuls + fused_layernorm: 48 K3b and 48 K4
+              launches a batch, no K4-dynx or K3a, global embeddings within
+              a median cosine of 0.99 of the --int8_encoder encode's; the
+              card time of one batch's forward for those two models and the
+              bf16 one (torch.profiler).
+  6. k2     - the fused attention kernels (csrc/attention_kernel.cu, forward
               and backward) against their plain versions at the training
               path's shapes (B 128, S 50 and 84, 12 heads of 64, bf16), both
               bias shapes, dropout 0 and 0.1, a fully padded row; then
               kernel, plain and scaled_dot_product_attention times.
-  6. k3     - the fused residual+LayerNorm Triton kernel and its analytic
+  7. k3     - the fused residual+LayerNorm Triton kernel and its analytic
               backward against the plain version at M = 128 x 84 and
               128 x 50 rows of 768; kernel, plain and F.layer_norm times.
-  7. train_fused - the train step (train.step.make_train_step) on the
+  8. k4     - the W8A8 GEMM (csrc/quant_matmul.cu), int8 x and in-kernel
+              quantized x, against the plain versions at M 2688 / 1600 / 7 /
+              37, K 768, N 2304 and 3072, no activation / gelu / gelu_tanh,
+              bf16 and f32 out, the in-kernel quantize bitwise; then kernel,
+              plain, torch._int_mm and bf16 F.linear times at M 2688.
+  9. k3b    - the q8 residual LayerNorm (Triton) against its plain version
+              at M 2688 and 1600 rows of 768; kernel, plain and unfused
+              F.layer_norm + quantize times.
+  10. train_fused - the train step (train.step.make_train_step) on the
               flagship recipe at VinVL-base width, B 128, with
               fused_attention and fused_layernorm on, as
               benchmarks/train_bench.py runs it: a few steps at dropout 0.1
               that must launch K2 and K3; then one step at dropout 0 from
               the same params and batch with the knobs on and off, whose
               loss and grad_norm must agree; the step times.
-  8. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
+  11. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
               bs 32 over a synthetic corpus of 200 images with the
               VinVL-base-shaped random backbone: finite losses, validation
               launching K1, and a checkpoint that loads back.
@@ -49,6 +66,7 @@ refuses to run without a CUDA device or outside the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -77,6 +95,18 @@ BF16_ULP = 2.0 ** -7
 # f32 results of a reduction in another order (LayerNorm statistics, the
 # dgamma / dbeta column sums over ~10^4 rows): relative to the largest.
 F32_SUM_RTOL = 1e-4
+# K4 and K4-dynx against their plain versions with f32 output: the int32
+# sums are exact and the epilogue is the same f32 arithmetic, so without an
+# activation they should agree exactly (1e-6 of the largest leaves room for
+# a rounding); with one, erff / tanhf against torch's may differ by ulps.
+K4_F32_RTOL = 1e-6
+K4_F32_ACT_RTOL = 1e-5
+# K3b's q against its plain version: the statistics are summed in another
+# order, so a y on a .5 boundary of its scale may round the other way.
+K3B_Q_EQUAL_SHARE = 0.999
+# alignment scores of the int8 encoder against the bf16 encoder's (the bound
+# tests/test_quant.py puts on the encoder output cosine)
+INT8_ENCODER_CORR = 0.99
 # knobs on vs off, one train step at dropout 0: the fused path keeps the
 # residual stream in bf16 (the kernel's y has x's dtype, as in aladin_tpu)
 # where autocast's LayerNorm returns f32, so 24 LayerNorms differ by bf16
@@ -322,39 +352,61 @@ def time_loader(oscar_dir: str, data: str) -> float:
     return time.perf_counter() - t0
 
 
-def phase_main() -> dict:
-    import math
+def serving_corpus(tmp: str):
+    """(oscar dir, data dir, setup seconds): the VinVL-base-shaped backbone
+    and a synthetic corpus of 1000 images / 5000 captions under ``tmp``."""
+    from aladin_torch.data.dataset import make_synthetic_dataset
 
+    t0 = time.perf_counter()
+    oscar, data = os.path.join(tmp, "oscar"), os.path.join(tmp, "coco_ir")
+    write_oscar_dir(oscar, SYNTH_VOCAB)
+    make_synthetic_dataset(data, n_images=1000, feat_dim=2054)
+    return oscar, data, time.perf_counter() - t0
+
+
+def recipe_bs() -> int:
+    with open(os.path.join(ROOT, "aladin_torch", "configs", RECIPE)) as f:
+        return json.load(f)["training"]["bs"]
+
+
+def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
+    """cli/test at full width: bf16 scoring, int8 scoring, and the int8
+    encoder (--int8_encoder) with bf16 scoring."""
     import torch
 
     from aladin_torch.cli import test as cli_test
-    from aladin_torch.data.dataset import make_synthetic_dataset
+    from aladin_torch.ops.kernels import layernorm as lk
+    from aladin_torch.ops.kernels import quant_matmul as qm
     from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 
-    vocab = SYNTH_VOCAB
+    counters = {"k1": mrsw_scores, "k4_dynx": qm.w8a8_matmul_dynx, "k4": qm.w8a8_matmul,
+                "k3b": lk.residual_layernorm_q8, "k3a": lk.residual_layernorm_forward}
     launches, results = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_oscar_dir(os.path.join(tmp, "oscar"), vocab)
-        data = os.path.join(tmp, "coco_ir")
-        make_synthetic_dataset(data, n_images=1000, feat_dim=2054)
-        setup_s = time.perf_counter() - t0
-        common = [
-            "--config", os.path.join(ROOT, "aladin_torch", "configs", RECIPE),
-            "--eval_model_dir", os.path.join(tmp, "oscar"), "--data_dir", data,
-            "--img_feat_file", os.path.join(data, "features.tsv"),
-            "--eval_img_keys_file", "test_img_keys.tsv", "--max_seq_length", "50",
-            "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
-            "--logger_name", tmp, "--device", "cuda",
-        ]
-        for name, extra in (("bf16", []), ("int8", ["--compute_dtype", "int8"])):
-            mrsw_scores.launches = 0
-            res = cli_test.run(common + extra)
-            launches[name] = mrsw_scores.launches
-            results[name] = res
-            if launches[name] == 0:
-                raise AssertionError(f"{name} run never launched the MrSw kernel")
-        loader_s = time_loader(os.path.join(tmp, "oscar"), data)
+    common = [
+        "--config", os.path.join(ROOT, "aladin_torch", "configs", RECIPE),
+        "--eval_model_dir", oscar, "--data_dir", data,
+        "--img_feat_file", os.path.join(data, "features.tsv"),
+        "--eval_img_keys_file", "test_img_keys.tsv", "--max_seq_length", "50",
+        "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
+        "--logger_name", tmp, "--device", "cuda",
+    ]
+    batches = math.ceil(5000 / recipe_bs())
+    runs = (("bf16", []), ("int8", ["--compute_dtype", "int8"]),
+            ("int8_encoder", ["--int8_encoder"]))
+    for name, extra in runs:
+        for fn in counters.values():
+            fn.launches = 0
+        res = cli_test.run(common + extra)
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        results[name] = res
+        if launches[name]["k1"] == 0:
+            raise AssertionError(f"{name} run never launched the MrSw kernel")
+        want_dynx = 48 * batches if name == "int8_encoder" else 0  # 12 layers x 2 GEMMs x 2 passes
+        if (launches[name]["k4_dynx"] != want_dynx or launches[name]["k4"]
+                or launches[name]["k3b"] or launches[name]["k3a"]):
+            raise AssertionError(f"{name} run launched {launches[name]}; expected "
+                                 f"{want_dynx} K4-dynx ({batches} encode batches) and no K4/K3")
+    loader_s = time_loader(oscar, data)
     for name, res in results.items():
         metrics = {**{f"matching_{k}": v for k, v in res["matching"].items()},
                    **{f"alignment_i2t_{k}": v for k, v in res["alignment_i2t"].items()},
@@ -362,18 +414,90 @@ def phase_main() -> dict:
         scores = res["scores"]
         if scores.shape != (1000, 5000) or not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"{name} run: bad scores {scores.shape} or metrics {metrics}")
-        emit({"phase": "main", "scoring": name, "images": 1000, "captions": 5000,
-              "setup_seconds": setup_s, "encode_seconds": res["encode_seconds"],
-              "loader_only_seconds": loader_s,
+        emit({"phase": "main", "run": name, "images": 1000, "captions": 5000,
+              "encode_batches": batches, "setup_seconds": setup_s,
+              "encode_seconds": res["encode_seconds"], "loader_only_seconds": loader_s,
               "score_seconds": res["score_seconds"], "kernel_launches": launches[name],
               "metrics": metrics})
-    a = torch.from_numpy(results["bf16"]["scores"]).double().flatten()
-    b = torch.from_numpy(results["int8"]["scores"]).double().flatten()
-    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
-    if not corr > 0.999:
-        raise AssertionError(f"int8 and bf16 alignment scores disagree (corr {corr})")
-    emit({"phase": "main_check", "bf16_int8_score_corr": corr})
-    return launches
+
+    def corr(a, b):
+        a = torch.from_numpy(results[a]["scores"]).double().flatten()
+        b = torch.from_numpy(results[b]["scores"]).double().flatten()
+        return float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+
+    check = {"bf16_int8_score_corr": corr("bf16", "int8"),
+             "bf16_int8_encoder_score_corr": corr("bf16", "int8_encoder")}
+    if not check["bf16_int8_score_corr"] > 0.999:
+        raise AssertionError(f"int8 and bf16 alignment scores disagree: {check}")
+    if not check["bf16_int8_encoder_score_corr"] > INT8_ENCODER_CORR:
+        raise AssertionError(f"the int8 encoder's alignment scores disagree with bf16's: {check}")
+    emit({"phase": "main_check", **check, "int8_encoder_corr_limit": INT8_ENCODER_CORR})
+    return {name: launches[name] for name, _ in runs}
+
+
+def phase_encode_q8ln(oscar: str, data: str) -> dict:
+    """eval.encode.encode_data at full width over 1000 rows of the serving
+    corpus with quant_matmuls + fused_layernorm (K3b feeding K4), against
+    the --int8_encoder model (K4-dynx) on the same rows."""
+    import numpy as np
+    import torch
+
+    from aladin_torch.cli.common import build_model, build_tokenizer
+    from aladin_torch.config import DataArgs, load_config
+    from aladin_torch.data.dataset import RetrievalDataset
+    from aladin_torch.data.pipeline import BatchLoader, batch_from_numpy
+    from aladin_torch.eval.encode import encode_data
+    from aladin_torch.ops.kernels import layernorm as lk
+    from aladin_torch.ops.kernels import quant_matmul as qm
+
+    keys = os.path.join(data, "test_img_keys_200.tsv")  # 200 images: 1000 caption rows
+    with open(keys, "w") as f:
+        f.write("\n".join(str(100 + i) for i in range(200)))
+    args = DataArgs(data_dir=data, img_feat_file=os.path.join(data, "features.tsv"),
+                    eval_model_dir=oscar, max_seq_length=50, max_img_seq_length=34,
+                    add_od_labels=True, eval_img_keys_file=os.path.basename(keys),
+                    int8_encoder=True)
+    cfg = load_config(os.path.join(ROOT, "aladin_torch", "configs", RECIPE))
+    ds = RetrievalDataset(build_tokenizer(args), args, "test", is_train=False)
+    loader = BatchLoader(ds, cfg.training.bs, shuffle=False, drop_last=False, device="cuda")
+    counters = {"k3b": lk.residual_layernorm_q8, "k4": qm.w8a8_matmul,
+                "k4_dynx": qm.w8a8_matmul_dynx, "k3a": lk.residual_layernorm_forward}
+    batch = batch_from_numpy(ds.collate(np.arange(cfg.training.bs)), torch.device("cuda"))
+    out, seconds, launches, profiles = {}, {}, {}, {}
+    for name, knobs in (("int8_encoder", {}), ("q8ln", {"fused_layernorm": True}), ("bf16", {})):
+        run_args = dataclasses.replace(args, int8_encoder=name != "bf16")
+        model = build_model(cfg, run_args, torch.device("cuda"), **knobs)
+        if name != "bf16":
+            seconds[name] = []
+            for _ in range(2):  # the first pass includes the Triton kernel's compile
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                out[name] = encode_data(model, loader, buffer_len=51)
+                torch.cuda.synchronize()
+                seconds[name].append(time.perf_counter() - t0)
+            launches[name] = {k: fn.launches for k, fn in counters.items()}
+        with torch.inference_mode():  # the card's time for one batch of the encode
+            model(batch)
+            profiles[name] = device_profile(lambda: model(batch), 3, top=6)
+        del model
+    want = 48 * len(loader)  # a batch: 12 layers x 2 (LNs or GEMMs) x 2 passes
+    if launches["q8ln"] != {"k3b": want, "k4": want, "k4_dynx": 0, "k3a": 0}:
+        raise AssertionError(f"q8ln encode launched {launches['q8ln']}, expected {want} "
+                             f"K3b and K4 ({len(loader)} batches) and no K4-dynx or K3a")
+    cos = {}
+    for i, side in enumerate(("image", "caption")):
+        a, b = out["int8_encoder"][i][:, 0], out["q8ln"][i][:, 0]  # the global embeddings
+        if not (np.isfinite(b).all() and a.shape == b.shape == (len(ds), 768)):
+            raise AssertionError(f"q8ln {side} globals: shape {b.shape} or not finite")
+        c = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+        cos[side] = {"median": float(np.median(c)), "min": float(c.min())}
+        if not cos[side]["median"] > 0.99:
+            raise AssertionError(f"q8ln and int8-encoder {side} globals disagree: {cos[side]}")
+    emit({"phase": "encode_q8ln", "rows": len(ds), "batches": len(loader),
+          "encode_seconds_first_second": seconds, "launches_second": launches,
+          "global_cosine": cos, "device_profile_one_batch": profiles})
+    return launches["q8ln"]
 
 
 def bound(n_bytes: float, ops: float, peak: str):
@@ -552,6 +676,138 @@ def phase_k3() -> dict:
           "library": "F.layer_norm(x + res): two calls (the add, then the LayerNorm); "
                      "backward_ms: the analytic backward in torch ops (no kernel of its own, "
                      "XLA in aladin_tpu)"})
+    return {"max_err": max_err, "timings": timings}
+
+
+def w8a8_bound(m: int, k: int, n: int, x_bytes: int, out_bytes: int = 2):
+    """K4's least time: x (x_bytes a value; int8 x adds its f32 row scales),
+    wq and the f32 weight scales and bias read once, y written once, against
+    2*M*K*N int8 operations."""
+    n_bytes = m * k * x_bytes + (4 * m if x_bytes == 1 else 0) + n * k + 8 * n + m * n * out_bytes
+    return bound(n_bytes, 2.0 * m * k * n, "int8")
+
+
+def phase_k4() -> dict:
+    """K4 and K4-dynx against their plain versions at the encoder's shapes
+    (M 2688 / 1600, the image and caption passes at bs 32, and M 7 / 37;
+    K 768; N 2304 QKV, 3072 FFN-up with gelu, one gelu_tanh case; bf16 and
+    f32 out); then times at M 2688."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.ops.kernels import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k = 768
+    checks, max_err, timings = [], {"k4": 0.0, "k4_dynx": 0.0}, {}
+    cases = ((2304, None, "qkv"), (3072, "gelu", "ffn_up"), (2304, "gelu_tanh", "gelu_tanh"))
+    for m in (2688, 1600, 7, 37):
+        for n, act, label in cases:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            wq, ws = qm.quantize_weight(0.03 * torch.randn(n, k, generator=gen, device="cuda"))
+            b = 0.1 * torch.randn(n, generator=gen, device="cuda")
+            xq, xs = qm.quantize_rowwise(x)
+            for od in (torch.bfloat16, torch.float32):
+                kw = {"activation": act, "out_dtype": od}
+                for name, got, want in (
+                        ("k4", qm.w8a8_matmul(xq, xs, wq, ws, b, **kw),
+                         qm.w8a8_matmul_plain(xq, xs, wq, ws, b, **kw)),
+                        ("k4_dynx", qm.w8a8_matmul_dynx(x, wq, ws, b, **kw),
+                         qm.w8a8_matmul_dynx_plain(x, wq, ws, b, **kw))):
+                    rel = (BF16_ULP if od == torch.bfloat16
+                           else K4_F32_RTOL if act is None else K4_F32_ACT_RTOL)
+                    max_err[name] = max(max_err[name], check_close(
+                        checks, name, f"M{m} N{n} {act} {str(od)[6:]}", got, want,
+                        rel * want.float().abs().max().item()))
+            # the in-kernel q and scale equal the plain quantize bitwise
+            xq2, xs2 = qm.quantize_rowwise_dynx(x)
+            got = qm.w8a8_matmul_dynx(x, wq, ws, b, out_dtype=torch.float32)
+            if not torch.equal(got, qm.w8a8_matmul_plain(xq2, xs2, wq, ws, b,
+                                                          out_dtype=torch.float32)):
+                raise AssertionError(f"K4-dynx's in-kernel quantize differs at M{m} N{n}")
+            if m != 2688 or act == "gelu_tanh":
+                continue
+            wt = wq.t()  # (K, N) column-major for torch._int_mm
+            w16 = (wq.float() * ws[:, None]).to(torch.bfloat16)
+
+            def epilogue(acc, scale, act=act):
+                y = acc.float() * scale * ws + b
+                return (F.gelu(y) if act else y).to(torch.bfloat16)
+
+            def linear(act=act):
+                y = F.linear(x, w16, b.to(torch.bfloat16))
+                return F.gelu(y) if act else y
+
+            def lib_dynx():
+                q, sc = qm.quantize_rowwise_dynx(x)
+                return epilogue(torch._int_mm(q, wt), sc)
+
+            timings[label] = {"shape": f"M{m} K{k} N{n} {act} bf16 out", "bf16_linear_ms":
+                              device_ms(linear, 50)}
+            for name, fn, plain, lib, x_bytes in (
+                    ("k4", lambda: qm.w8a8_matmul(xq, xs, wq, ws, b, activation=act),
+                     lambda: qm.w8a8_matmul_plain(xq, xs, wq, ws, b, activation=act),
+                     lambda: epilogue(torch._int_mm(xq, wt), xs), 1),
+                    ("k4_dynx", lambda: qm.w8a8_matmul_dynx(x, wq, ws, b, activation=act),
+                     lambda: qm.w8a8_matmul_dynx_plain(x, wq, ws, b, activation=act),
+                     lib_dynx, 2)):
+                bound_ms, bound_by = w8a8_bound(m, k, n, x_bytes)
+                timings[label][name] = {"ms": device_ms(fn, 50), "plain_ms": device_ms(plain, 10),
+                                        "library_ms": device_ms(lib, 50), "bound_ms": bound_ms,
+                                        "bound_by": bound_by}
+    emit({"phase": "k4", "checks": checks, "dynx_quantize_bitwise": True,
+          "tolerance": "bf16 out: max|want| * 2^-7; f32 out: 1e-6 (1e-5 with gelu) of max|want|",
+          "timings": timings,
+          "timing": "card time (device_ms); bound: bytes over 3.35 TB/s or 2MKN over 1979 TOP/s",
+          "library": "torch._int_mm + the descale, bias and gelu in torch ops (dynx: plus the "
+                     "torch quantize); bf16_linear_ms: F.linear in bf16 (+ F.gelu)"})
+    return {"max_err": max_err, "timings": timings}
+
+
+def phase_k3b() -> dict:
+    """K3b (Triton) against its plain version at M 2688 and 1600 rows of
+    768, bf16 x and res; then times."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.ops.kernels import layernorm as lk
+    from aladin_torch.ops.kernels.quant_matmul import quantize_rowwise
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d, eps = 768, 1e-12
+    checks, max_err, timings, q_share = [], 0.0, {}, {}
+    for m in (2688, 1600):
+        x = torch.randn(m, d, generator=gen, device="cuda").to(torch.bfloat16)
+        res = (0.5 * torch.randn(m, d, generator=gen, device="cuda")).to(torch.bfloat16)
+        gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        y, q, s = lk.residual_layernorm_q8(x, res, gamma, beta, eps)
+        wy, wq, ws = lk.residual_layernorm_q8_plain(x, res, gamma, beta, eps)
+        tag = f"M{m}"
+        max_err = max(max_err, check_close(checks, "K3b", tag + " y", y, wy,
+                                           BF16_ULP * wy.float().abs().max().item()))
+        check_close(checks, "K3b", tag + " s", s, ws, F32_SUM_RTOL * ws.abs().max().item())
+        share = (q == wq).float().mean().item()
+        step = (q.int() - wq.int()).abs().max().item()
+        q_share[tag] = {"equal_share": share, "max_step": step}
+        if share < K3B_Q_EQUAL_SHARE or step > 1:
+            raise AssertionError(f"K3b's q disagrees with its plain version: {q_share[tag]}")
+        g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+        bound_ms, bound_by = bound(3 * m * d * 2 + m * d + m * 4 + 2 * d * 4, 12.0 * m * d, "f32")
+        timings[m] = {
+            "ms": device_ms(lambda: lk.residual_layernorm_q8(x, res, gamma, beta, eps), 50),
+            "plain_ms": device_ms(
+                lambda: lk.residual_layernorm_q8_plain(x, res, gamma, beta, eps), 20),
+            "library_ms": device_ms(
+                lambda: quantize_rowwise(F.layer_norm(x + res, (d,), g16, b16, eps)), 50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    emit({"phase": "k3b", "checks": checks, "q": q_share,
+          "tolerance": "y max|want| * 2^-7; s 1e-4 of max|want|; q equal in >= 99.9% and "
+                       "at most one step apart",
+          "timings": {f"M{m} D{d} bf16": t for m, t in timings.items()},
+          "timing": "card time (device_ms)",
+          "library": "F.layer_norm(x + res) then quantize_rowwise in torch ops (unfused)"})
     return {"max_err": max_err, "timings": timings}
 
 
@@ -768,14 +1024,20 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     k1 = phase_k1()
-    launches = phase_main()
+    with tempfile.TemporaryDirectory() as tmp:
+        oscar, data, setup_s = serving_corpus(tmp)
+        launches = phase_main(tmp, oscar, data, setup_s)
+        q8ln = phase_encode_q8ln(oscar, data)
     k2 = phase_k2()
     k3 = phase_k3()
+    k4 = phase_k4()
+    k3b = phase_k3b()
     fused = phase_train_fused()["launches"]
     phase_train_cli()
     kernels = [{
         "name": f"mrsw_scores ({name})", "route": "cuda", "source": "aladin_torch/csrc/mrsw_kernel.cu",
-        "replaces": "aladin_tpu/ops/pallas/alignment_kernel.py:59", "launches": launches[name],
+        "replaces": "aladin_tpu/ops/pallas/alignment_kernel.py:59",
+        "launches": launches[name]["k1"],
         "max_abs_err": k1["max_err"][name], "ms": k1["timings"][name]["ms"],
         "plain_ms": k1["timings"][name]["plain_ms"], "bound_ms": k1["timings"][name]["bound_ms"],
         "bound_by": k1["timings"][name]["bound_by"], "library_ms": None,
@@ -798,6 +1060,26 @@ def main() -> int:
         "max_abs_err": k3["max_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "M10752 D768 bf16"})
+    # K3b and K4 from the q8ln encode, K4-dynx from cli/test --int8_encoder;
+    # times at the image pass's M 2688 (the QKV shape for K4)
+    t = k3b["timings"][2688]
+    kernels.append({
+        "name": "residual_layernorm_q8", "route": "triton",
+        "source": "aladin_torch/ops/kernels/layernorm.py",
+        "replaces": "aladin_tpu/ops/pallas/layernorm.py:79", "launches": q8ln["k3b"],
+        "max_abs_err": k3b["max_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": "M2688 D768 bf16"})
+    for name, key, line, count in (("w8a8_matmul", "k4", 70, q8ln["k4"]),
+                                   ("w8a8_matmul_dynx", "k4_dynx", 76,
+                                    launches["int8_encoder"]["k4_dynx"])):
+        t = k4["timings"]["qkv"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "aladin_torch/csrc/quant_matmul.cu",
+            "replaces": f"aladin_tpu/ops/pallas/quant_matmul.py:{line}", "launches": count,
+            "max_abs_err": k4["max_err"][key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": "M2688 K768 N2304 bf16 out"})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     print(smi, flush=True)

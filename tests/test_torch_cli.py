@@ -5,8 +5,9 @@ Both CLIs evaluate a ``.pth.tar`` written by aladin_tpu's
 ``save_aladin_checkpoint`` from seeded parameters, on the same synthetic
 corpus, with f32 encoders and f32 scoring. Both heads' R@1/5/10 and medr
 must be equal and the alignment scores within 1e-4 (the same f32 math in
-another summation order). Where an alignment rank differs, the scores
-involved must be within that tolerance: a near-tie, not a fault.
+another summation order), with the f32 encoder and with ``--int8_encoder``.
+Where an alignment rank differs, the scores involved must be within that
+tolerance: a near-tie, not a fault.
 """
 
 import os
@@ -70,9 +71,11 @@ def _assert_ranks_or_near_tie(got, want):
             assert gaps.min() < TOL, (q, g[q], w[q])
 
 
-def test_cli_slice_matches_jax(checkpoint, monkeypatch):
+def _both_clis(checkpoint, monkeypatch, tag, flags=()):
+    """(the port's results, what aladin_tpu's CLI computed) on one checkpoint."""
     work, path = checkpoint
-    common = ["--synthetic", "--compute_dtype", "float32", "--load_checkpoint", path, *DIMS]
+    common = ["--synthetic", "--compute_dtype", "float32", "--load_checkpoint", path, *DIMS,
+              *flags]
     seen = {}
 
     def record(name, fn):
@@ -83,13 +86,16 @@ def test_cli_slice_matches_jax(checkpoint, monkeypatch):
 
     record("compute_recall", jax_cli.compute_recall)
     record("evaluate_alignment_head", jax_cli.evaluate_alignment_head)
-    jout = os.path.join(work, "jax")
+    jout = os.path.join(work, "jax" + tag)
     assert jax_cli.main(common + ["--output_dir", jout, "--logger_name", jout,
                                   "--mesh_shape", "dp=1"]) == 0
-    tout = os.path.join(work, "torch")
+    tout = os.path.join(work, "torch" + tag)
     got = torch_cli.run(common + ["--output_dir", tout, "--logger_name", tout,
                                   "--device", "cpu"])
+    return got, seen
 
+
+def _assert_same_results(got, seen):
     want_i2t, want_t2i, want_scores = seen["evaluate_alignment_head"]
     want_scores = np.array(want_scores)
     assert got["scores"].shape == want_scores.shape == (8, 40)
@@ -103,6 +109,18 @@ def test_cli_slice_matches_jax(checkpoint, monkeypatch):
         assert got["matching"][key] == seen["compute_recall"][key], key
 
 
+def test_cli_slice_matches_jax(checkpoint, monkeypatch):
+    _assert_same_results(*_both_clis(checkpoint, monkeypatch, ""))
+
+
+def test_cli_int8_encoder_matches_jax(checkpoint, monkeypatch):
+    """--int8_encoder in both CLIs: the W8A8 QKV and FFN-up GEMMs, f32 out.
+    The port quantizes activations with the dynx kernel's reciprocal-multiply
+    scale where aladin_tpu's CPU path divides, so a scale may differ by one
+    f32 ulp; the same 1e-4 on the scores holds."""
+    _assert_same_results(*_both_clis(checkpoint, monkeypatch, "_int8", ["--int8_encoder"]))
+
+
 def test_cli_needs_cuda_unless_cpu_asked(checkpoint):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the guard under test cannot fire")
@@ -112,7 +130,7 @@ def test_cli_needs_cuda_unless_cpu_asked(checkpoint):
                         "--output_dir", os.path.join(work, "nocuda")])
 
 
-@pytest.mark.parametrize("flags", [["--ndcg"], ["--int8_encoder"], ["--mesh_shape", "dp=2"]])
+@pytest.mark.parametrize("flags", [["--ndcg"], ["--mesh_shape", "dp=2"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli.main(["--synthetic", "--device", "cpu", *flags])

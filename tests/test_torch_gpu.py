@@ -14,6 +14,7 @@ import torch
 from aladin_torch.ops.kernels import alignment_kernel as ak
 from aladin_torch.ops.kernels import attention_kernel as at
 from aladin_torch.ops.kernels import layernorm as lk
+from aladin_torch.ops.kernels import quant_matmul as qm
 
 pytestmark = pytest.mark.gpu
 
@@ -151,3 +152,111 @@ def test_residual_layernorm_kernel_matches_plain(cuda, x_dtype, m, d):
             assert (got - want).abs().max() <= 1e-4 * want.abs().max()
         else:
             _ulp_close(got, want, want.dtype)
+
+
+def _w8a8_inputs(gen, m, k, n):
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = 0.03 * torch.randn(n, k, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    return x, *qm.quantize_weight(w), b
+
+
+@pytest.mark.parametrize("activation", [None, "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [7, 2688])
+def test_w8a8_kernels_match_plain(cuda, activation, out_dtype, m):
+    """K4 and K4-dynx against their plain versions at K 768, N 2304: the
+    int32 sums are exact and the f32 epilogue is the same arithmetic, so
+    f32 results agree to 1e-6 of the largest without an activation (1e-5
+    with one: erff / tanhf against torch's) and bf16 results to one bf16
+    ulp of the largest. One launch each."""
+    x, wq, ws, b = _w8a8_inputs(cuda, m, 768, 2304)
+    xq, xs = qm.quantize_rowwise(x)
+    before = (qm.w8a8_matmul.launches, qm.w8a8_matmul_dynx.launches)
+    kw = {"activation": activation, "out_dtype": out_dtype}
+    pairs = ((qm.w8a8_matmul(xq, xs, wq, ws, b, **kw),
+              qm.w8a8_matmul_plain(xq, xs, wq, ws, b, **kw)),
+             (qm.w8a8_matmul_dynx(x, wq, ws, b, **kw),
+              qm.w8a8_matmul_dynx_plain(x, wq, ws, b, **kw)))
+    assert (qm.w8a8_matmul.launches, qm.w8a8_matmul_dynx.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in pairs:
+        assert got.shape == (m, 2304) and got.dtype == out_dtype and torch.isfinite(got).all()
+        rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else (1e-6 if activation is None else 1e-5)
+        assert (got.float() - want.float()).abs().max() <= rel * want.float().abs().max()
+
+
+def test_w8a8_dynx_quantizes_like_its_plain_version(cuda):
+    """The in-kernel q and scale equal quantize_rowwise_dynx's bitwise: the
+    f32 output without activation equals the plain GEMM on them exactly."""
+    x, wq, ws, b = _w8a8_inputs(cuda, 300, 768, 3072)
+    xq, xs = qm.quantize_rowwise_dynx(x)
+    assert torch.equal(qm.w8a8_matmul_dynx(x, wq, ws, b, out_dtype=torch.float32),
+                       qm.w8a8_matmul_plain(xq, xs, wq, ws, b, out_dtype=torch.float32))
+
+
+def test_w8a8_kernels_refuse_what_they_cannot_take(cuda):
+    x, wq, ws, b = _w8a8_inputs(cuda, 8, 768, 256)
+    xq, xs = qm.quantize_rowwise(x)
+    with pytest.raises(ValueError, match="int8 activations"):
+        qm.w8a8_matmul(x, xs, wq, ws, b)
+    with pytest.raises(ValueError, match="bf16 or f32 activations"):
+        qm.w8a8_matmul_dynx(x.half(), wq, ws, b)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qm.w8a8_matmul_dynx(x[:, :760], wq[:, :760], ws, b)
+    big = torch.zeros(8, qm.MAX_K + 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qm.w8a8_matmul_dynx(big, torch.zeros(4, qm.MAX_K + 16, device="cuda", dtype=torch.int8),
+                            ws[:4])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        qm.w8a8_matmul(xq, xs, wq, ws, b, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="int8 wq"):
+        qm.w8a8_matmul(xq, xs, wq.float(), ws, b)
+
+
+@pytest.mark.parametrize("m", [2688, 1600, 7])
+def test_residual_layernorm_q8_kernel_matches_plain(cuda, m):
+    """K3b against its plain version: y within one bf16 ulp of the largest,
+    s within 1e-4 relative (statistics summed in another order), q equal in
+    at least 99.9% of elements and never more than one step apart. One
+    launch, and K3a's count does not move."""
+    x = torch.randn(m, 768, generator=cuda, device="cuda").to(torch.bfloat16)
+    res = (0.5 * torch.randn(m, 768, generator=cuda, device="cuda")).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(768, generator=cuda, device="cuda")
+    beta = 0.1 * torch.randn(768, generator=cuda, device="cuda")
+    before = (lk.residual_layernorm_q8.launches, lk.residual_layernorm_forward.launches)
+    y, q, s = lk.residual_layernorm_q8(x, res, gamma, beta)
+    assert (lk.residual_layernorm_q8.launches, lk.residual_layernorm_forward.launches) == (
+        before[0] + 1, before[1])
+    wy, wq, ws = lk.residual_layernorm_q8_plain(x, res, gamma, beta)
+    _ulp_close(y, wy, torch.bfloat16)
+    assert q.dtype == torch.int8 and s.shape == (m, 1)
+    assert ((s - ws).abs() <= 1e-4 * ws.abs()).all()
+    assert (q == wq).float().mean().item() >= 0.999
+    assert (q.int() - wq.int()).abs().max().item() <= 1
+
+
+def test_quant_encoder_launches_its_kernels(cuda):
+    """The backbone with quant_matmuls launches K4-dynx twice a layer (QKV,
+    FFN-up); with fused_layernorm as well, K3b and K4 twice a layer and
+    neither K4-dynx nor K3a. Outputs stay finite and close to the float
+    encoder's."""
+    from aladin_torch.models.bert_img import BertImgConfig, BertImgModel
+
+    small = dict(vocab_size=97, hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=256, max_position_embeddings=64, img_feature_dim=32)
+    ids = torch.randint(3, 97, (4, 12), generator=cuda, device="cuda")
+    mask = torch.ones(4, 12, dtype=torch.int32, device="cuda")
+    ref = BertImgModel(BertImgConfig(**small)).cuda().eval()
+    counters = (qm.w8a8_matmul_dynx, qm.w8a8_matmul, lk.residual_layernorm_q8,
+                lk.residual_layernorm_forward)
+    for knobs, want in (({"quant_matmuls": True}, (4, 0, 0, 0)),
+                        ({"quant_matmuls": True, "fused_layernorm": True}, (0, 4, 4, 0))):
+        model = BertImgModel(BertImgConfig(**small, **knobs)).cuda().eval()
+        model.load_state_dict(ref.state_dict())
+        before = [fn.launches for fn in counters]
+        with torch.no_grad():
+            got, want_out = model(ids, mask)[0], ref(ids, mask)[0]
+        assert tuple(fn.launches - b for fn, b in zip(counters, before)) == want, knobs
+        assert torch.isfinite(got).all()
+        cos = torch.nn.functional.cosine_similarity(got.flatten(1), want_out.flatten(1))
+        assert cos.min().item() > 0.99

@@ -86,12 +86,15 @@ def test_backbone_text_and_image_paths(rng, variant):
             _close(g, w)
 
 
-def test_unported_kernel_knobs_raise():
-    """quant_matmuls needs K4, not ported yet; the K2 / K3a knobs build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K4|K4.*ROADMAP"):
-        BertImgModel(BertImgConfig(**SMALL, quant_matmuls=True))
-    for knob in ("fused_attention", "fused_layernorm"):
-        BertImgModel(BertImgConfig(**SMALL, **{knob: True}))
+def test_kernel_knobs_build():
+    """Every kernel knob builds (quant_matmuls alone and with fused_layernorm,
+    fused_attention, fused_layernorm), with the state-dict keys and shapes
+    of the plain backbone."""
+    plain = {k: v.shape for k, v in BertImgModel(BertImgConfig(**SMALL)).state_dict().items()}
+    for knobs in ({"quant_matmuls": True}, {"quant_matmuls": True, "fused_layernorm": True},
+                  {"fused_attention": True}, {"fused_layernorm": True}):
+        model = BertImgModel(BertImgConfig(**SMALL, **knobs))
+        assert {k: v.shape for k, v in model.state_dict().items()} == plain, knobs
 
 
 def test_matching_head_encoder(rng):
