@@ -12,8 +12,9 @@ from the same seed and returns dq, dk, dv in q's dtype, computing in f32
 and using the undropped probabilities in the softmax VJP; bias and seed get
 no gradient. Then:
 
-  * CUDA tensors launch ``csrc/attention_kernel.cu`` (bf16 or f32, d = 64,
-    S <= 160; anything else raises);
+  * CUDA tensors launch ``csrc/attention_kernel.cu`` (d = 64, S <= 160;
+    bf16 runs the tensor-core kernels, f32 the CUDA-core ones, whose
+    backward needs S <= 142 for its shared memory; anything else raises);
   * CPU tensors run the plain PyTorch versions, ``attention_forward_plain``
     and ``attention_backward_plain``.
 
@@ -38,7 +39,7 @@ from aladin_torch.ops.kernels import build
 _KERNEL_SOURCE = "attention_kernel.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIM = 64  # the kernel's head width
-MAX_SEQ = 160  # five key columns per lane
+MAX_SEQ = 160  # bf16: ten warps of 16 query rows; f32: five key columns per lane
 MAX_SMEM = 232448  # the opt-in shared memory of one block on sm_90
 _M32 = 0xFFFFFFFF
 
@@ -163,6 +164,13 @@ def _check(q, k, v, bias, backward: bool) -> None:
                          f"(limit {MAX_SMEM})")
 
 
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, as the bf16 kernels'
+    16-byte cp.async staging needs (a copy only for an offset view)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_args(q, bias, seed, dropout_rate, train, stream):
     b, s, h, d = q.shape
     on = _dropout_on(dropout_rate, train)
@@ -185,7 +193,7 @@ def attention_forward(q, k, v, bias, seed: int = 0, dropout_rate: float = 0.0,
         return attention_forward_plain(q, k, v, bias, seed, dropout_rate, train)
     if q.device.type != "cuda":
         raise ValueError(f"fused attention runs on cpu or cuda tensors, got {q.device}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_staged(t) for t in (q, k, v))
     bias = bias.float().contiguous()
     _check(q, k, v, bias, backward=False)
     out = torch.empty_like(q)
@@ -211,8 +219,8 @@ def attention_backward(q, k, v, bias, g, seed: int = 0, dropout_rate: float = 0.
         return attention_backward_plain(q, k, v, bias, g, seed, dropout_rate, train)
     if q.device.type != "cuda":
         raise ValueError(f"fused attention runs on cpu or cuda tensors, got {q.device}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    g = g.to(q.dtype).contiguous()
+    q, k, v = (_staged(t) for t in (q, k, v))
+    g = _staged(g.to(q.dtype))
     bias = bias.float().contiguous()
     _check(q, k, v, bias, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -30,11 +30,13 @@ Phases, each printing one JSON line:
               a median cosine of 0.99 of the --int8_encoder encode's; the
               card time of one batch's forward for those two models and the
               bf16 one (torch.profiler).
-  6. k2     - the fused attention kernels (csrc/attention_kernel.cu, forward
-              and backward) against their plain versions at the training
-              path's shapes (B 128, S 50 and 84, 12 heads of 64, bf16), both
-              bias shapes, dropout 0 and 0.1, a fully padded row; then
-              kernel, plain and scaled_dot_product_attention times.
+  6. k2     - the fused attention kernels (csrc/attention_kernel.cu, the
+              bf16 tensor-core forward and backward) against their plain
+              versions at B 128, 12 heads of 64, bf16: the training path's
+              S 50 and 84 and the ragged S 134 and 160 (MAX_SEQ), both bias
+              shapes, dropout 0 and 0.1, a fully padded row; then kernel,
+              plain and scaled_dot_product_attention times at S 50 and 84,
+              each kernel time with its share of the bound.
   7. k3     - the fused residual+LayerNorm Triton kernel and its analytic
               backward against the plain version at M = 128 x 84 and
               128 x 50 rows of 768; kernel, plain and F.layer_norm times.
@@ -530,8 +532,9 @@ def check_close(checks, what, tag, got, want, tol):
 
 
 def phase_k2() -> dict:
-    """K2 forward and backward against the plain versions at B 128, S 50 and
-    84, H 12, d 64, bf16; then their times at the path's shapes."""
+    """K2 forward and backward against the plain versions at B 128, S 50,
+    84, 134 and 160, H 12, d 64, bf16; then their times at the path's
+    shapes (S 50 and 84)."""
     import torch
     import torch.nn.functional as F
 
@@ -552,7 +555,7 @@ def phase_k2() -> dict:
         keep[0] = False  # a fully padded row stays finite (-10000, not -inf)
         return q, k, v, g, (~keep).float() * -10000.0
 
-    for s in (50, 84):
+    for s in (50, 84, 134, 160):
         for q_dim in (1, s):
             q, k, v, g, bias = inputs(s, q_dim)
             for rate in (0.0, 0.1):
@@ -588,14 +591,18 @@ def phase_k2() -> dict:
         gt = g.transpose(1, 2)
         fwd_bound, fwd_by = attention_bound(b, s, h, d, 1, False)
         bwd_bound, bwd_by = attention_bound(b, s, h, d, 1, True)
+        rate0 = (7, 0.0, True)  # the library call's rate
         timings[s] = {
             "fwd": {"ms": device_ms(lambda: ak.attention_forward(q, k, v, bias, *extra), 20),
+                    "ms_rate0": device_ms(lambda: ak.attention_forward(q, k, v, bias, *rate0), 20),
                     "event_ms": cuda_ms(lambda: ak.attention_forward(q, k, v, bias, *extra), 20),
                     "plain_ms": device_ms(
                         lambda: ak.attention_forward_plain(q, k, v, bias, *extra), 5),
                     "library_ms": device_ms(sdpa_fwd, 20),
                     "bound_ms": fwd_bound, "bound_by": fwd_by},
             "bwd": {"ms": device_ms(lambda: ak.attention_backward(q, k, v, bias, g, *extra), 20),
+                    "ms_rate0": device_ms(
+                        lambda: ak.attention_backward(q, k, v, bias, g, *rate0), 20),
                     "event_ms": cuda_ms(
                         lambda: ak.attention_backward(q, k, v, bias, g, *extra), 20),
                     "plain_ms": device_ms(
@@ -604,11 +611,15 @@ def phase_k2() -> dict:
                         out, (qt, kt, vt), gt, retain_graph=True), 20),
                     "bound_ms": bwd_bound, "bound_by": bwd_by},
         }
+        for t in timings[s].values():
+            t["bound_share"] = t["bound_ms"] / t["ms"]
         del out
     emit({"phase": "k2", "checks": checks, "tolerance": "max|want| * 2^-7 (one bf16 ulp)",
           "timings": {f"B{b} S{s} H{h} d{d} bf16": t for s, t in timings.items()},
-          "timing": "ms, plain_ms, library_ms: card time (device_ms); event_ms: CUDA events "
-                    "around back-to-back wrapper calls (host launch cost included)",
+          "timing": "ms, plain_ms, library_ms: card time (device_ms); ms_rate0: the kernel's "
+                    "card time at dropout 0, as the library call runs; event_ms: CUDA events "
+                    "around back-to-back wrapper calls (host launch cost included); "
+                    "bound_share: bound_ms / ms",
           "library": "F.scaled_dot_product_attention with the bias as a bf16 mask, rate 0; "
                      "backward: torch.autograd.grad through it"})
     return {"max_err": max_err, "timings": timings}

@@ -65,12 +65,12 @@ def test_mrsw_kernel_refuses_f32(cuda):
         ak.mrsw_scores(*_corpus(cuda, 2, 3, 5, 6, 128), compute_dtype=torch.float32)
 
 
-def _attention_inputs(gen, b, s, q_dim, dtype, h=12, d=64):
-    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-                  for _ in range(4))
+def _attention_inputs(gen, b, s, q_dim, dtype, h=12, d=64, qk_scale=1.0):
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(4))
+    q, k = q * qk_scale, k * qk_scale
     keep = torch.rand(b, q_dim, s, generator=gen, device="cuda") > 0.2
     keep[0] = False  # a fully padded row stays finite
-    return q, k, v, (~keep).float() * -10000.0, g
+    return (*(t.to(dtype) for t in (q, k, v)), (~keep).float() * -10000.0, g.to(dtype))
 
 
 def _ulp_close(got, want, dtype):
@@ -83,22 +83,49 @@ def _ulp_close(got, want, dtype):
     assert err <= rel * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,q_dim,rate", [(50, 1, 0.0), (84, 84, 0.1), (134, 1, 0.1),
-                                          (7, 7, 0.0)])
-def test_attention_kernels_match_plain(cuda, dtype, s, q_dim, rate):
-    """K2 forward and backward against their plain versions, dropout on and
-    off (the keep mask is the same hash in both); one launch each."""
-    q, k, v, bias, g = _attention_inputs(cuda, 16, s, q_dim, dtype)
+def _attention_matches_plain(q, k, v, bias, g, rate, dtype, backward=True):
+    """K2 forward (and backward) against the plain versions; one launch each."""
     args = (q, k, v, bias)
     before = (at.attention_forward.launches, at.attention_backward.launches)
     _ulp_close(at.attention_forward(*args, 5, rate, True),
                at.attention_forward_plain(*args, 5, rate, True), dtype)
-    for got, want in zip(at.attention_backward(*args, g, 5, rate, True),
-                         at.attention_backward_plain(*args, g, 5, rate, True)):
-        _ulp_close(got, want, dtype)
+    if backward:
+        for got, want in zip(at.attention_backward(*args, g, 5, rate, True),
+                             at.attention_backward_plain(*args, g, 5, rate, True)):
+            _ulp_close(got, want, dtype)
     assert (at.attention_forward.launches, at.attention_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + int(backward))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_2d", [False, True])
+@pytest.mark.parametrize("s", [7, 17, 50, 84, 134, 160])
+def test_attention_kernels_match_plain(cuda, dtype, s, bias_2d, rate):
+    """K2 forward and backward against their plain versions, dropout on and
+    off (the keep mask is the same hash in both), 1-D and 2-D biases, S
+    ragged against the bf16 kernels' 16-row tiles up to MAX_SEQ. bf16 runs
+    the tensor-core kernels, f32 the CUDA-core ones, whose backward needs
+    too much shared memory at S 160: there it must refuse."""
+    q, k, v, bias, g = _attention_inputs(cuda, 16, s, s if bias_2d else 1, dtype)
+    f32_refuses = dtype == torch.float32 and s > 142
+    _attention_matches_plain(q, k, v, bias, g, rate, dtype, backward=not f32_refuses)
+    if f32_refuses:
+        with pytest.raises(ValueError, match="shared memory"):
+            at.attention_backward(q, k, v, bias, g, 5, rate, True)
+
+
+@pytest.mark.parametrize("bias_2d", [False, True])
+@pytest.mark.parametrize("s", [84, 160])
+def test_attention_kernels_hold_large_scores(cuda, s, bias_2d):
+    """bf16 with q and k scaled by sqrt(8), so the logits q.k / 8 reach
+    about +-40: the softmax stays stable and the backward's bf16 pd / ds
+    stay within one bf16 ulp of the largest output."""
+    q, k, v, bias, g = _attention_inputs(cuda, 16, s, s if bias_2d else 1, torch.bfloat16,
+                                         qk_scale=8 ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8
+    assert logits.abs().max().item() >= 35
+    _attention_matches_plain(q, k, v, bias, g, 0.1, torch.bfloat16)
 
 
 def test_attention_autograd_uses_the_kernels(cuda):
