@@ -1,4 +1,5 @@
-// Fused MrSw all-pairs alignment scorer for Hopper (sm_90a).
+// Fused MrSw all-pairs alignment scorer for Hopper (sm_90a): wgmma on
+// TMA-fed tiles in a persistent, warp-specialised kernel.
 //
 // Replaces aladin_tpu/ops/pallas/alignment_kernel.py::_mrsw_kernel (reached
 // through mrsw_scores_pallas). It computes
@@ -6,257 +7,485 @@
 //     score[i, c] = sum_w max_r <im[i, r], cap[c, w]>
 //
 // over token sets that the Python wrapper has already l2-normalised,
-// stripped of special tokens, zeroed past each length and cast to the
-// operand type (bf16, or int8 with per-tensor scales). The (N_im, N_cap, R, W)
-// alignment tensor is never written to device memory: each block reduces its
-// alignment tile in shared memory and writes only its (BI, BC) scores.
+// stripped of special tokens, zeroed past each length, cast to the operand
+// type (bf16, or int8 with per-tensor scales) and laid out for this kernel
+// (ops/kernels/alignment_kernel.py::_kernel_operands):
+//   * images in groups of 8, rows ordered (group, region slot j, image s),
+//     so row 8j + s of a group is region j of image s (the Pallas kernel's
+//     region packing); R is padded with zero rows to R8, a multiple of 8;
+//   * captions with W padded with zero words to W16, a multiple of 16;
+//   * D padded with zeros to a multiple of 128 bytes.
+// The (N_im, N_cap, R, W) alignment tensor never leaves the registers.
 //
 // Bound on an H100 SXM: the kernel is compute-bound. It performs
-// 2 * N_im * R * N_cap * W * D tensor-core operations (R, W = stripped buffer
-// widths) against 989 TFLOP/s dense bf16 or 1979 TOP/s int8, while it must
-// move only the operands and the f32 output (about 2.6 GB at 5k x 25k,
-// under 1 ms at 3.35 TB/s). The design therefore keeps the tensor cores fed
-// from shared memory and spends no device-memory traffic on the alignment
-// tensor:
-//   * a 1-D grid over (image tile, caption tile) pairs, visited in groups of
-//     8 image tiles so that the blocks resident at one time share a few
-//     image and caption tiles in L2;
-//   * one block = up to 128 flattened image rows (BI whole images of R rows)
-//     x up to 128 flattened word columns (BC whole captions of W words),
-//     so that the max over regions and the sum over words stay inside the
-//     block and need no atomics;
-//   * D is consumed in 128-byte chunks through a two-stage cp.async ring;
-//   * two blocks per SM (registers capped at 128, a few bytes spill), which
-//     measured faster than one block per SM with the same scores (PERF.md);
-//   * WMMA fragments (mma.sync): bf16 x bf16 -> f32, s8 x s8 -> s32;
-//   * the epilogue stores the accumulators to shared memory (aliasing the
-//     ring), takes each image's max over exactly its R rows and sums the W
-//     word maxima of each caption in word order.
-// wgmma and TMA are left for a later revision.
+// 2 * N_im * R8 * N_cap * W16 * D tensor-core operations (a little more:
+// a 256-column tile holds floor(256 / W16) whole captions) against
+// 989 TFLOP/s dense bf16 or 1979 TOP/s int8, while device memory need only
+// carry the operands and the f32 output (about 2.6 GB at 5k x 25k, under
+// 1 ms at 3.35 TB/s). What limits it is feeding the tensor cores: every
+// operand byte is read from L2 into shared memory many times over. The design:
+//   * one CTA per SM walks work units in a fixed banded order (kBand image
+//     pairs sweep the caption tiles together, so the units in flight share
+//     their operands in L2; at 5k x 25k a band of 4 pairs ran bf16 in
+//     473-488 ms and one of 16, whose image slabs outgrow what L2 keeps, in
+//     1004 ms: tools/k1_variants.py). A unit is two image groups (one per
+//     consumer warpgroup) x one caption tile of floor(256 / W16) whole
+//     captions, so the max over regions and the sum over words stay inside
+//     the CTA: no split-K, no atomics;
+//   * one producer thread issues TMA loads (128-byte swizzle, 128 bytes of D
+//     per row per stage) of both 64-row image slabs and the 256-row caption
+//     tile into a 4-stage mbarrier ring (3 stages: bf16 503 ms, int8 277
+//     against 246-251; a bf16 consumer frees a stage only once the next
+//     chunk's wgmma is issued); the producer warpgroup gives its registers
+//     to the consumers (setmaxnreg);
+//   * each consumer warpgroup runs wgmma m64n256 (bf16 -> f32 k16, or
+//     s8 -> s32 k32) over D for each 64-row slab of its image group, then
+//     folds the slab into a running max in registers. In the accumulator
+//     layout a thread's two rows (16w + lane/4 and 16w + 8 + lane/4) are
+//     region slots 2w and 2w + 1 of image lane/4, so the fold is a
+//     per-register max; slots at or past R are excluded by index;
+//   * per unit the ring carries slabs x (D / 128 bytes) stages of 48 KB:
+//     2 x 64 x 256 x 2 x 64 bf16 FLOP (85 FLOP a byte) or the same with 128
+//     int8 values of D (171 OP a byte), against about 45 for the earlier
+//     WMMA tiles, which streamed both operands for every 99 x 94 tile;
+//   * the epilogue exchanges the four warps' maxima through shared memory,
+//     128 columns at a time (so the ring keeps 4 stages), sums each 16-word
+//     group by a fixed tree, adds a caption's groups in word order and
+//     writes each score once; the producer is already loading the next
+//     unit's operands.
+// At 5k x 25k bf16 then runs at 0.76 of the bound of the padded operands
+// it multiplies (chip_smoke.py's launched_bound_ms), the card at its power
+// limit; the padding itself (R 33 -> 40, W 47 -> 48, 5 captions in a
+// 256-column tile) is what separates that bound from the valid work.
 //
 // Semantics kept from the reference:
 //   * zero rows inside an image's R-row buffer (regions past its length)
-//     are members of the max: that is the reference's zero floor. Rows that
-//     the tiling adds past an image's R rows belong to the next image or to
-//     the zero-filled tail and never join its max, so an image with a full
-//     buffer has no floor;
+//     are members of the max: that is the reference's zero floor. The rows
+//     that the layout adds (slots R..R8-1, images past N_im) never join a
+//     max: slots are excluded by index and padded images are not written,
+//     so an image with a full buffer has no floor;
 //   * padded words are zero and contribute exactly 0 to the word sum;
-//   * every score is the same fixed-order computation whatever N_im, N_cap
-//     or the bucket: D is accumulated chunk by chunk in order, no split-K,
-//     no atomics, and words are summed sequentially. int8 sums are exact
-//     int32 sums; the descale is applied by the wrapper.
+//   * every score is the same fixed-order computation whatever N_im, N_cap,
+//     the bucket or the caption's slot in its tile: D is accumulated in
+//     order, each 16-word group is summed by one tree and a caption's groups
+//     are added in order, so trailing zero groups (a wider bucket) leave the
+//     sum unchanged. int8 sums are exact int32 sums; the descale is applied
+//     by the wrapper.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarpsM = 4;
-constexpr int kWarpsN = 2;
-constexpr int kTileRows = 128;  // flattened image rows per block (at most)
-constexpr int kTileCols = 128;  // flattened word columns per block (at most)
-constexpr int kFragM = kTileRows / 16 / kWarpsM;  // fragments per warp along M
-constexpr int kFragN = kTileCols / 16 / kWarpsN;  // fragments per warp along N
-constexpr int kChunkBytes = 128;                  // bytes of D per row per stage
-constexpr int kStages = 2;     // cp.async ring depth (a third stage measured no faster)
-constexpr int kMinBlocks = 2;  // resident blocks per SM: caps registers at 128
-constexpr int kStageBytes = (kTileRows + kTileCols) * kChunkBytes;
-constexpr int kLdc = kTileCols + 4;  // epilogue tile row stride, in elements
-constexpr int kEpilogueBytes = kTileRows * kLdc * 4;
-constexpr int kSmemBytes =
-    (kStages * kStageBytes > kEpilogueBytes) ? kStages * kStageBytes : kEpilogueBytes;
-constexpr int kGroup = 8;  // image tiles per block-order group
-static_assert(kTileRows == kTileCols, "both operands share the stage plane stride");
+constexpr int kConsumers = 2;                     // consumer warpgroups, one image group each
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kImages = 8;                        // images interleaved in a group
+constexpr int kSlabRows = 64;                     // wgmma M: 8 region slots x 8 images
+constexpr int kTileCols = 256;                    // wgmma N: whole captions of W16 words
+constexpr int kWordGroup = 16;                    // words summed by one tree
+constexpr int kGroups = kTileCols / kWordGroup;
+constexpr int kRowBytes = 128;                    // bytes of D per row per stage
+constexpr int kStages = 4;                        // 4 x 48 KB ring + the epilogue buffers
+constexpr int kSlabBytes = kSlabRows * kRowBytes;
+constexpr int kStageBytes = kConsumers * kSlabBytes + kTileCols * kRowBytes;
+constexpr int kRedStride = kTileCols / 2 + 1;      // a half tile; odd: 8 images, 8 banks
+constexpr int kRedElems = 4 * kImages * kRedStride;  // per consumer: the 4 warps' maxima
+constexpr int kBand = 4;  // image pairs sweeping the caption tiles together (16: L2 thrashes)
+constexpr int kAlign = 1024;                       // 128-byte swizzle atoms are 1024-byte aligned
+constexpr int kSmemBytes = kAlign + kStages * kStageBytes +
+                           kConsumers * (kRedElems + kImages * kGroups) * 4 + 2 * kStages * 8;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 
 template <typename T> struct AccOf;
 template <> struct AccOf<__nv_bfloat16> { using type = float; };
 template <> struct AccOf<signed char> { using type = int; };
 
+__device__ __forceinline__ float lowest(float) { return -INFINITY; }
+__device__ __forceinline__ int lowest(int) { return INT_MIN; }
 __device__ __forceinline__ float acc_max(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ int acc_max(int a, int b) { return max(a, b); }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// ---- mbarriers and TMA -----------------------------------------------------
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_bytes(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// a (box rows x 128 bytes) tile at (element x, row y) of a 2-D map; rows
+// past the tensor arrive as zeros and still count their bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// K-major operand of 128-byte rows written by TMA with the 128-byte
+// swizzle: 8-row atoms of 1024 bytes (SBO); LBO is unused for this layout
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+  return (static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4)) |
+         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+#define MRSW_D128                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "          \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "          \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "          \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "          \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "          \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "    \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "      \
+  "%125, %126, %127}"
+#define MRSW_OPS8(T, b) \
+  T(d[b]), T(d[b + 1]), T(d[b + 2]), T(d[b + 3]), T(d[b + 4]), T(d[b + 5]), T(d[b + 6]), T(d[b + 7])
+#define MRSW_OPS128(T)                                                                       \
+  MRSW_OPS8(T, 0), MRSW_OPS8(T, 8), MRSW_OPS8(T, 16), MRSW_OPS8(T, 24), MRSW_OPS8(T, 32),    \
+      MRSW_OPS8(T, 40), MRSW_OPS8(T, 48), MRSW_OPS8(T, 56), MRSW_OPS8(T, 64),                \
+      MRSW_OPS8(T, 72), MRSW_OPS8(T, 80), MRSW_OPS8(T, 88), MRSW_OPS8(T, 96),                \
+      MRSW_OPS8(T, 104), MRSW_OPS8(T, 112), MRSW_OPS8(T, 120)
+
+// d (+)= A(64 x 16) . B(256 x 16)^T, bf16 in, f32 accumulate
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MRSW_D128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : MRSW_OPS128("+f")
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A(64 x 32) . B(256 x 32)^T, s8 in, s32 accumulate
+__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " MRSW_D128 ", %128, %129, p;\n}\n"
+      : MRSW_OPS128("+r")
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// keeps the compiler from moving accumulator reads across wgmma.wait_group
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared-memory stage layout: the chunk of each operand is cut into planes
-// of 16 elements of D; plane p holds [row][16] contiguously, so a 16x16
-// WMMA fragment is 256 contiguous elements with a leading dimension of 16.
-template <typename T>
-__device__ __forceinline__ void load_stage(char* stage, const char* a, const char* b,
-                                           long a_row0, long a_rows, long b_row0, long b_rows,
-                                           int rows_a, int rows_b, long row_bytes, int chunk) {
-  constexpr int e = sizeof(T);
-  constexpr int kVecPerRow = kChunkBytes / 16;
-  const int total = (rows_a + rows_b) * kVecPerRow;
-  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const int row = idx / kVecPerRow;
-    const int v = idx % kVecPerRow;
-    const bool is_a = row < rows_a;
-    const int r = is_a ? row : row - rows_a;
-    const long grow = (is_a ? a_row0 : b_row0) + r;
-    const bool valid = grow < (is_a ? a_rows : b_rows);
-    const char* base = is_a ? a : b;
-    const char* src = base + (valid ? grow : 0) * row_bytes + (long)chunk * kChunkBytes + v * 16;
-    char* dst = stage + (is_a ? 0 : kTileRows * kChunkBytes) + (v / e) * (kTileRows * 16 * e) +
-                r * 16 * e + (v % e) * 16;
-    cp_async16(dst, src, valid);
-  }
+__device__ __forceinline__ void consumer_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// ---- work order -------------------------------------------------------------
+
+struct Unit {
+  int pair;  // image groups 2 * pair and 2 * pair + 1
+  int tile;  // caption tile
+};
+
+// kBand image pairs sweep all caption tiles, pairs fastest, then the next band
+__device__ __forceinline__ Unit unit_at(long u, int pairs, long tiles) {
+  const long band_units = static_cast<long>(kBand) * tiles;
+  const int band = static_cast<int>(u / band_units);
+  const long rem = u - band * band_units;
+  const int width = min(kBand, pairs - band * kBand);
+  return {band * kBand + static_cast<int>(rem % width), static_cast<int>(rem / width)};
+}
+
+// ---- the kernel --------------------------------------------------------------
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-mrsw_kernel(const T* __restrict__ im, const T* __restrict__ cap, float* __restrict__ out,
-            int n_im, int r, int n_cap, int w, int d, int bi, int bc) {
+__global__ void __launch_bounds__(kThreads, 1)
+mrsw_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            float* __restrict__ out, int n_im, int r, int r8, int n_cap, int w16, int n_chunks) {
   using Acc = typename AccOf<T>::type;
-  constexpr int e = sizeof(T);
-  constexpr int kChunkElems = kChunkBytes / e;
-  constexpr int kPlanes = kChunkElems / 16;
-  extern __shared__ __align__(128) char smem[];
+  constexpr int kChunkElems = kRowBytes / sizeof(T);
+  constexpr int kStepBytes = 32;  // wgmma depth: 16 bf16 or 32 int8
+  // bf16 keeps one chunk's wgmma in flight while it issues the next; int8
+  // waits for each chunk (tools/k1_variants.py at 5k x 25k: int8 280 ms in
+  // flight against 246-251 waiting; bf16 520 waiting against 473-488)
+  constexpr bool kOverlap = sizeof(T) == 2;
+  extern __shared__ char smem_raw[];
+  char* ring = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  Acc* red_all = reinterpret_cast<Acc*>(ring + kStages * kStageBytes);
+  Acc* gsum_all = red_all + kConsumers * kRedElems;
+  uint64_t* full = reinterpret_cast<uint64_t*>(gsum_all + kConsumers * kImages * kGroups);
+  uint64_t* empty = full + kStages;
 
-  // grouped block order: kGroup image tiles sweep the caption tiles together
-  const int n_im_tiles = (n_im + bi - 1) / bi;
-  const int n_cap_tiles = (n_cap + bc - 1) / bc;
-  const long per_group = (long)kGroup * n_cap_tiles;
-  const long bid = blockIdx.x;
-  const int first = (int)(bid / per_group) * kGroup;
-  const int group_size = min(kGroup, n_im_tiles - first);
-  const long local = bid % per_group;
-  const int img0 = (first + (int)(local % group_size)) * bi;
-  const int cap0 = (int)(local / group_size) * bc;
+  const int groups = (n_im + kImages - 1) / kImages;
+  const int pairs = (groups + kConsumers - 1) / kConsumers;
+  const int caps_per_tile = kTileCols / w16;
+  const long tiles = (n_cap + caps_per_tile - 1) / caps_per_tile;
+  const long units = static_cast<long>(pairs) * tiles;
+  const int slabs = r8 / 8;
+  const int group_rows = kImages * r8;
 
-  const int mt = (bi * r + 15) / 16;  // fragment rows in use
-  const int nt = (bc * w + 15) / 16;  // fragment columns in use
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % kWarpsM;
-  const int wn = warp / kWarpsM;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[kFragM][kFragN];
-#pragma unroll
-  for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFragN; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
-
-  const char* a = reinterpret_cast<const char*>(im);
-  const char* b = reinterpret_cast<const char*>(cap);
-  const long row_bytes = (long)d * e;
-  const long a_row0 = (long)img0 * r, a_rows = (long)n_im * r;
-  const long b_row0 = (long)cap0 * w, b_rows = (long)n_cap * w;
-  const int n_chunks = d / kChunkElems;
-
-  // ring of kStages chunks: chunk c lives in stage c % kStages; one commit
-  // group per chunk (empty past the end) keeps the wait count uniform
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_chunks)
-      load_stage<T>(smem + s * kStageBytes, a, b, a_row0, a_rows, b_row0, b_rows, mt * 16,
-                    nt * 16, row_bytes, s);
-    cp_async_commit();
-  }
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int next = chunk + kStages - 1;
-    if (next < n_chunks)
-      load_stage<T>(smem + (next % kStages) * kStageBytes, a, b, a_row0, a_rows, b_row0,
-                    b_rows, mt * 16, nt * 16, row_bytes, next);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const char* stage = smem + (chunk % kStages) * kStageBytes;
-    const T* sa = reinterpret_cast<const T*>(stage);
-    const T* sb = reinterpret_cast<const T*>(stage + kTileRows * kChunkBytes);
-#pragma unroll
-    for (int p = 0; p < kPlanes; ++p) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af[kFragM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf[kFragN];
-#pragma unroll
-      for (int i = 0; i < kFragM; ++i) {
-        const int mi = wm + i * kWarpsM;
-        if (mi < mt) wmma::load_matrix_sync(af[i], sa + p * kTileRows * 16 + mi * 256, 16);
-      }
-#pragma unroll
-      for (int j = 0; j < kFragN; ++j) {
-        const int ni = wn + j * kWarpsN;
-        if (ni < nt) wmma::load_matrix_sync(bf[j], sb + p * kTileCols * 16 + ni * 256, 16);
-      }
-#pragma unroll
-      for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFragN; ++j)
-          if (wm + i * kWarpsM < mt && wn + j * kWarpsN < nt)
-            wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  // epilogue: the alignment tile goes to shared memory (over the ring)
-  cp_async_wait<0>();
   __syncthreads();
-  Acc* c = reinterpret_cast<Acc*>(smem);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (long u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit unit = unit_at(u, pairs, tiles);
+        const int a_row = unit.pair * kConsumers * group_rows;
+        const int b_row = unit.tile * caps_per_tile * w16;
+        for (int k = 0; k < slabs; ++k) {
+          for (int c = 0; c < n_chunks; ++c) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_bytes(&full[stage], kStageBytes);
+            char* st = ring + stage * kStageBytes;
 #pragma unroll
-  for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFragN; ++j) {
-      const int mi = wm + i * kWarpsM, ni = wn + j * kWarpsN;
-      if (mi < mt && ni < nt)
-        wmma::store_matrix_sync(c + mi * 16 * kLdc + ni * 16, acc[i][j], kLdc,
-                                wmma::mem_row_major);
+            for (int q = 0; q < kConsumers; ++q)
+              tma_load(st + q * kSlabBytes, &map_a, c * kChunkElems,
+                       a_row + q * group_rows + k * kSlabRows, &full[stage]);
+            tma_load(st + kConsumers * kSlabBytes, &map_b, c * kChunkElems, b_row, &full[stage]);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
     }
-  __syncthreads();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int q = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int img = lane / 4, quad = lane % 4;  // accumulator rows: image img; columns 8i + 2quad
+    Acc* red = red_all + q * kRedElems;
+    Acc* gsum = gsum_all + q * kImages * kGroups;
+    Acc acc[128];
+    Acc best[64];
+    int stage = 0, phase = 0;
 
-  // max over each image's R rows, written over the image's first row
-  const int cols = bc * w;
-  for (int idx = threadIdx.x; idx < bi * cols; idx += kThreads) {
-    const int i = idx / cols, col = idx % cols;
-    if (img0 + i >= n_im || cap0 + col / w >= n_cap) continue;
-    Acc* p = c + i * r * kLdc + col;
-    Acc m = p[0];
-    for (int rr = 1; rr < r; ++rr) m = acc_max(m, p[rr * kLdc]);
-    p[0] = m;
-  }
-  __syncthreads();
+    for (long u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit unit = unit_at(u, pairs, tiles);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) best[i] = lowest(Acc());
 
-  // sum of each caption's word maxima, in word order
-  for (int idx = threadIdx.x; idx < bi * bc; idx += kThreads) {
-    const int i = idx / bc, cc = idx % bc;
-    if (img0 + i >= n_im || cap0 + cc >= n_cap) continue;
-    const Acc* p = c + i * r * kLdc + cc * w;
-    Acc s = Acc(0);
-    for (int ww = 0; ww < w; ++ww) s += p[ww];
-    out[(long)(img0 + i) * n_cap + cap0 + cc] = static_cast<float>(s);
+      for (int k = 0; k < slabs; ++k) {
+        int prev = 0;
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(&full[stage], phase);
+          const char* st = ring + stage * kStageBytes;
+          const uint64_t da = smem_desc(st + q * kSlabBytes);
+          const uint64_t db = smem_desc(st + kConsumers * kSlabBytes);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < kRowBytes / kStepBytes; ++s)  // +32 bytes = +2 in the address field
+            wgmma(acc, da + 2 * s, db + 2 * s, (c > 0 || s > 0) ? 1 : 0);
+          wgmma_commit();
+          if (kOverlap) {  // the previous chunk's products are done: free its stage
+            wgmma_wait<1>();
+            if (c > 0 && lane == 0) mbar_arrive(&empty[prev]);
+          } else {
+            wgmma_wait<0>();
+            if (lane == 0) mbar_arrive(&empty[stage]);
+          }
+          prev = stage;
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (kOverlap) {
+          wgmma_wait<0>();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        fence_acc(acc);
+
+        // fold the slab: rows 16 warp + img and + 8 are slots 2 warp and 2 warp + 1
+        const int slot = 8 * k + 2 * warp;
+        const bool v0 = slot < r, v1 = slot + 1 < r;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            Acc m = best[2 * i + e];
+            if (v0) m = acc_max(m, acc[4 * i + e]);
+            if (v1) m = acc_max(m, acc[4 * i + 2 + e]);
+            best[2 * i + e] = m;
+          }
+        }
+      }
+
+      // epilogue, one 128-column half at a time: the max over the 4 warps'
+      // slots, each 16-word group summed by one tree (two 8-word trees and
+      // their sum), then a caption's groups added in order
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          Acc* p = red + (warp * kImages + img) * kRedStride + 8 * i + 2 * quad;
+          p[0] = best[32 * h + 2 * i];
+          p[1] = best[32 * h + 2 * i + 1];
+        }
+        consumer_sync(1 + q);
+        {
+          const int im_s = tid % kImages, part = tid / kImages;  // 16 eight-word parts
+          Acc m[kWordGroup / 2];
+#pragma unroll
+          for (int j = 0; j < kWordGroup / 2; ++j) {
+            const Acc* p = red + im_s * kRedStride + part * (kWordGroup / 2) + j;
+            m[j] = acc_max(acc_max(p[0], p[kImages * kRedStride]),
+                           acc_max(p[2 * kImages * kRedStride], p[3 * kImages * kRedStride]));
+          }
+#pragma unroll
+          for (int width = kWordGroup / 4; width >= 1; width /= 2)
+#pragma unroll
+            for (int j = 0; j < width; ++j) m[j] = m[2 * j] + m[2 * j + 1];
+          const Acc upper = __shfl_xor_sync(0xffffffffu, m[0], kImages);  // part + 1
+          if (part % 2 == 0) gsum[im_s * kGroups + kGroups / 2 * h + part / 2] = m[0] + upper;
+        }
+        consumer_sync(1 + q);
+      }
+      if (tid < kImages * caps_per_tile) {
+        const int im_s = tid / caps_per_tile, cc = tid % caps_per_tile;
+        const int per_cap = w16 / kWordGroup;
+        const Acc* p = gsum + im_s * kGroups + cc * per_cap;
+        Acc sum = p[0];
+        for (int j = 1; j < per_cap; ++j) sum += p[j];
+        const int image = (unit.pair * kConsumers + q) * kImages + im_s;
+        const int cap = unit.tile * caps_per_tile + cc;
+        if (image < n_im && cap < n_cap)
+          out[static_cast<long>(image) * n_cap + cap] = static_cast<float>(sum);
+      }
+    }
   }
+}
+
+// ---- host side -----------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda.so.1, which the CUDA runtime
+// has already loaded; fetching it here needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) map of 128-byte-wide, box_rows-high boxes
+bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type, int elem_bytes,
+              const void* base, long rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kRowBytes / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
 int launch(const void* im, const void* cap, float* out, int n_im, int r, int n_cap, int w, int d,
-           cudaStream_t stream) {
-  constexpr int kChunkElems = kChunkBytes / sizeof(T);
-  if (r < 1 || r > kTileRows || w < 1 || w > kTileCols || d < kChunkElems ||
-      d % kChunkElems != 0 || n_im < 0 || n_cap < 0)
-    return (int)cudaErrorInvalidValue;
+           CUtensorMapDataType type, cudaStream_t stream) {
+  constexpr int kChunkElems = kRowBytes / sizeof(T);
+  if (r < 1 || r > 128 || w < 1 || w > 128 || d < kChunkElems || d % kChunkElems != 0 ||
+      n_im < 0 || n_cap < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_im == 0 || n_cap == 0) return 0;
-  const int bi = min(kTileRows / r, n_im);
-  const int bc = min(kTileCols / w, n_cap);
-  const long blocks = (long)((n_im + bi - 1) / bi) * ((n_cap + bc - 1) / bc);
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(mrsw_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  mrsw_kernel<T><<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(im), static_cast<const T*>(cap), out, n_im, r, n_cap, w, d, bi, bc);
-  return (int)cudaGetLastError();
+  const int r8 = (r + 7) / 8 * 8;
+  const int w16 = (w + kWordGroup - 1) / kWordGroup * kWordGroup;
+  const long a_rows = static_cast<long>((n_im + kImages - 1) / kImages) * kImages * r8;
+  const long b_rows = static_cast<long>(n_cap) * w16;
+  if (a_rows + kConsumers * kImages * r8 > INT_MAX || b_rows + kTileCols > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);  // TMA row coordinates are int32
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  CUtensorMap map_a, map_b;
+  if (!make_map(&map_a, encode, type, sizeof(T), im, a_rows, d, kSlabRows) ||
+      !make_map(&map_b, encode, type, sizeof(T), cap, b_rows, d, kTileCols))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mrsw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long groups = (n_im + kImages - 1) / kImages;
+  const long caps_per_tile = kTileCols / w16;
+  const long units = (groups + kConsumers - 1) / kConsumers *
+                     ((n_cap + caps_per_tile - 1) / caps_per_tile);
+  const unsigned grid = static_cast<unsigned>(units < sms ? units : sms);
+  mrsw_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_b, out, n_im, r, r8, n_cap,
+                                                         w16, d / kChunkElems);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,17 +493,24 @@ int launch(const void* im, const void* cap, float* out, int n_im, int r, int n_c
 extern "C" {
 
 // dtype: 0 = bf16 operands (f32 scores), 1 = int8 operands (integer scores,
-// returned as f32 before the wrapper's descale). im: (n_im * r, d) row-major,
-// cap: (n_cap * w, d) row-major, out: (n_im, n_cap) f32 row-major; d must be
-// a multiple of 128 bytes of operand. Returns a cudaError_t code.
+// returned as f32 before the wrapper's descale). im: the image operand in
+// the kernel's layout, (ceil(n_im / 8) * 8 * R8, d) row-major with rows
+// ordered (group of 8 images, region slot, image); cap: (n_cap * W16, d)
+// row-major; out: (n_im, n_cap) f32 row-major. r and w are the real
+// region and word counts (R8, W16: rounded up to 8 and 16); d must be a
+// multiple of 128 bytes of operand. Returns a cudaError_t code.
 int mrsw_scores_launch(int dtype, const void* im, const void* cap, float* out, int n_im, int r,
                        int n_cap, int w, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<__nv_bfloat16>(im, cap, out, n_im, r, n_cap, w, d, s);
-  if (dtype == 1) return launch<signed char>(im, cap, out, n_im, r, n_cap, w, d, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<__nv_bfloat16>(im, cap, out, n_im, r, n_cap, w, d,
+                                 CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
+  if (dtype == 1)
+    return launch<signed char>(im, cap, out, n_im, r, n_cap, w, d, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                               s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-const char* mrsw_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* mrsw_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
 }  // extern "C"

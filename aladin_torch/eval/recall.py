@@ -67,7 +67,7 @@ def _assemble(i2t_ranks, t2i_ranks) -> Dict[str, float]:
 
 
 def compute_recall(img_embs, cap_embs, captions_per_image: int = 5,
-                   device="cpu") -> Dict[str, float]:
+                   device="cuda") -> Dict[str, float]:
     """Both directions + rsum from grouped (5N, D) global embeddings, scored
     as an f32 matmul on ``device``."""
     k = captions_per_image
@@ -82,7 +82,7 @@ def compute_recall(img_embs, cap_embs, captions_per_image: int = 5,
     return _assemble(*ranks_from_score_matrix(ims @ caps.T, k))
 
 
-def recall_1k_5fold(img_embs, cap_embs, fold: int = 5000, device="cpu") -> Dict[str, float]:
+def recall_1k_5fold(img_embs, cap_embs, fold: int = 5000, device="cuda") -> Dict[str, float]:
     """5 x 1k folds of the 5k test set, averaged."""
     keys = ("i2t_r1", "i2t_r5", "i2t_r10", "t2i_r1", "t2i_r5", "t2i_r10")
     acc = {k: 0.0 for k in keys}

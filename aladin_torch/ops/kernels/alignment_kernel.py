@@ -36,7 +36,11 @@ from aladin_torch.ops.similarity import l2norm
 
 _KERNEL_SOURCE = "mrsw_kernel.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1}
-_MAX_ROWS = 128  # the kernel's tile: at most 128 region rows / word columns
+_MAX_ROWS = 128  # the kernel's limit: at most 128 region rows / word columns
+_IMAGE_GROUP = 8  # images interleaved in one group of the kernel's image operand
+_SLOT_MULTIPLE = 8  # region slots per image are padded to a multiple of this
+_WORD_GROUP = 16  # words per caption are padded to a multiple of this (one sum tree)
+_ROW_BYTES = 128  # bytes of D the kernel loads per row and stage
 _PLAIN_BLOCK_ELEMS = 64 << 20  # f32 alignment elements per plain-version block
 
 
@@ -90,6 +94,33 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
+def _kernel_operands(im: torch.Tensor, cap: torch.Tensor):
+    """The operand layout of csrc/mrsw_kernel.cu, from prepared (N_im, R, D)
+    and (N_cap, W, D) operands: (a, b), both 2-D row-major.
+
+    ``a`` holds the images in groups of 8, rows ordered (group, region slot
+    j, image s), R padded with zero rows to a multiple of 8 and N_im with
+    zero images to a multiple of 8: row (g * R8 + j) * 8 + s is region j of
+    image 8g + s. ``b`` holds the captions with W padded with zero words to
+    a multiple of 16. Both pad D with zeros to a multiple of 128 bytes. The
+    kernel excludes the padded slots (j >= R) from the max by index and
+    writes no score for a padded image; zero words and coordinates change no
+    sum.
+    """
+    n_im, r, d = im.shape
+    n_cap, w, _ = cap.shape
+    d_pad = (-d) % (_ROW_BYTES // im.element_size())
+    r8 = -(-r // _SLOT_MULTIPLE) * _SLOT_MULTIPLE
+    w16 = -(-w // _WORD_GROUP) * _WORD_GROUP
+    groups = -(-n_im // _IMAGE_GROUP)
+    a = im.new_zeros(groups * _IMAGE_GROUP, r8, d + d_pad)
+    a[:n_im, :r, :d] = im
+    a = a.view(groups, _IMAGE_GROUP, r8, d + d_pad).transpose(1, 2).reshape(-1, d + d_pad)
+    if w16 != w or d_pad:
+        cap = F.pad(cap, (0, d_pad, 0, w16 - w))
+    return a, cap.reshape(-1, d + d_pad).contiguous()
+
+
 def _launch(im: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
     """Run csrc/mrsw_kernel.cu on prepared CUDA operands."""
     if im.dtype not in _DTYPE_CODE or cap.dtype != im.dtype:
@@ -104,15 +135,12 @@ def _launch(im: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n_im, n_cap, dtype=torch.float32, device=im.device)
     if n_im == 0 or n_cap == 0:
         return out
-    chunk = 128 // im.element_size()  # the kernel consumes D in 128-byte chunks
-    pad = (-d) % chunk
-    im = F.pad(im, (0, pad)).contiguous()  # zero coordinates change no dot product
-    cap = F.pad(cap, (0, pad)).contiguous()
+    a, b = _kernel_operands(im, cap)
     lib = _kernel_library()
     with torch.cuda.device(im.device):
         stream = torch.cuda.current_stream(im.device).cuda_stream
-        err = lib.mrsw_scores_launch(_DTYPE_CODE[im.dtype], im.data_ptr(), cap.data_ptr(),
-                                     out.data_ptr(), n_im, r, n_cap, w, d + pad, stream)
+        err = lib.mrsw_scores_launch(_DTYPE_CODE[im.dtype], a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), n_im, r, n_cap, w, a.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"MrSw kernel launch failed: {lib.mrsw_error_string(err).decode()}")
     mrsw_scores.launches += 1

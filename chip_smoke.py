@@ -14,8 +14,11 @@ Phases, each printing one JSON line:
               plain PyTorch version on the card: bf16 and int8, plain and
               length-bucketed, at 1000 x 5000 pairs with uniform lengths and
               at the shapes the main path gives it; the zero-floor case; a
-              score's independence of the corpus shape; then its time at the
-              5k x 25k benchmark shape.
+              score's independence of the corpus shape and bf16 bucketed
+              scores equal to unbucketed ones bit for bit; then its time at
+              the 5k x 25k benchmark shape beside both bounds (valid work,
+              and the padded operands it multiplies), cuBLAS's product of
+              the same operands, and the int8 bucketed scorer's pairs/s.
   4. main   - the serving path end to end at VinVL-base width (12 layers,
               hidden 768, 2054-d regions) on random weights from a seed:
               aladin_torch.cli.test over 1000 images / 5000 captions, with
@@ -115,6 +118,8 @@ INT8_ENCODER_CORR = 0.99
 # roundings; the loss must agree to 1% and grad_norm to 5%.
 KNOB_LOSS_RTOL = 1e-2
 KNOB_GNORM_RTOL = 5e-2
+# the reference ALADIN's GPU alignment head (bench.py)
+REFERENCE_M_PAIRS_PER_S = 51.02
 SYNTH_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "photo", "of", "the", "dog",
                 "cat", "car", "tree", "person", "boat", "bird", "house", "number"]
                + [str(i) for i in range(10)])
@@ -205,6 +210,16 @@ def mrsw_bound(args, dtype):
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops else "operations")
 
 
+def launched_bound_ms(im_p, cap_p, dtype) -> float:
+    """Operations of the padded operands the kernel multiplies (its operand
+    layout: regions rounded up to 8, images to groups of 8, words to 16)
+    over the tensor-core peak, in ms."""
+    from aladin_torch.ops.kernels import alignment_kernel as ak
+
+    a, b = ak._kernel_operands(im_p, cap_p)
+    return 1e3 * 2.0 * a.shape[0] * b.shape[0] * a.shape[1] / PEAK_OPS_PER_S[dtype]
+
+
 def phase_env() -> str:
     import torch
 
@@ -279,6 +294,10 @@ def phase_k1() -> dict:
                           args[3][1000:2500])
     if not torch.equal(part, full[100:300, 1000:2500]):
         raise AssertionError("K1 scores changed with the corpus shape")
+    # bucketing drops only zero words, which K1 sums after the real ones:
+    # bf16 bucketed scores equal unbucketed ones bit for bit
+    if not torch.equal(ak.mrsw_scores_bucketed(*args), full):
+        raise AssertionError("K1 bucketed bf16 scores differ from unbucketed ones")
 
     # kernel and plain time on the prepared operands of the comparison shape
     timings = {}
@@ -294,19 +313,37 @@ def phase_k1() -> dict:
           "bf16_atol": BF16_ATOL, "int8_rtol": INT8_RTOL, "timings_1000x5000": timings})
 
     # the benchmark shape: 5k x 25k, S_im 34, S_s 50, D 768, uniform lengths
-    bench = corpus(gen, 5000, 25000, 34, 50)
+    n_im, n_cap = 5000, 25000
+    pairs = n_im * n_cap
+    bench = corpus(gen, n_im, n_cap, 34, 50)
     bench_out = {}
     for name, dt in dtypes.items():
         im_p, cap_p, _ = ak._prepare(*bench, dt)
         ms = cuda_ms(lambda: ak._launch(im_p, cap_p), 2)
-        bench_out[name] = {"ms": ms, "m_pairs_per_s": 5000 * 25000 / ms / 1e3,
-                           "bound_ms": mrsw_bound(bench, name)[0],
+        bound_ms = mrsw_bound(bench, name)[0]
+        launched_ms = launched_bound_ms(im_p, cap_p, name)
+        bench_out[name] = {"ms": ms, "m_pairs_per_s": pairs / ms / 1e3,
+                           "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                           "launched_bound_ms": launched_ms, "launched_bound_share": launched_ms / ms,
                            "wrapper_ms": cuda_ms(lambda: ak.mrsw_scores(*bench, compute_dtype=dt),
                                                  1)}
+        if name == "bf16":
+            # cuBLAS over a 1000 x 1000 slice of the same operands, per pair:
+            # a yardstick for the kernel's mainloop (no max, no sum)
+            a = im_p[:1000].reshape(-1, im_p.shape[2])
+            b = cap_p[:1000].reshape(-1, cap_p.shape[2])
+            gemm_ms = cuda_ms(lambda: torch.matmul(a, b.T), 3)
+            bench_out[name]["gemm_only_ms"] = gemm_ms * pairs / 1e6
+            del a, b
+        del im_p, cap_p
+    bucketed_ms = cuda_ms(lambda: ak.mrsw_scores_bucketed(*bench, compute_dtype=torch.int8), 1)
+    bench_out["int8_bucketed"] = {"ms": bucketed_ms, "m_pairs_per_s": pairs / bucketed_ms / 1e3,
+                                  "reference_m_pairs_per_s": REFERENCE_M_PAIRS_PER_S}
     del bench
     emit({"phase": "k1_bench", "shape": "5000x25000 S34/50 D768", "kernel": bench_out,
           "library_ms": None,
-          "library_note": "no single PyTorch call computes MrSw (max over regions, sum over words)"})
+          "library_note": "no single PyTorch call computes MrSw (max over regions, sum over words); "
+                          "gemm_only_ms is cuBLAS's product of the same bf16 operands alone"})
     return {"max_err": max_err, "timings": timings}
 
 

@@ -184,3 +184,82 @@ def test_cpu_scoring_launches_no_kernel(rng):
     assert tak.mrsw_scores.launches == before
     with pytest.raises(ValueError):
         tak.mrsw_scores(*case, compute_dtype=torch.float16)
+
+
+# (n_im, n_cap, S_im, S_s) of the card tests (tests/test_torch_gpu.py), here at D 64
+_KERNEL_SHAPES = [(7, 11, 5, 6), (37, 53, 34, 50), (5, 9, 129, 20), (9, 13, 2, 4),
+                  (17, 29, 9, 19), (8, 33, 51, 16), (3, 5, 129, 131), (1001, 70, 34, 50)]
+
+
+def _emulate_kernel(a, b, n_im, r, n_cap, w, pad_slot=float("-inf")):
+    """csrc/mrsw_kernel.cu's reduction on its operand layout: per group of 8
+    images the max over region slots, slots >= r set to ``pad_slot``; then
+    each 16-word group summed by a pairwise tree and a caption's groups
+    added in order. int8 in f64 (exact, as the kernel's int32), else f32."""
+    r8, w16 = -(-r // 8) * 8, -(-w // 16) * 16
+    acc = torch.float64 if a.dtype == torch.int8 else torch.float32
+    groups = a.shape[0] // (8 * r8)
+    padded = (torch.arange(r8) >= r)[None, :, None, None, None]
+    out = torch.empty(n_im, n_cap, dtype=torch.float32)
+    for c0 in range(0, n_cap, 16):
+        blk = b[c0 * w16:(c0 + 16) * w16].to(acc)
+        nc = blk.shape[0] // w16
+        align = (a.to(acc) @ blk.T).view(groups, r8, 8, nc, w16).masked_fill(padded, pad_slot)
+        x = align.amax(dim=1).reshape(groups * 8, nc, w16 // 16, 16)[:n_im]
+        while x.shape[-1] > 1:
+            x = x[..., 0::2] + x[..., 1::2]
+        total = x[..., 0, 0]
+        for g in range(1, w16 // 16):
+            total = total + x[..., g, 0]
+        out[:, c0:c0 + nc] = total.float()
+    return out
+
+
+def _kernel_case(rng, n_im, n_cap, s_im, s_s, d=64):
+    """Random sets at a card-test shape, with the zero-floor trap of
+    ``_floor_case`` where the shape has room for it."""
+    im = rng.randn(n_im, s_im, d).astype(np.float32)
+    ss = rng.randn(n_cap, s_s, d).astype(np.float32)
+    il = rng.randint(2, s_im + 1, n_im).astype(np.int32)
+    sl = rng.randint(4, s_s + 1, n_cap).astype(np.int32) if s_s >= 4 else np.full(n_cap, s_s,
+                                                                                 np.int32)
+    if n_im >= 2 and s_im >= 3 and s_s >= 4:
+        short = min(5, s_im - 1)
+        il[0], il[1] = s_im, short
+        ss[0, 1] = -(im[0, 1:].sum(0) + im[1, 1:short].sum(0))
+    return _torch(im, ss, il, sl)
+
+
+@pytest.mark.parametrize("shape", _KERNEL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_kernel_layout_and_reduction_match_plain(rng, shape, dtype):
+    """_kernel_operands plus the kernel's reduction order, emulated in torch,
+    equal _plain_core: int8 exactly (integer sums); bf16 to atol 1e-4 (the
+    same bf16 products, f32 sums over D and words in another order, on
+    scores of at most 128)."""
+    im, cap, _ = tak._prepare(*_kernel_case(rng, *shape), dtype)
+    a, b = tak._kernel_operands(im, cap)
+    r, w = im.shape[1], cap.shape[1]
+    d_pad = 128 // im.element_size()  # D 64 padded to 128 bytes
+    assert a.shape == (-(-shape[0] // 8) * 8 * -(-r // 8) * 8, d_pad)
+    assert b.shape == (shape[1] * -(-w // 16) * 16, d_pad)
+    got = _emulate_kernel(a, b, shape[0], r, shape[1], w)
+    want = tak._plain_core(im, cap)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_kernel_layout_excludes_padded_slots(rng):
+    """The zero-floor trap at R 33 (7 padded slots; D 768, where the trap
+    word is negative against every real region): with padded slots
+    excluded the emulation equals the plain version; letting them join the
+    max as the zeros they hold floors image 0 and moves its score."""
+    im, cap, _ = tak._prepare(*_kernel_case(rng, 9, 5, 34, 50, d=768), torch.int8)
+    a, b = tak._kernel_operands(im, cap)
+    args = (a, b, 9, im.shape[1], 5, cap.shape[1])
+    want = tak._plain_core(im, cap)
+    assert torch.equal(_emulate_kernel(*args), want)
+    floored = _emulate_kernel(*args, pad_slot=0.0)
+    assert floored[0, 0] > want[0, 0]

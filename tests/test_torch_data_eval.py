@@ -122,14 +122,16 @@ def test_recall_from_embeddings(rng):
     (exact: the small f32 products are computed identically here)."""
     img = np.repeat(rng.randn(12, 8), 5, axis=0).astype(np.float32)
     cap = rng.randn(60, 8).astype(np.float32)
-    assert trec.compute_recall(img, cap) == jrec.compute_recall(img, cap)
-    assert trec.recall_1k_5fold(img, cap, fold=20) == jrec.recall_1k_5fold(img, cap, fold=20)
+    assert trec.compute_recall(img, cap, device="cpu") == jrec.compute_recall(img, cap)
+    assert (trec.recall_1k_5fold(img, cap, fold=20, device="cpu")
+            == jrec.recall_1k_5fold(img, cap, fold=20))
 
 
 def test_recall_beyond_dense_limit_raises(monkeypatch):
     monkeypatch.setattr(trec, "STREAMING_SCORE_BYTES", 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trec.compute_recall(np.zeros((10, 4), np.float32), np.zeros((10, 4), np.float32))
+        trec.compute_recall(np.zeros((10, 4), np.float32), np.zeros((10, 4), np.float32),
+                            device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])

@@ -34,8 +34,15 @@ def _corpus(gen, n_im, n_cap, s_im, s_s, d):
             torch.randint(4, s_s + 1, (n_cap,), generator=gen, device="cuda"))
 
 
-@pytest.mark.parametrize("shape", [(7, 11, 5, 6, 128), (37, 53, 34, 50, 768),
-                                   (5, 9, 129, 20, 200)])
+# (n_im, n_cap, S_im, S_s, D): small, the benchmark's widths, D off 128 bytes;
+# R 1 / W 1; R 8 / W 16; the main path's R 50 / W 13; R 128 / W 128; an image
+# count that is no multiple of a group
+_MRSW_SHAPES = [(7, 11, 5, 6, 128), (37, 53, 34, 50, 768), (5, 9, 129, 20, 200),
+                (9, 13, 2, 4, 768), (17, 29, 9, 19, 768), (8, 33, 51, 16, 768),
+                (3, 5, 129, 131, 768), (1001, 70, 34, 50, 768)]
+
+
+@pytest.mark.parametrize("shape", _MRSW_SHAPES)
 def test_mrsw_kernel_matches_plain(cuda, shape):
     """bf16: atol 1e-3 (same bf16 products, f32 sums in another order;
     observed ~4e-6 at D=768). int8: relative 1e-5 (identical integer sums,
@@ -51,6 +58,31 @@ def test_mrsw_kernel_matches_plain(cuda, shape):
             torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
         else:
             assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.int8])
+def test_mrsw_kernel_zero_floor(cuda, dt):
+    """Image 0 fills its buffer and word 1 of caption 0 points against all
+    its regions and image 1's: image 0's max is negative (no floor), image
+    1's is floored at 0 by its zeroed regions. Tolerances as above."""
+    im, cap, il, sl = _corpus(cuda, 4, 3, 34, 50, 768)
+    il[0], il[1] = 34, 10
+    cap[0, 1] = -(im[0, 1:].sum(0) + im[1, 1:10].sum(0))
+    got = ak.mrsw_scores(im, cap, il, sl, compute_dtype=dt)
+    want = ak.mrsw_scores_plain(im, cap, il, sl, compute_dtype=dt)
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    else:
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_mrsw_kernel_bucketed_equals_unbucketed(cuda):
+    """bf16 bucketing drops only zero words, which the kernel sums after the
+    real ones: the scores are bitwise equal."""
+    im, cap, il, _ = _corpus(cuda, 300, 700, 34, 50, 768)
+    sl = torch.randint(4, 51, (700,), generator=cuda, device="cuda")
+    full = ak.mrsw_scores(im, cap, il, sl)
+    assert torch.equal(ak.mrsw_scores_bucketed(im, cap, il, sl), full)
 
 
 def test_mrsw_kernel_score_is_shape_independent(cuda):
