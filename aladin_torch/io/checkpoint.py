@@ -6,8 +6,10 @@ A file is {epoch, model, optimizer, scheduler, opt, config, Eiters} with the
 model's state dict under ``img_txt_enc.`` (so aladin_tpu's
 ``load_checkpoint`` and the reference code read the weights), the torch Adam
 state under ``optimizer``, the closed-form schedule's step under
-``scheduler``, and two additions: ``aux`` (the auto loss weights / mse
-affine) and ``best_rsum``.
+``scheduler``, and three additions: ``aux`` (the auto loss weights / mse
+affine), ``best_rsum`` and ``schedule_offset`` (``TrainState``'s: the step
+at which a weights-only resume restarted the optimizer and its schedule;
+files without it read 0).
 
   * ``save_checkpoint`` writes ``<dir>/checkpoint.pth.tar`` through a
     temporary file swapped in atomically (retrying IO failures), then copies
@@ -119,6 +121,7 @@ def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any]
         "Eiters": int(state.step),
         "aux": {k: v.detach().cpu() for k, v in state.aux.items()},
         "best_rsum": float(best_rsum),
+        "schedule_offset": int(state.schedule_offset),
     }
     _write(ckpt, path, retries)
     if is_best_rsum:
@@ -137,14 +140,17 @@ def _load_aux(state, aux: Dict[str, torch.Tensor]) -> None:
 
 def resume_state(state, path: str):
     """Full resume from a file ``save_checkpoint`` wrote: weights, aux,
-    optimizer state and step. Returns (state, start_epoch, best_rsum).
+    optimizer state, step and schedule offset. Returns (state, start_epoch,
+    best_rsum).
 
     A released reference ``.pth.tar`` (no port optimizer state) restores
     the weights non-strictly, with epoch and Eiters; the optimizer restarts
-    fresh, with a warning."""
+    fresh, with a warning, and so does its schedule (the offset becomes
+    Eiters), as aladin_tpu's fresh optax state restarts its count."""
     ckpt, sd = _read(path)
     optim = ckpt.get("optimizer") or {}
-    if "aux" in ckpt and "state" in optim:
+    full = "aux" in ckpt and "state" in optim
+    if full:
         state.model.load_state_dict(sd, strict=True)
         _load_aux(state, ckpt["aux"])
         try:
@@ -159,6 +165,7 @@ def resume_state(state, path: str):
             "the optimizer state restarts fresh", stats["matched"], len(stats["missing"]),
             len(stats["unused"]))
     state.step = int(ckpt.get("Eiters", 0))
+    state.schedule_offset = int(ckpt.get("schedule_offset", 0)) if full else state.step
     return state, int(ckpt.get("epoch", 0)), float(ckpt.get("best_rsum", 0.0))
 
 

@@ -1,15 +1,17 @@
-"""W8A8 int8 GEMM with a fused epilogue: the CUDA kernel, its plain
+"""W8A8 int8 GEMM with a fused epilogue: the CUDA kernels, their plain
 versions, and the dense wrapper (mirrors aladin_tpu/ops/pallas/quant_matmul.py).
 
-Two entries, one kernel (``csrc/quant_matmul.cu``):
+Two entries, one GEMM (``csrc/quant_matmul.cu``):
 
   * ``w8a8_matmul(xq, xscale, wq, wscale, bias)``: int8 activations
     quantized upstream (replaces ``_kernel`` via ``w8a8_matmul``);
-  * ``w8a8_matmul_dynx(x, wq, wscale, bias)``: bf16 / f32 activations that
-    the kernel quantizes per row over the full K (replaces ``_kernel_dynx``
-    via ``w8a8_matmul_dynx``), with the scale ``max(absmax, 1e-8) * (1/127)``
+  * ``w8a8_matmul_dynx(x, wq, wscale, bias)``: bf16 / f32 activations,
+    quantized per row over the full K (replaces ``_kernel_dynx`` via
+    ``w8a8_matmul_dynx``), with the scale ``max(absmax, 1e-8) * (1/127)``
     by reciprocal multiply, as the TPU kernel does, where
     ``quantize_rowwise`` divides: the two scales can differ by one f32 ulp.
+    On the card that is two launches on the stream: the quantize kernel
+    (``w8a8_quantize``, each row once, into int8 scratch) and the GEMM.
 
 Both compute ``y = act(acc * xscale * wscale + bias)`` with ``acc`` the
 exact int32 product over the whole K and the epilogue in f32, each product
@@ -18,11 +20,22 @@ and the add rounded on their own; ``act`` is None, "gelu" (exact erf) or
 int8 with per-output-channel scales wscale (N,) f32, bias (N,) f32 or None,
 y (M, N) bf16 or f32.
 
-  * CUDA tensors launch the kernel; inputs it cannot take (dtypes, K not a
-    multiple of 16 or above 1536) raise, and a failed build or launch raises;
+The GEMM is a persistent Hopper kernel: a TMA producer feeds 128-row x and
+128-row weight tiles, 128 bytes of K a stage, to two warpgroups running
+``wgmma`` s8; the epilogue works on the accumulator registers and writes y
+in 16-byte pieces (the source note of ``csrc/quant_matmul.cu`` has the
+design, the bound and the tile width's reason).
+
+  * CUDA tensors launch the kernels; inputs they cannot take (dtypes, K not
+    a multiple of 16 or above 1536) raise, and a failed build or launch
+    raises;
   * CPU tensors run the plain versions, ``w8a8_matmul_plain`` and
     ``w8a8_matmul_dynx_plain``: the int8 product exactly in int32, then the
     same epilogue in torch ops.
+
+``launches`` on each entry counts its calls that reached the card: one
+for ``w8a8_matmul``, and one for ``w8a8_matmul_dynx`` though it is two
+kernel launches (the quantize and the GEMM).
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ ACTIVATIONS = (None, "gelu", "gelu_tanh")
 _ACT_CODE = {None: 0, "gelu": 1, "gelu_tanh": 2}
 _OUT_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _X_CODE = {torch.bfloat16: 0, torch.float32: 1}
-MAX_K = 1536  # the kernel holds a block's 128 activation rows whole in shared memory
+MAX_K = 1536  # the quantize kernel holds a row in registers (48 values a lane)
 _INV_127 = float(np.float32(1.0 / 127.0))  # the f32 constant _kernel_dynx multiplies by
 _SQRT_HALF = 0.7071067811865476
 _GELU_TANH_C = 0.7978845608028654  # sqrt(2 / pi)
@@ -109,7 +122,9 @@ def _kernel_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.w8a8_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.w8a8_matmul_launch.restype = i
-    lib.w8a8_matmul_dynx_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i, p]
+    lib.w8a8_quantize_launch.argtypes = [p, i, p, p, i, i, p]
+    lib.w8a8_quantize_launch.restype = i
+    lib.w8a8_matmul_dynx_launch.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.w8a8_matmul_dynx_launch.restype = i
     lib.w8a8_error_string.argtypes = [i]
     lib.w8a8_error_string.restype = ctypes.c_char_p
@@ -117,7 +132,7 @@ def _kernel_library() -> ctypes.CDLL:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, 16-byte aligned (the kernel's vector and cp.async loads)."""
+    """Contiguous, 16-byte aligned (the kernels' vector and TMA loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -184,40 +199,77 @@ def w8a8_matmul(xq: torch.Tensor, xscale: torch.Tensor, wq: torch.Tensor, wscale
     return out
 
 
-w8a8_matmul.launches = 0  # kernel launches; the plain version does not count
+w8a8_matmul.launches = 0  # calls that launched the GEMM; the plain version does not count
+
+
+def _check_dynx_x(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
+    if x.dtype not in _X_CODE:
+        raise ValueError(f"{name} takes bf16 or f32 activations, got {x.dtype}")
+
+
+def w8a8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4-dynx's quantize alone: (xq (M, K) int8, xscale (M, 1) f32) of
+    bf16 / f32 x (M, K), each row over its full K with
+    ``quantize_rowwise_dynx``'s arithmetic: the kernel for CUDA tensors,
+    ``quantize_rowwise_dynx`` for CPU tensors."""
+    if x.device.type == "cpu":
+        return quantize_rowwise_dynx(x)
+    _check_dynx_x(x, "w8a8_quantize")
+    if x.dim() != 2 or x.shape[1] % 16 != 0 or x.shape[1] > MAX_K:
+        raise ValueError(f"w8a8_quantize takes x (M, K), K a multiple of 16 up to {MAX_K}, "
+                         f"got {tuple(x.shape)}")
+    x = _aligned(x)
+    m, k = x.shape
+    xq = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    xscale = torch.empty(m, 1, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return xq, xscale
+    lib = _kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.w8a8_quantize_launch(x.data_ptr(), _X_CODE[x.dtype], xq.data_ptr(),
+                                       xscale.data_ptr(), m, k, stream)
+    _check(err, lib)
+    w8a8_quantize.launches += 1
+    return xq, xscale
+
+
+w8a8_quantize.launches = 0  # calls that launched the quantize alone (not those inside dynx)
 
 
 def w8a8_matmul_dynx(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *, activation: Optional[str] = None,
                      out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Like ``w8a8_matmul`` for unquantized bf16 / f32 x (M, K), which the
-    kernel quantizes per row over the full K: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """Like ``w8a8_matmul`` for unquantized bf16 / f32 x (M, K), quantized
+    per row over the full K: for CUDA tensors the quantize kernel (into int8
+    scratch) then the GEMM, two launches on the current stream; the plain
+    version for CPU tensors."""
     if x.device.type == "cpu":
         return w8a8_matmul_dynx_plain(x, wq, wscale, bias, activation=activation,
                                       out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"w8a8_matmul_dynx runs on cpu or cuda tensors, got {x.device}")
-    if x.dtype not in _X_CODE:
-        raise ValueError(f"w8a8_matmul_dynx takes bf16 or f32 activations, got {x.dtype}")
+    _check_dynx_x(x, "w8a8_matmul_dynx")
     wq, wscale, bias, m, n, k = _operands(x, wq, wscale, bias, activation, out_dtype)
     x = _aligned(x)
     out = torch.empty(m, n, dtype=out_dtype, device=x.device)
     if m == 0:
         return out
+    xq = torch.empty(m, k, dtype=torch.int8, device=x.device)  # scratch: each row once
+    xscale = torch.empty(m, dtype=torch.float32, device=x.device)
     lib = _kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.w8a8_matmul_dynx_launch(
-            x.data_ptr(), _X_CODE[x.dtype], wq.data_ptr(), wscale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-            _ACT_CODE[activation], _OUT_CODE[out_dtype], stream)
+            x.data_ptr(), _X_CODE[x.dtype], xq.data_ptr(), xscale.data_ptr(), wq.data_ptr(),
+            wscale.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
+            k, _ACT_CODE[activation], _OUT_CODE[out_dtype], stream)
     _check(err, lib)
     w8a8_matmul_dynx.launches += 1
     return out
 
 
-w8a8_matmul_dynx.launches = 0  # kernel launches; the plain version does not count
+w8a8_matmul_dynx.launches = 0  # calls that launched quantize + GEMM (the plain version: none)
 
 
 def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -75,7 +75,7 @@ class Trainer:
             pending.clear()
             window_start = time.time()
             self.logger.info(f"Epoch: [{epoch}][{i}/{len(self.train_loader)}]\t{collector}\t"
-                             f"lr {self.state.schedule(self.state.step - 1):.3g}\t"
+                             f"lr {self.state.schedule(self.state.schedule_step - 1):.3g}\t"
                              f"Time {batch_time}\tData {data_time}")
 
         end = time.time()

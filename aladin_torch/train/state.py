@@ -4,7 +4,11 @@ count (mirrors aladin_tpu/train/state.py).
 Optimizer contract: plain Adam (b1 0.9, b2 0.999, eps 1e-8, no weight
 decay) over every trainable parameter, after a global-norm gradient clip at
 ``grad-clip`` taken over those parameters, with the learning rate of
-``make_lr_schedule`` at the pre-update step count.
+``make_lr_schedule`` at the pre-update schedule count: ``step`` less
+``schedule_offset``. The offset is 0 unless the state was resumed from a
+weights-only file, where the optimizer restarts and so does its schedule
+(optax counts the schedule in the fresh ``opt_state`` in aladin_tpu), while
+``step`` keeps the file's Eiters.
 
 freeze-teran: the backbone, the TERAN stacks and the alignment-side depth
 aggregation (``FROZEN_WITH_TERAN``) get zero updates, as optax's
@@ -53,7 +57,8 @@ def make_aux_params(cfg: ExperimentConfig, device=None) -> Dict[str, nn.Paramete
 
 class TrainState:
     """Model + aux parameters, the Adam optimizer over the trainable ones,
-    and ``step`` (the reference's Eiters)."""
+    ``step`` (the reference's Eiters) and ``schedule_offset``, the step at
+    which the optimizer and its schedule last started fresh."""
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module, steps_per_epoch: int = 1000,
                  aux: Dict[str, nn.Parameter] = None):
@@ -62,6 +67,7 @@ class TrainState:
         device = next(model.parameters()).device
         self.aux = make_aux_params(cfg, device) if aux is None else aux
         self.step = 0
+        self.schedule_offset = 0
         self.schedule = make_lr_schedule(cfg.training, steps_per_epoch)
         frozen = FROZEN_WITH_TERAN if cfg.model.freeze_teran else ()
         self.trainable: List[nn.Parameter] = []
@@ -82,6 +88,11 @@ class TrainState:
         out.update({f"aux.{k}": v for k, v in self.aux.items()})
         return out
 
+    @property
+    def schedule_step(self) -> int:
+        """The schedule's count: updates since the optimizer started fresh."""
+        return self.step - self.schedule_offset
+
     def apply_gradients(self) -> None:
         """Clip the trainable gradients to ``grad-clip`` by their global
         norm, take one Adam step at this step's learning rate, count it."""
@@ -93,7 +104,7 @@ class TrainState:
             scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
             torch._foreach_mul_(grads, scale)
         for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step)
+            group["lr"] = self.schedule(self.schedule_step)
         self.optimizer.step()
         self.step += 1
 

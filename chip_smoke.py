@@ -31,8 +31,8 @@ Phases, each printing one JSON line:
               with quant_matmuls + fused_layernorm: 48 K3b and 48 K4
               launches a batch, no K4-dynx or K3a, global embeddings within
               a median cosine of 0.99 of the --int8_encoder encode's; the
-              card time of one batch's forward for those two models and the
-              bf16 one (torch.profiler).
+              card time of one encode batch's forward (both passes) for
+              those two models and the bf16 one (torch.profiler).
   6. k2     - the fused attention kernels (csrc/attention_kernel.cu, the
               bf16 tensor-core forward and backward) against their plain
               versions at B 128, 12 heads of 64, bf16: the training path's
@@ -43,11 +43,14 @@ Phases, each printing one JSON line:
   7. k3     - the fused residual+LayerNorm Triton kernel and its analytic
               backward against the plain version at M = 128 x 84 and
               128 x 50 rows of 768; kernel, plain and F.layer_norm times.
-  8. k4     - the W8A8 GEMM (csrc/quant_matmul.cu), int8 x and in-kernel
-              quantized x, against the plain versions at M 2688 / 1600 / 7 /
-              37, K 768, N 2304 and 3072, no activation / gelu / gelu_tanh,
-              bf16 and f32 out, the in-kernel quantize bitwise; then kernel,
-              plain, torch._int_mm and bf16 F.linear times at M 2688.
+  8. k4     - the W8A8 GEMM (csrc/quant_matmul.cu) on int8 x and on bf16 x
+              through the dynx quantize kernel, against the plain versions
+              at M 2688 / 1600 / 7 / 37, K 768, N 2304 and 3072, no
+              activation / gelu / gelu_tanh, bf16 and f32 out (f32 without
+              activation bitwise), the quantize bitwise; then kernel, plain,
+              torch._int_mm and bf16 F.linear times at M 2688 and 1600, the
+              quantize pass alone, and the card's SM clock and power draw
+              sampled meanwhile.
   9. k3b    - the q8 residual LayerNorm (Triton) against its plain version
               at M 2688 and 1600 rows of 768; kernel, plain and unfused
               F.layer_norm + quantize times.
@@ -535,7 +538,9 @@ def phase_encode_q8ln(oscar: str, data: str) -> dict:
             raise AssertionError(f"q8ln and int8-encoder {side} globals disagree: {cos[side]}")
     emit({"phase": "encode_q8ln", "rows": len(ds), "batches": len(loader),
           "encode_seconds_first_second": seconds, "launches_second": launches,
-          "global_cosine": cos, "device_profile_one_batch": profiles})
+          "global_cosine": cos,
+          "card_ms_per_encode_batch": {k: p["device_ms"] for k, p in profiles.items()},
+          "device_profile_one_batch": profiles})
     return launches["q8ln"]
 
 
@@ -727,6 +732,42 @@ def phase_k3() -> dict:
     return {"max_err": max_err, "timings": timings}
 
 
+class SmiSampler:
+    """``nvidia-smi`` sampling the SM clock, power draw and power limit every
+    100 ms while the ``with`` block runs; ``summary`` gives min / median /
+    max of each over the samples."""
+
+    FIELDS = ("clocks.sm", "power.draw", "power.limit")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={','.join(self.FIELDS)}",
+             "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        self.summary = {"samples": len(rows)}
+        for i, name in enumerate(self.FIELDS):
+            vals = sorted(r[i] for r in rows if len(r) == len(self.FIELDS))
+            if vals:
+                self.summary[name] = {"min": vals[0], "median": vals[len(vals) // 2],
+                                      "max": vals[-1]}
+        return False
+
+
 def w8a8_bound(m: int, k: int, n: int, x_bytes: int, out_bytes: int = 2):
     """K4's least time: x (x_bytes a value; int8 x adds its f32 row scales),
     wq and the f32 weight scales and bias read once, y written once, against
@@ -739,7 +780,9 @@ def phase_k4() -> dict:
     """K4 and K4-dynx against their plain versions at the encoder's shapes
     (M 2688 / 1600, the image and caption passes at bs 32, and M 7 / 37;
     K 768; N 2304 QKV, 3072 FFN-up with gelu, one gelu_tanh case; bf16 and
-    f32 out); then times at M 2688."""
+    f32 out; f32 without activation and the quantize bitwise); then times
+    at M 2688 and 1600 beside bf16 F.linear, the quantize pass alone, and
+    the card's clock and power."""
     import torch
     import torch.nn.functional as F
 
@@ -747,7 +790,7 @@ def phase_k4() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     k = 768
-    checks, max_err, timings = [], {"k4": 0.0, "k4_dynx": 0.0}, {}
+    checks, max_err, timings, quantize = [], {"k4": 0.0, "k4_dynx": 0.0}, {}, {}
     cases = ((2304, None, "qkv"), (3072, "gelu", "ffn_up"), (2304, "gelu_tanh", "gelu_tanh"))
     for m in (2688, 1600, 7, 37):
         for n, act, label in cases:
@@ -764,16 +807,23 @@ def phase_k4() -> dict:
                          qm.w8a8_matmul_dynx_plain(x, wq, ws, b, **kw))):
                     rel = (BF16_ULP if od == torch.bfloat16
                            else K4_F32_RTOL if act is None else K4_F32_ACT_RTOL)
+                    tag = f"M{m} N{n} {act} {str(od)[6:]}"
                     max_err[name] = max(max_err[name], check_close(
-                        checks, name, f"M{m} N{n} {act} {str(od)[6:]}", got, want,
-                        rel * want.float().abs().max().item()))
-            # the in-kernel q and scale equal the plain quantize bitwise
+                        checks, name, tag, got, want, rel * want.float().abs().max().item()))
+                    if od == torch.float32 and act is None and not torch.equal(got, want):
+                        raise AssertionError(f"{name} f32 without activation is not bitwise "
+                                             f"equal to its plain version at {tag}")
+            # the quantize kernel's q and scale equal the plain quantize
+            # bitwise, and K4-dynx equals K4 fed with them
             xq2, xs2 = qm.quantize_rowwise_dynx(x)
+            kq, ks = qm.w8a8_quantize(x)
+            if not (torch.equal(kq, xq2) and torch.equal(ks, xs2)):
+                raise AssertionError(f"the dynx quantize kernel differs at M{m}")
             got = qm.w8a8_matmul_dynx(x, wq, ws, b, out_dtype=torch.float32)
             if not torch.equal(got, qm.w8a8_matmul_plain(xq2, xs2, wq, ws, b,
                                                           out_dtype=torch.float32)):
-                raise AssertionError(f"K4-dynx's in-kernel quantize differs at M{m} N{n}")
-            if m != 2688 or act == "gelu_tanh":
+                raise AssertionError(f"K4-dynx's quantize differs at M{m} N{n}")
+            if m not in (2688, 1600) or act == "gelu_tanh":
                 continue
             wt = wq.t()  # (K, N) column-major for torch._int_mm
             w16 = (wq.float() * ws[:, None]).to(torch.bfloat16)
@@ -790,23 +840,37 @@ def phase_k4() -> dict:
                 q, sc = qm.quantize_rowwise_dynx(x)
                 return epilogue(torch._int_mm(q, wt), sc)
 
-            timings[label] = {"shape": f"M{m} K{k} N{n} {act} bf16 out", "bf16_linear_ms":
-                              device_ms(linear, 50)}
-            for name, fn, plain, lib, x_bytes in (
-                    ("k4", lambda: qm.w8a8_matmul(xq, xs, wq, ws, b, activation=act),
-                     lambda: qm.w8a8_matmul_plain(xq, xs, wq, ws, b, activation=act),
-                     lambda: epilogue(torch._int_mm(xq, wt), xs), 1),
-                    ("k4_dynx", lambda: qm.w8a8_matmul_dynx(x, wq, ws, b, activation=act),
-                     lambda: qm.w8a8_matmul_dynx_plain(x, wq, ws, b, activation=act),
-                     lib_dynx, 2)):
-                bound_ms, bound_by = w8a8_bound(m, k, n, x_bytes)
-                timings[label][name] = {"ms": device_ms(fn, 50), "plain_ms": device_ms(plain, 10),
-                                        "library_ms": device_ms(lib, 50), "bound_ms": bound_ms,
-                                        "bound_by": bound_by}
+            key = f"{label} M{m}"
+            with SmiSampler() as smi:
+                timings[key] = {"shape": f"M{m} K{k} N{n} {act} bf16 out",
+                                "bf16_linear_ms": device_ms(linear, 50)}
+                for name, fn, plain, lib, x_bytes in (
+                        ("k4", lambda: qm.w8a8_matmul(xq, xs, wq, ws, b, activation=act),
+                         lambda: qm.w8a8_matmul_plain(xq, xs, wq, ws, b, activation=act),
+                         lambda: epilogue(torch._int_mm(xq, wt), xs), 1),
+                        ("k4_dynx", lambda: qm.w8a8_matmul_dynx(x, wq, ws, b, activation=act),
+                         lambda: qm.w8a8_matmul_dynx_plain(x, wq, ws, b, activation=act),
+                         lib_dynx, 2)):
+                    bound_ms, bound_by = w8a8_bound(m, k, n, x_bytes)
+                    t = {"ms": device_ms(fn, 50), "plain_ms": device_ms(plain, 10),
+                         "library_ms": device_ms(lib, 50), "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+                    t["bound_share"] = bound_ms / t["ms"]
+                    t["vs_bf16_linear"] = t["ms"] / timings[key]["bf16_linear_ms"]
+                    timings[key][name] = t
+            timings[key]["smi"] = smi.summary
+            if label == "qkv":  # the quantize pass alone (its bytes: x read, xq and scales written)
+                qb, qby = bound(m * k * 2 + m * k + m * 4, 0.0, "int8")
+                quantize[f"M{m}"] = {"ms": device_ms(lambda: qm.w8a8_quantize(x), 50),
+                                     "plain_ms": device_ms(lambda: qm.quantize_rowwise_dynx(x), 20),
+                                     "bound_ms": qb, "bound_by": qby}
     emit({"phase": "k4", "checks": checks, "dynx_quantize_bitwise": True,
-          "tolerance": "bf16 out: max|want| * 2^-7; f32 out: 1e-6 (1e-5 with gelu) of max|want|",
-          "timings": timings,
-          "timing": "card time (device_ms); bound: bytes over 3.35 TB/s or 2MKN over 1979 TOP/s",
+          "f32_no_activation_bitwise": True,
+          "tolerance": "bf16 out: max|want| * 2^-7; f32 out: bitwise without activation, "
+                       "1e-5 of max|want| with one",
+          "timings": timings, "quantize_alone": quantize,
+          "timing": "card time (device_ms); bound: bytes over 3.35 TB/s or 2MKN over 1979 TOP/s; "
+                    "smi: nvidia-smi samples (MHz, W) over the timings of that shape",
           "library": "torch._int_mm + the descale, bias and gelu in torch ops (dynx: plus the "
                      "torch quantize); bf16_linear_ms: F.linear in bf16 (+ F.gelu)"})
     return {"max_err": max_err, "timings": timings}
@@ -1121,7 +1185,7 @@ def main() -> int:
     for name, key, line, count in (("w8a8_matmul", "k4", 70, q8ln["k4"]),
                                    ("w8a8_matmul_dynx", "k4_dynx", 76,
                                     launches["int8_encoder"]["k4_dynx"])):
-        t = k4["timings"]["qkv"][key]
+        t = k4["timings"]["qkv M2688"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": "aladin_torch/csrc/quant_matmul.cu",
             "replaces": f"aladin_tpu/ops/pallas/quant_matmul.py:{line}", "launches": count,

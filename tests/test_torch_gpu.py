@@ -253,6 +253,103 @@ def test_w8a8_dynx_quantizes_like_its_plain_version(cuda):
                        qm.w8a8_matmul_plain(xq, xs, wq, ws, b, out_dtype=torch.float32))
 
 
+def _w8a8_f32_both(x, wq, ws, b):
+    """K4 on the quantize kernel's xq / xscale and K4-dynx, f32 out, no
+    activation, with the plain GEMM on the same xq / xscale: the int32 sums
+    are exact and the f32 epilogue is the same arithmetic, so all three are
+    equal bit for bit."""
+    xq, xs = qm.w8a8_quantize(x)
+    want = qm.w8a8_matmul_plain(xq, xs, wq, ws, b, out_dtype=torch.float32)
+    got = qm.w8a8_matmul(xq, xs, wq, ws, b, out_dtype=torch.float32)
+    dynx = qm.w8a8_matmul_dynx(x, wq, ws, b, out_dtype=torch.float32)
+    assert got.shape == dynx.shape == (x.shape[0], wq.shape[0])
+    assert torch.equal(got, want)
+    assert torch.equal(dynx, got)
+    return got
+
+
+@pytest.mark.parametrize("n", [100, 2304, 3072])
+@pytest.mark.parametrize("m", [1, 7, 37, 129, 1600, 2688])
+def test_w8a8_kernels_bitwise_at_ragged_shapes(cuda, m, n):
+    """M ragged against the 128-row tiles (1 row up to the image pass's
+    2688), N ragged against the tile width (100: rows of y not 16-byte
+    aligned) and the encoder's QKV / FFN-up widths, K 768."""
+    x, wq, ws, b = _w8a8_inputs(cuda, m, 768, n)
+    _w8a8_f32_both(x, wq, ws, b)
+
+
+@pytest.mark.parametrize("m,n", [(37, 100), (129, 2304), (1600, 3072)])
+@pytest.mark.parametrize("k", [16, 48, 768, 1536])
+def test_w8a8_kernels_bitwise_at_every_depth(cuda, k, m, n):
+    """K 16 and 48 fill one 128-byte stage partly (TMA's zeros past K), 768
+    is six stages, 1536 is MAX_K (the quantize kernel's 48 values a lane)."""
+    x, wq, ws, b = _w8a8_inputs(cuda, m, k, n)
+    _w8a8_f32_both(x, wq, ws, b)
+
+
+def _every_bf16_value():
+    """Every finite bf16 value in rows of 768: row e holds binades e, e + 1
+    and e + 2 (both signs, all 128 mantissas), so its quotients x / scale
+    spread over the int8 range and each value meets three scales."""
+    mant = torch.arange(128, dtype=torch.int32)
+    rows = []
+    for e in range(253):
+        mag = (torch.arange(e, e + 3, dtype=torch.int32)[:, None] << 7 | mant[None]).reshape(-1)
+        rows.append(torch.cat([mag, mag | 0x8000]))
+    return torch.stack(rows).to(torch.int16).view(torch.bfloat16).cuda()
+
+
+def test_w8a8_quantize_kernel_is_bitwise(cuda):
+    """The quantize kernel's xq and xscale equal quantize_rowwise_dynx's
+    bitwise: for bf16 and f32 x with an all-zero row (scale 1e-8 / 127) and
+    rows of mixed magnitude, and for every finite bf16 value."""
+    x = torch.randn(300, 768, generator=cuda, device="cuda")
+    x[5] = 0
+    x[7] *= 1e4
+    x[9] *= 1e-6
+    for xt in (x.to(torch.bfloat16), x, _every_bf16_value()):
+        before = qm.w8a8_quantize.launches
+        xq, xs = qm.w8a8_quantize(xt)
+        assert qm.w8a8_quantize.launches == before + 1
+        wq, ws = qm.quantize_rowwise_dynx(xt)
+        assert xq.dtype == torch.int8 and xs.shape == (xt.shape[0], 1)
+        assert torch.equal(xq, wq) and torch.equal(xs, ws)
+
+
+@pytest.mark.parametrize("activation", [None, "gelu"])
+def test_w8a8_rows_do_not_depend_on_m_or_position(cuda, activation):
+    """A row's output is the same bits whatever M is and wherever the row
+    falls in the tile sweep: rows 1000..1036 and row 2687 of an M 2688 call
+    equal those rows called alone (bf16 out, both entries)."""
+    x, wq, ws, b = _w8a8_inputs(cuda, 2688, 768, 2304)
+    xq, xs = qm.quantize_rowwise(x)
+    kw = {"activation": activation}
+    full = qm.w8a8_matmul(xq, xs, wq, ws, b, **kw)
+    full_dynx = qm.w8a8_matmul_dynx(x, wq, ws, b, **kw)
+    for rows in (slice(1000, 1037), slice(2687, 2688), slice(0, 1)):
+        assert torch.equal(qm.w8a8_matmul(xq[rows], xs[rows], wq, ws, b, **kw), full[rows])
+        assert torch.equal(qm.w8a8_matmul_dynx(x[rows], wq, ws, b, **kw), full_dynx[rows])
+
+
+def test_w8a8_dynx_takes_f32_x(cuda):
+    """K4-dynx on f32 activations: bitwise equal to the plain version at f32
+    out without activation, within one bf16 ulp of the largest with gelu."""
+    x, wq, ws, b = _w8a8_inputs(cuda, 1601, 768, 2300)
+    x = x.float() * 1.5
+    xq, xs = qm.quantize_rowwise_dynx(x)
+    assert torch.equal(qm.w8a8_matmul_dynx(x, wq, ws, b, out_dtype=torch.float32),
+                       qm.w8a8_matmul_plain(xq, xs, wq, ws, b, out_dtype=torch.float32))
+    _ulp_close(qm.w8a8_matmul_dynx(x, wq, ws, b, activation="gelu"),
+               qm.w8a8_matmul_dynx_plain(x, wq, ws, b, activation="gelu"), torch.bfloat16)
+
+
+def test_w8a8_kernels_take_empty_m(cuda):
+    x, wq, ws, b = _w8a8_inputs(cuda, 0, 768, 2304)
+    xq, xs = qm.quantize_rowwise(x)
+    assert qm.w8a8_matmul(xq, xs, wq, ws, b).shape == (0, 2304)
+    assert qm.w8a8_matmul_dynx(x, wq, ws, b).shape == (0, 2304)
+
+
 def test_w8a8_kernels_refuse_what_they_cannot_take(cuda):
     x, wq, ws, b = _w8a8_inputs(cuda, 8, 768, 256)
     xq, xs = qm.quantize_rowwise(x)

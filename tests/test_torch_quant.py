@@ -9,9 +9,10 @@ Same numpy inputs from a seed through both packages:
     Pallas kernel's A&S erf is within 1.5e-7 of the exact erf);
   * K4-dynx (``w8a8_matmul_dynx_plain``) against
     ``w8a8_matmul_dynx(..., interpret=True)`` (the same reciprocal-multiply
-    scale: rtol 1e-6), and ``w8a8_apply`` against aladin_tpu's CPU
-    ``w8a8_apply``, which scales by division, so a scale can differ by one
-    f32 ulp: rtol 1e-5;
+    scale: rtol 1e-6), also as the card runs it (``w8a8_quantize`` then
+    K4, bitwise equal to the dynx plain version), and ``w8a8_apply``
+    against aladin_tpu's CPU ``w8a8_apply``, which scales by division, so a
+    scale can differ by one f32 ulp: rtol 1e-5;
   * K3b (``residual_layernorm_q8_plain``) against
     ``residual_layernorm_q8`` with impl "interpret" and "xla": y within K3a's
     tolerances (2e-5 in f32, 1e-2 for bf16 x), s within rtol 1e-6, q at most
@@ -111,6 +112,26 @@ def test_w8a8_matmul_dynx_plain_matches_pallas(rng, activation):
                               activation=activation, out_dtype=torch.float32)
     tol = 1e-6 if activation is None else 1e-5
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [48, 64])
+def test_w8a8_quantize_then_matmul_is_dynx(rng, x_dtype, k):
+    """K4-dynx as the port runs it on the card, the quantize pass and then
+    K4 on its output: equal to the dynx plain version bitwise, and to
+    aladin_tpu's ``_kernel_dynx`` in interpret mode within rtol 1e-6 (f32
+    out, no activation: the same q and scales, exact int32 sums)."""
+    x, _, b, (_, _, jwq, jws) = _quant_inputs(rng, 37, k, 96)
+    jx = jnp.asarray(x).astype(x_dtype)
+    xt = _t(jx.astype(jnp.float32)).to(getattr(torch, x_dtype))
+    wq, ws = _t(jwq).T.contiguous(), _t(jws).reshape(-1)
+    xq, xs = qm.w8a8_quantize(xt)
+    assert xq.dtype == torch.int8 and xs.shape == (37, 1)
+    got = qm.w8a8_matmul(xq, xs, wq, ws, _t(b), out_dtype=torch.float32)
+    assert torch.equal(got, qm.w8a8_matmul_dynx(xt, wq, ws, _t(b), out_dtype=torch.float32))
+    want = jax_qm.w8a8_matmul_dynx(jx, jwq, jws, jnp.asarray(b)[None], block_m=64,
+                                   out_dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("activation", [None, "gelu", "gelu_tanh"])

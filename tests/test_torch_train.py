@@ -21,6 +21,7 @@ import dataclasses
 import os
 
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -31,6 +32,7 @@ from aladin_tpu.config import ExperimentConfig as JaxExperimentConfig
 from aladin_tpu.config import TrainingConfig as JaxTrainingConfig
 from aladin_tpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
 from aladin_tpu.io.checkpoint import load_teacher_params as jax_load_teacher_params
+from aladin_tpu.io.checkpoint import resume_state as jax_resume_state
 from aladin_tpu.models.aladin import ALADIN as JaxALADIN
 from aladin_tpu.train.schedule import make_lr_schedule as jax_schedule
 from aladin_tpu.train.state import create_train_state
@@ -67,11 +69,12 @@ CASES = {
 }
 
 
-def _recipe(case):
+def _recipe(case, training_over=None):
     training = {k: v for k, v in CASES[case].items() if k != "model"}
     return {"model": {"embed-size": SMALL["hidden_size"], "tern-layers": 1, "dropout": 0.0,
                       **CASES[case].get("model", {})},
-            "training": {**training, "lr": LR, "bs": 4, "grad-clip": 2.0}}
+            "training": {**training, "lr": LR, "bs": 4, "grad-clip": 2.0,
+                         **(training_over or {})}}
 
 
 def _torch_batch(jb) -> Batch:
@@ -79,9 +82,9 @@ def _torch_batch(jb) -> Batch:
                     for f in Batch.__dataclass_fields__})
 
 
-def _both(case, rng):
+def _both(case, rng, training_over=None):
     """(jax model, jax state, port model, port state, jax batch, port batch)."""
-    d = _recipe(case)
+    d = _recipe(case, training_over)
     jmodel = JaxALADIN(JaxExperimentConfig.from_dict(d),
                        dataclasses.replace(small_cfg(), **NO_DROPOUT))
     jbatch = make_batch(rng)
@@ -267,6 +270,112 @@ def test_resume_from_a_weights_only_file_restarts_the_optimizer(rng, tmp_path):
     assert state.optimizer.state_dict()["state"] == {}
     for (name, p), q in zip(state.model.named_parameters(), src.model.parameters()):
         assert torch.equal(p, q), name
+
+
+# steplr at every epoch of 10 steps: a schedule read at Eiters 25 instead
+# of 0 gives lr / 100
+DECAYING = {"step-size": 1, "gamma": 0.1}
+EITERS = 25
+
+
+def _weights_only_file(tmp_path, case="flagship", seed=4):
+    """A .pth.tar in the released reference's layout (no optimizer state,
+    no aux) at epoch 2, Eiters 25."""
+    src = _small_state(_recipe(case), seed=seed)
+    src.step = EITERS
+    path = save_checkpoint(str(tmp_path), src, 2, src.cfg.to_dict(), 0.0)
+    ckpt = torch.load(path, weights_only=False)
+    ref = str(tmp_path / "reference.pth.tar")
+    torch.save({k: ckpt[k] for k in ("epoch", "model", "opt", "config", "Eiters")}, ref)
+    return ref
+
+
+def _schedule_count(opt_state) -> int:
+    """optax's count of the learning-rate schedule in an opt_state."""
+    def is_sched(s):
+        return isinstance(s, optax.ScaleByScheduleState)
+
+    counts = {int(s.count) for s in jax.tree.leaves(opt_state, is_leaf=is_sched) if is_sched(s)}
+    assert len(counts) == 1, counts
+    return counts.pop()
+
+
+def test_weights_only_resume_restarts_the_schedule_like_jax(rng, tmp_path):
+    """Both packages resume from one weights-only file (Eiters 25) and take
+    two steps on one batch: each step's lr is the schedule's at 0 and 1 in
+    both (aladin_tpu's fresh optax state restarts its count), the step count
+    continues from Eiters, and the params agree within the post-Adam
+    tolerance of ``test_one_step_matches`` (atol 1e-6 where both steps'
+    gradients exceed 1e-4 of the largest; elsewhere each update stays
+    within lr)."""
+    jmodel, jstate, model, state, jbatch, batch = _both("flagship", rng, DECAYING)
+    jcfg = JaxExperimentConfig.from_dict(_recipe("flagship", DECAYING))
+    ref = _weights_only_file(tmp_path)
+    jstate, jepoch, _ = jax_resume_state(jstate, ref)
+    state, epoch, _ = resume_state(state, ref)
+    assert epoch == jepoch == 2 and state.step == int(jstate.step) == EITERS
+    assert state.schedule_offset == EITERS
+
+    sched = jax_schedule(jcfg.training, steps_per_epoch=10)
+    assert float(sched(EITERS)) < 0.02 * float(sched(0))  # a restart is visible in the lr
+    before = params_from_flax(jax.tree.map(np.asarray, jstate.params))
+    grad_fn = jax.jit(jax.value_and_grad(jax_make_loss_fn(jmodel, jcfg), has_aux=True))
+    jstep, step = jax_make_train_step(jmodel, jcfg), make_train_step(model, state.cfg)
+    live = None
+    for i in range(2):
+        _, jgrads = grad_fn(jstate.params, jbatch, jnp.int32(0), jax.random.PRNGKey(1))
+        grads = params_from_flax(jax.tree.map(np.asarray, jgrads))
+        scale = max(float(np.abs(g.numpy()).max()) for g in grads.values())
+        big = {k: np.abs(g.numpy()) > 1e-4 * scale for k, g in grads.items()}
+        live = big if live is None else {k: live[k] & big[k] for k in big}
+        assert _schedule_count(jstate.opt_state) == state.schedule_step == i
+        jstate, _ = jstep(jstate, jbatch, jnp.int32(0), jax.random.PRNGKey(1))
+        step(state, batch, 0)
+        assert state.optimizer.param_groups[0]["lr"] == pytest.approx(float(sched(i)), rel=1e-6)
+    assert state.step == int(jstate.step) == EITERS + 2
+
+    want = params_from_flax(jax.tree.map(np.asarray, jstate.params))
+    for name, p in state.named_params().items():
+        got, w = p.detach().numpy(), want[name].numpy()
+        np.testing.assert_allclose(got[live[name]], w[live[name]], atol=1e-6, err_msg=name)
+        assert np.all(np.abs(got - before[name].numpy()) <= 2 * LR * 1.001), name
+
+
+def test_full_resume_continues_the_schedule_of_a_weights_only_resume(tmp_path):
+    """A file the port saves after a weights-only resume keeps the offset:
+    a full resume from it reads the schedule at step - offset, and so does
+    the Trainer's lr log."""
+    d = _recipe("flagship", DECAYING)
+    state, _, _ = resume_state(_small_state(d, seed=5), _weights_only_file(tmp_path))
+    batch = _torch_batch(make_batch(np.random.RandomState(0)))
+    make_train_step(state.model, state.cfg)(state, batch, 0)
+    path = save_checkpoint(str(tmp_path / "later"), state, 3, state.cfg.to_dict(), 1.0)
+    assert torch.load(path, weights_only=False)["schedule_offset"] == EITERS
+
+    again, epoch, _ = resume_state(_small_state(d, seed=6), path)
+    assert (again.step, again.schedule_offset, again.schedule_step, epoch) == (
+        EITERS + 1, EITERS, 1, 3)
+    make_train_step(again.model, again.cfg)(again, batch, 0)
+    assert again.optimizer.param_groups[0]["lr"] == again.schedule(1) == LR
+
+
+def test_full_resume_from_a_file_without_the_offset_reads_zero(tmp_path):
+    """Files written before the offset was saved load as full resumes with
+    offset 0: the schedule runs at the step count, as it did."""
+    d = _recipe("flagship", DECAYING)
+    src = _small_state(d, seed=7)
+    src.step = EITERS
+    path = save_checkpoint(str(tmp_path), src, 2, src.cfg.to_dict(), 0.5)
+    ckpt = torch.load(path, weights_only=False)
+    del ckpt["schedule_offset"]
+    torch.save(ckpt, path)
+
+    state, _, best = resume_state(_small_state(d, seed=8), path)
+    assert (state.step, state.schedule_offset, best) == (EITERS, 0, 0.5)
+    make_train_step(state.model, state.cfg)(state, _torch_batch(make_batch(
+        np.random.RandomState(0))), 0)
+    assert state.optimizer.param_groups[0]["lr"] == pytest.approx(state.schedule(EITERS))
+    assert state.schedule(EITERS) == pytest.approx(LR * 0.01)
 
 
 def test_unported_training_levers_raise():
