@@ -80,6 +80,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "rowquant.cuh"
+
 namespace {
 
 constexpr int kConsumers = 2;                     // consumer warpgroups, 64 rows each
@@ -439,42 +441,6 @@ w8a8_gemm(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUt
 }
 
 // ---- the dynx quantize -------------------------------------------------------
-
-template <typename T> struct Vec;
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int kElems = 8;  // 16 bytes
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-template <> struct Vec<float> {
-  static constexpr int kElems = 4;
-  __device__ static void load(const float* p, float* f) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
-  }
-};
-
-// x / scale rounded to nearest even, as an IEEE divide gives it, from inv =
-// 1 / scale rounded to nearest (computed once a row): q = x * inv is within
-// an ulp of the quotient, the fma gives its remainder x - scale * q
-// exactly, and one more fma rounds q + remainder * inv to the correctly
-// rounded quotient (Markstein's theorem; |x / scale| <= 127 here, far from
-// overflow, and a quotient small enough to underflow rounds to 0 either
-// way). Three instructions where __fdiv_rn takes a subroutine call; checked
-// bitwise against the IEEE divide on every finite bf16 value
-// (tests/test_torch_gpu.py, tools/k4_variants.py).
-__device__ __forceinline__ float quotient(float x, float scale, float inv) {
-  const float q = __fmul_rn(x, inv);
-  return __fmaf_rn(__fmaf_rn(-scale, q, x), inv, q);
-}
 
 // One warp a row: the row is read once into registers (K / 256 16-byte
 // vectors a lane in bf16, at most 48 values), its absmax reduced by

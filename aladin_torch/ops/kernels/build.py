@@ -3,7 +3,8 @@
 Each source under ``aladin_torch/csrc/`` compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries go to ``aladin_torch/_build/``, named by a hash of the
-source and the flags, so an edited source never loads a stale library.
+source, every header under ``csrc/`` and the flags, so an edited source
+or header never loads a stale library.
 Nothing is built when a module is imported: the first launch builds, and
 ``build_all`` builds every source at once with one ``nvcc`` each.
 """
@@ -23,7 +24,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__
 BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("mrsw_kernel.cu", "attention_kernel.cu", "quant_matmul.cu")
+SOURCES = ("mrsw_kernel.cu", "attention_kernel.cu", "quant_matmul.cu", "layernorm_kernel.cu")
 
 
 def _nvcc() -> str:
@@ -38,8 +39,15 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``source``, named by a hash of the source, every
+    ``*.cuh`` header beside it (any of them may be included) and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest}.so")
 
 

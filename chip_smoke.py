@@ -40,9 +40,13 @@ Phases, each printing one JSON line:
               shapes, dropout 0 and 0.1, a fully padded row; then kernel,
               plain and scaled_dot_product_attention times at S 50 and 84,
               each kernel time with its share of the bound.
-  7. k3     - the fused residual+LayerNorm Triton kernel and its analytic
-              backward against the plain version at M = 128 x 84 and
-              128 x 50 rows of 768; kernel, plain and F.layer_norm times.
+  7. k3     - K3a: the fused residual+LayerNorm Triton forward and its
+              backward kernel (csrc/layernorm_kernel.cu) against the plain
+              versions at M = 128 x 84 and 128 x 50 rows of 768, the
+              backward also against autograd through the plain forward, and
+              its dgamma / dbeta bitwise equal over two calls; kernel, plain
+              and library times (F.layer_norm, and autograd.grad through it
+              for the backward) beside each bound.
   8. k4     - the W8A8 GEMM (csrc/quant_matmul.cu) on int8 x and on bf16 x
               through the dynx quantize kernel, against the plain versions
               at M 2688 / 1600 / 7 / 37, K 768, N 2304 and 3072, no
@@ -51,16 +55,17 @@ Phases, each printing one JSON line:
               torch._int_mm and bf16 F.linear times at M 2688 and 1600, the
               quantize pass alone, and the card's SM clock and power draw
               sampled meanwhile.
-  9. k3b    - the q8 residual LayerNorm (Triton) against its plain version
-              at M 2688 and 1600 rows of 768; kernel, plain and unfused
-              F.layer_norm + quantize times.
+  9. k3b    - the q8 residual LayerNorm (csrc/layernorm_kernel.cu) against
+              its plain version at M 2688 and 1600 rows of 768; kernel, plain
+              and unfused F.layer_norm + quantize times.
   10. train_fused - the train step (train.step.make_train_step) on the
               flagship recipe at VinVL-base width, B 128, with
               fused_attention and fused_layernorm on, as
               benchmarks/train_bench.py runs it: a few steps at dropout 0.1
-              that must launch K2 and K3; then one step at dropout 0 from
-              the same params and batch with the knobs on and off, whose
-              loss and grad_norm must agree; the step times.
+              that must launch K2 and K3a's forward and backward kernels
+              (and never the backward's torch ops); then one step at
+              dropout 0 from the same params and batch with the knobs on
+              and off, whose loss and grad_norm must agree; the step times.
   11. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
               bs 32 over a synthetic corpus of 200 images with the
               VinVL-base-shaped random backbone: finite losses, validation
@@ -511,7 +516,7 @@ def phase_encode_q8ln(oscar: str, data: str) -> dict:
         model = build_model(cfg, run_args, torch.device("cuda"), **knobs)
         if name != "bf16":
             seconds[name] = []
-            for _ in range(2):  # the first pass includes the Triton kernel's compile
+            for _ in range(2):  # the first pass includes the kernels' first launches
                 for fn in counters.values():
                     fn.launches = 0
                 t0 = time.perf_counter()
@@ -668,8 +673,8 @@ def phase_k2() -> dict:
 
 
 def phase_k3() -> dict:
-    """K3a forward (Triton) and the analytic backward against the plain
-    version at M = 128 x 84 and 128 x 50 rows of D 768; then times."""
+    """K3a: the forward (Triton) and the backward kernel (CUDA) against the
+    plain versions at M = 128 x 84 and 128 x 50 rows of D 768; then times."""
     import torch
     import torch.nn.functional as F
 
@@ -677,7 +682,7 @@ def phase_k3() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     d, eps = 768, 1e-12
-    checks, max_err, timings = [], 0.0, {}
+    checks, max_err, timings = [], {"fwd": 0.0, "bwd": 0.0}, {}
     for s in (84, 50):
         m = 128 * s
 
@@ -691,25 +696,40 @@ def phase_k3() -> dict:
         y, mean, rstd = lk.residual_layernorm_forward(x, res, gamma, beta, eps)
         wy, wmean, wrstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta, eps)
         tag = f"M{m}"
-        max_err = max(max_err, check_close(checks, "K3a", tag + " y", y, wy,
-                                           BF16_ULP * wy.float().abs().max().item()))
+        max_err["fwd"] = max(max_err["fwd"], check_close(
+            checks, "K3a", tag + " y", y, wy, BF16_ULP * wy.float().abs().max().item()))
         check_close(checks, "K3a", tag + " mean", mean, wmean,
                     F32_SUM_RTOL * wmean.abs().max().item())
         check_close(checks, "K3a", tag + " rstd", rstd, wrstd,
                     F32_SUM_RTOL * wrstd.abs().max().item())
-        # the autograd Function's backward (analytic) against autograd
-        # through the plain version
+
+        # the backward kernel against its plain version (the torch ops it
+        # replaces) and against autograd through the plain forward
         grads = lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy)
+        plain = lk.residual_layernorm_backward_plain(x, res, gamma, mean, rstd, gy)
         leaves = [t.clone().requires_grad_() for t in (x, res, gamma, beta)]
         lk.residual_layernorm_plain(*leaves, eps).backward(gy)
-        for name, got, leaf in zip(("dx", "dres", "dgamma", "dbeta"), grads, leaves):
-            want = leaf.grad
-            rel = BF16_ULP if want.dtype == torch.bfloat16 else F32_SUM_RTOL
-            check_close(checks, "K3a backward", f"{tag} {name}", got, want,
-                        rel * want.float().abs().max().item())
+        for name, got, want, auto in zip(("dx", "dres", "dgamma", "dbeta"), grads, plain,
+                                         (t.grad for t in leaves)):
+            for what, w in (("plain", want), ("autograd", auto)):
+                rel = BF16_ULP if w.dtype == torch.bfloat16 else F32_SUM_RTOL
+                err = check_close(checks, "K3a backward", f"{tag} {name} vs {what}", got, w,
+                                  rel * w.float().abs().max().item())
+                if what == "plain":
+                    max_err["bwd"] = max(max_err["bwd"], err)
+        again = lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy)
+        if not (torch.equal(again[2], grads[2]) and torch.equal(again[3], grads[3])):
+            raise AssertionError(f"K3a backward's dgamma / dbeta differ between two calls at {tag}")
+        del grads, plain, again, leaves
 
         g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+        lib = [t.clone().requires_grad_() for t in (x, res, g16, b16)]
+        lib_out = F.layer_norm(lib[0] + lib[1], (d,), lib[2], lib[3], eps)
         bound_ms, bound_by = bound(3 * m * d * 2 + 2 * m * 4 + 2 * d * 4, 8.0 * m * d, "f32")
+        # g, x, res read and dh written once (bf16), the statistics, gamma
+        # read and dgamma / dbeta written; ~10 f32 operations an element
+        bwd_bound_ms, bwd_bound_by = bound(4 * m * d * 2 + 2 * m * 4 + 3 * d * 4, 10.0 * m * d,
+                                           "f32")
         timings[s] = {
             "ms": device_ms(lambda: lk.residual_layernorm_forward(x, res, gamma, beta, eps), 50),
             "event_ms": cuda_ms(
@@ -717,18 +737,28 @@ def phase_k3() -> dict:
             "plain_ms": device_ms(
                 lambda: lk.residual_layernorm_forward_plain(x, res, gamma, beta, eps), 20),
             "library_ms": device_ms(lambda: F.layer_norm(x + res, (d,), g16, b16, eps), 50),
-            "backward_ms": device_ms(
-                lambda: lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy), 20),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "backward_ms": device_ms(
+                lambda: lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy), 50),
+            "backward_event_ms": cuda_ms(
+                lambda: lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy), 50),
+            "backward_plain_ms": device_ms(
+                lambda: lk.residual_layernorm_backward_plain(x, res, gamma, mean, rstd, gy), 20),
+            "backward_library_ms": device_ms(
+                lambda: torch.autograd.grad(lib_out, lib, gy, retain_graph=True), 50),
+            "backward_bound_ms": bwd_bound_ms, "backward_bound_by": bwd_bound_by,
         }
-    emit({"phase": "k3", "checks": checks,
+        for key in ("", "backward_"):
+            timings[s][key + "bound_share"] = timings[s][key + "bound_ms"] / timings[s][key + "ms"]
+        del lib_out, lib
+    emit({"phase": "k3", "checks": checks, "backward_dgamma_dbeta_bitwise_repeatable": True,
           "tolerance": "bf16 outputs max|want| * 2^-7 (one bf16 ulp); f32 sums 1e-4 of max|want|",
           "timings": {f"M{128 * s} D{d} bf16": t for s, t in timings.items()},
-          "timing": "ms, plain_ms, library_ms, backward_ms: card time (device_ms); "
-                    "event_ms: CUDA events around back-to-back calls",
+          "timing": "ms, plain_ms, library_ms and the backward's: card time (device_ms); "
+                    "event_ms: CUDA events around back-to-back calls; backward_plain_ms: the "
+                    "analytic backward in torch ops, as the port ran it before the kernel",
           "library": "F.layer_norm(x + res): two calls (the add, then the LayerNorm); "
-                     "backward_ms: the analytic backward in torch ops (no kernel of its own, "
-                     "XLA in aladin_tpu)"})
+                     "backward: torch.autograd.grad through them w.r.t. x, res, gamma, beta"})
     return {"max_err": max_err, "timings": timings}
 
 
@@ -877,8 +907,8 @@ def phase_k4() -> dict:
 
 
 def phase_k3b() -> dict:
-    """K3b (Triton) against its plain version at M 2688 and 1600 rows of
-    768, bf16 x and res; then times."""
+    """K3b (CUDA) against its plain version at M 2688 and 1600 rows of 768,
+    bf16 x and res; then times."""
     import torch
     import torch.nn.functional as F
 
@@ -914,6 +944,7 @@ def phase_k3b() -> dict:
                 lambda: quantize_rowwise(F.layer_norm(x + res, (d,), g16, b16, eps)), 50),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        timings[m]["bound_share"] = bound_ms / timings[m]["ms"]
     emit({"phase": "k3b", "checks": checks, "q": q_share,
           "tolerance": "y max|want| * 2^-7; s 1e-4 of max|want|; q equal in >= 99.9% and "
                        "at most one step apart",
@@ -1009,7 +1040,7 @@ def phase_train_fused() -> dict:
     from aladin_torch.train.step import make_train_step
 
     counters = {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
-                "k3a": lk.residual_layernorm_forward}
+                "k3a": lk.residual_layernorm_forward, "k3a_bwd": lk.residual_layernorm_backward}
     batch = synth_train_batch(128)
 
     def run_steps(step, state, n):
@@ -1027,15 +1058,28 @@ def phase_train_fused() -> dict:
     cfg, model = flagship_train_model(True, 0.1)
     state = TrainState(cfg, model, steps_per_epoch=100)
     n_steps = 4
+    # the backward's torch ops (its plain version) must not run on this path
+    plain_bwd, plain_calls = lk.residual_layernorm_backward_plain, []
+
+    def counted_plain_bwd(*args):
+        plain_calls.append(1)
+        return plain_bwd(*args)
+
     for fn in counters.values():
         fn.launches = 0
-    metrics, ms = run_steps(make_train_step(model, cfg, torch.bfloat16), state, n_steps)
+    lk.residual_layernorm_backward_plain = counted_plain_bwd
+    try:
+        metrics, ms = run_steps(make_train_step(model, cfg, torch.bfloat16), state, n_steps)
+    finally:
+        lk.residual_layernorm_backward_plain = plain_bwd
     launches = {name: fn.launches for name, fn in counters.items()}
     layers = model.oscar_model.bert.cfg.num_hidden_layers
     want = {"k2_fwd": n_steps * 2 * layers, "k2_bwd": n_steps * 2 * layers,
-            "k3a": n_steps * 2 * 2 * layers}  # 2 passes; 2 LayerNorms a layer
-    if launches != want:
-        raise AssertionError(f"train step launches {launches}, expected {want}")
+            "k3a": n_steps * 2 * 2 * layers,  # 2 passes; 2 LayerNorms a layer
+            "k3a_bwd": n_steps * 2 * 2 * layers}
+    if launches != want or plain_calls:
+        raise AssertionError(f"train step launches {launches} and {len(plain_calls)} torch-ops "
+                             f"LayerNorm backwards, expected {want} and none")
     if not all(math.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"non-finite train metrics: {metrics}")
     del model, state
@@ -1062,6 +1106,7 @@ def phase_train_fused() -> dict:
     profiles = {k: device_profile(lambda k=k: steps[k](pair[k][1], batch, 0), 2)
                 for k in ("on", "off")}
     emit({"phase": "train_fused", "batch": 128, "steps": n_steps, "launches": launches,
+          "torch_ops_layernorm_backwards": len(plain_calls),
           "metrics_last": metrics[-1], "step_ms_dropout0.1_on": ms,
           "knob_check_dropout0": {"first_step": first, **agree, "loss_rtol": KNOB_LOSS_RTOL,
                                   "grad_norm_rtol": KNOB_GNORM_RTOL},
@@ -1169,15 +1214,23 @@ def main() -> int:
         "name": "residual_layernorm forward", "route": "triton",
         "source": "aladin_torch/ops/kernels/layernorm.py",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:70", "launches": fused["k3a"],
-        "max_abs_err": k3["max_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "max_abs_err": k3["max_err"]["fwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": "M10752 D768 bf16"})
+    kernels.append({
+        "name": "residual_layernorm backward", "route": "cuda",
+        "source": "aladin_torch/csrc/layernorm_kernel.cu",
+        "replaces": "aladin_tpu/ops/pallas/layernorm.py:193", "launches": fused["k3a_bwd"],
+        "max_abs_err": k3["max_err"]["bwd"], "ms": t["backward_ms"],
+        "plain_ms": t["backward_plain_ms"], "bound_ms": t["backward_bound_ms"],
+        "bound_by": t["backward_bound_by"], "library_ms": t["backward_library_ms"],
         "shape": "M10752 D768 bf16"})
     # K3b and K4 from the q8ln encode, K4-dynx from cli/test --int8_encoder;
     # times at the image pass's M 2688 (the QKV shape for K4)
     t = k3b["timings"][2688]
     kernels.append({
-        "name": "residual_layernorm_q8", "route": "triton",
-        "source": "aladin_torch/ops/kernels/layernorm.py",
+        "name": "residual_layernorm_q8", "route": "cuda",
+        "source": "aladin_torch/csrc/layernorm_kernel.cu",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:79", "launches": q8ln["k3b"],
         "max_abs_err": k3b["max_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],

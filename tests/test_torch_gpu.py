@@ -106,10 +106,10 @@ def _attention_inputs(gen, b, s, q_dim, dtype, h=12, d=64, qk_scale=1.0):
 
 
 def _ulp_close(got, want, dtype):
-    """bf16: within one bf16 ulp of the largest output (the same f32 math
-    with sums in another order, then one rounding to bf16). f32: 1e-5 of
-    the largest output (no rounding, only the order of the sums)."""
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    """bf16 / f16: within one ulp of the largest output in that type (the
+    same f32 math with sums in another order, then one rounding). f32: 1e-5
+    of the largest output (no rounding, only the order of the sums)."""
+    rel = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dtype, 1e-5)
     assert got.dtype == want.dtype and torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= rel * want.float().abs().max().item(), err
@@ -211,6 +211,132 @@ def test_residual_layernorm_kernel_matches_plain(cuda, x_dtype, m, d):
             assert (got - want).abs().max() <= 1e-4 * want.abs().max()
         else:
             _ulp_close(got, want, want.dtype)
+
+
+def _ln_backward_inputs(gen, m, d, x_dtype, res_dtype=torch.bfloat16):
+    """(x, res, gamma, mean, rstd, gy) with the forward's statistics."""
+    x = torch.randn(m, d, generator=gen, device="cuda").to(x_dtype)
+    res = (0.5 * torch.randn(m, d, generator=gen, device="cuda")).to(res_dtype)
+    gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    gy = torch.randn(m, d, generator=gen, device="cuda").to(x_dtype)
+    _, mean, rstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta)
+    return x, res, gamma, mean, rstd, gy
+
+
+def _ln_backward_matches_plain(args):
+    """The backward kernel against its plain version: dx / dres within one
+    ulp of the largest in their type (f32: 1e-5 of it; the same f32 terms,
+    the two row means summed in another order), dgamma / dbeta f32 within 1e-4 of
+    the largest (column sums in another order). One launch; when x and res
+    share a dtype dx and dres are one tensor."""
+    x, res = args[:2]
+    before = lk.residual_layernorm_backward.launches
+    got = lk.residual_layernorm_backward(*args)
+    assert lk.residual_layernorm_backward.launches == before + 1
+    want = lk.residual_layernorm_backward_plain(*args)
+    assert got[0].shape == x.shape and got[1].shape == res.shape
+    for g, w in zip(got[:2], want[:2]):
+        _ulp_close(g, w, w.dtype)
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    assert (got[0].data_ptr() == got[1].data_ptr()) == (x.dtype == res.dtype)
+    return got
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [768, 100])
+@pytest.mark.parametrize("m", [128 * 84, 128 * 50, 7])
+def test_residual_layernorm_backward_kernel_matches_plain(cuda, m, d, x_dtype):
+    """The train step's M 10752 / 6400 and a few rows, at the model's D and
+    at a D that is no multiple of 8 (rows not 16-byte aligned); bf16 x
+    shares its output with res, f32 x has a second one."""
+    _ln_backward_matches_plain(_ln_backward_inputs(cuda, m, d, x_dtype))
+
+
+@pytest.mark.parametrize("x_dtype,res_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.bfloat16),
+                                               (torch.float16, torch.float32)])
+@pytest.mark.parametrize("m,d", [(37, 1100), (300, 4100), (9, 8192)])
+def test_residual_layernorm_backward_kernel_past_the_registers(cuda, m, d, x_dtype, res_dtype):
+    """D above the register layout's 1024: the rows walked twice and
+    dgamma / dbeta from the column kernel, in any mix of types."""
+    _ln_backward_matches_plain(_ln_backward_inputs(cuda, m, d, x_dtype, res_dtype))
+
+
+@pytest.mark.parametrize("m,d", [(128 * 84, 768), (300, 4100)])
+def test_residual_layernorm_backward_is_bitwise_repeatable(cuda, m, d):
+    """dgamma / dbeta are summed in a fixed order (no atomics): two calls on
+    the same inputs give the same bits, and so do dx / dres."""
+    args = _ln_backward_inputs(cuda, m, d, torch.bfloat16)
+    first = [t.clone() for t in lk.residual_layernorm_backward(*args)]
+    for a, b in zip(first, lk.residual_layernorm_backward(*args)):
+        assert torch.equal(a, b)
+
+
+def test_residual_layernorm_autograd_uses_the_backward_kernel(cuda):
+    """Through the autograd Function at the model's shapes (bf16 x and res,
+    f32 gamma / beta): one forward and one backward launch, gradients as
+    the plain version's within the tolerances above."""
+    x, res, gamma, _, _, gy = _ln_backward_inputs(cuda, 2 * 84, 768, torch.bfloat16)
+    beta = torch.zeros_like(gamma)
+    leaves = [t.clone().requires_grad_() for t in (x, res, gamma, beta)]
+    before = (lk.residual_layernorm_forward.launches, lk.residual_layernorm_backward.launches)
+    lk.residual_layernorm(*leaves).backward(gy)
+    assert (lk.residual_layernorm_forward.launches,
+            lk.residual_layernorm_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, mean, rstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta)
+    want = lk.residual_layernorm_backward_plain(x, res, gamma, mean, rstd, gy)
+    _ulp_close(leaves[0].grad, want[0], torch.bfloat16)
+    _ulp_close(leaves[1].grad, want[1], torch.bfloat16)
+    for leaf, w in zip(leaves[2:], want[2:]):
+        assert (leaf.grad - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def test_residual_layernorm_kernels_refuse_what_they_cannot_take(cuda):
+    x = torch.zeros(4, lk._MAX_D + 8, device="cuda", dtype=torch.bfloat16)
+    g = torch.ones(lk._MAX_D + 8, device="cuda")
+    stats = torch.ones(4, 1, device="cuda")
+    with pytest.raises(ValueError, match="D <="):
+        lk.residual_layernorm_backward(x, x, g, stats, stats, x)
+    with pytest.raises(ValueError, match="D <="):
+        lk.residual_layernorm_q8(x, x, g, g)
+    y = torch.zeros(4, 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        lk.residual_layernorm_q8(y.to(torch.int32), y, g[:16], g[:16])
+    with pytest.raises(ValueError, match="gy"):
+        lk.residual_layernorm_backward(y, y, g[:16], stats, stats, y[:, :8])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def test_rowquant_quotient_is_the_ieee_divide(cuda):
+    """rowquant.cuh's quotient (K3b's and K4-dynx's q before rint) is the
+    IEEE divide bit for bit: on 10^7 random y with |y / s| <= 127 over
+    scales 2^-34..2^60 (K3b's smallest scale is 1e-8 / 127 ~ 2^-34), on
+    each (k + 1/2) * s and its two f32 neighbours for k in -127..126 (the
+    rint boundaries) over 200 scales, and on +-0."""
+    n = 10 ** 7
+    s = (1 + torch.rand(n, generator=cuda, device="cuda")) * torch.exp2(
+        torch.randint(-34, 61, (n,), generator=cuda, device="cuda").float())
+    y = (2 * torch.rand(n, generator=cuda, device="cuda") - 1) * 127 * s
+    assert torch.equal(_bits(lk.quotient(y, s)), _bits(y / s))
+
+    scales = (1 + torch.rand(200, generator=cuda, device="cuda")) * torch.exp2(
+        torch.linspace(-34, 60, 200, device="cuda").round())
+    k = torch.arange(-127, 127, device="cuda").float() + 0.5
+    mid = (k[None, :] * scales[:, None]).reshape(-1)
+    inf = torch.full_like(mid, float("inf"))
+    y = torch.cat([mid, torch.nextafter(mid, inf), torch.nextafter(mid, -inf)])
+    s = scales[:, None].expand(-1, k.numel()).reshape(-1).repeat(3)
+    assert torch.equal(_bits(lk.quotient(y, s)), _bits(y / s))
+
+    zeros = torch.tensor([0.0, -0.0, 0.0, -0.0], device="cuda")
+    s = torch.tensor([1e-10, 1e-10, 3.0, 7e20], device="cuda")
+    assert torch.equal(_bits(lk.quotient(zeros, s)), _bits(zeros / s))
 
 
 def _w8a8_inputs(gen, m, k, n):
@@ -386,6 +512,25 @@ def test_residual_layernorm_q8_kernel_matches_plain(cuda, m):
     wy, wq, ws = lk.residual_layernorm_q8_plain(x, res, gamma, beta)
     _ulp_close(y, wy, torch.bfloat16)
     assert q.dtype == torch.int8 and s.shape == (m, 1)
+    assert ((s - ws).abs() <= 1e-4 * ws.abs()).all()
+    assert (q == wq).float().mean().item() >= 0.999
+    assert (q.int() - wq.int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(33, 100), (37, 1100), (9, 4100)])
+def test_residual_layernorm_q8_kernel_takes_any_width(cuda, m, d, x_dtype):
+    """K3b at a D that is no multiple of 8 and at Ds above the register
+    layout (the rows walked three times), bf16 or f32 x with bf16 res,
+    under the gates above (f32 y: 1e-5 of the largest)."""
+    x = torch.randn(m, d, generator=cuda, device="cuda").to(x_dtype)
+    res = (0.5 * torch.randn(m, d, generator=cuda, device="cuda")).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(d, generator=cuda, device="cuda")
+    beta = 0.1 * torch.randn(d, generator=cuda, device="cuda")
+    y, q, s = lk.residual_layernorm_q8(x, res, gamma, beta)
+    wy, wq, ws = lk.residual_layernorm_q8_plain(x, res, gamma, beta)
+    _ulp_close(y, wy, x_dtype)
+    assert q.shape == (m, d) and s.shape == (m, 1)
     assert ((s - ws).abs() <= 1e-4 * ws.abs()).all()
     assert (q == wq).float().mean().item() >= 0.999
     assert (q.int() - wq.int()).abs().max().item() <= 1

@@ -13,9 +13,10 @@ run in interpret mode, on the CPU, and the backbone with each knob on.
     gradient, as tests/test_attention_kernel.py checks it in JAX).
   * K3a (ops/kernels/layernorm.py) against
     ``residual_layernorm(..., impl="interpret")``: forward and VJP
-    (dx, dres, dgamma, dbeta), in f32 (atol 2e-5) and with bf16 x / f32 res
-    (the bf16 output within one bf16 rounding, 1e-2; dx cast to bf16 the
-    same way).
+    (dx, dres, dgamma, dbeta), through the autograd Function and through
+    the backward's plain version, in f32 (atol 2e-5) and with bf16 x and /
+    or res (the bf16 outputs within one bf16 rounding, 1e-2; dx cast to
+    bf16 the same way); on CPU tensors no kernel launches.
   * BertImgModel with fused_attention / fused_layernorm against
     aladin_tpu's with the same knob, dropout 0, atol 1e-4 (f32 math in
     another order, as tests/test_torch_models.py).
@@ -137,29 +138,90 @@ def _ln_inputs(rng, shape=(3, 7, 256)):
             (1.0 + 0.1 * rng.randn(d)).astype(np.float32), (0.1 * rng.randn(d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
-def test_residual_layernorm_matches_pallas(rng, x_dtype):
+# (x, res) dtypes: ids "float32" and "bfloat16" are x's with f32 res; the
+# shared bf16 case of the model and the card tests' f32 x with bf16 res
+_LN_DTYPES = [pytest.param("float32", "float32", id="float32"),
+              pytest.param("bfloat16", "float32", id="bfloat16"),
+              pytest.param("bfloat16", "bfloat16", id="bfloat16-bfloat16"),
+              pytest.param("float32", "bfloat16", id="float32-bfloat16")]
+
+
+def _ln_vjp_case(rng, x_dtype, res_dtype):
+    """(x, res, gamma, beta, gy) as torch tensors, aladin_tpu's (y, VJP) on
+    the same values, and the tolerance: 1e-2 where a bf16 operand rounds
+    (one bf16 rounding), 2e-5 in f32."""
     x, res, gamma, beta = _ln_inputs(rng)
     gy = rng.randn(*x.shape).astype(np.float32)
-    jx = jnp.asarray(x).astype(x_dtype)
+    jx, jr = jnp.asarray(x).astype(x_dtype), jnp.asarray(res).astype(res_dtype)
     want_y, vjp = jax.vjp(lambda a, b, c, d: jax_residual_layernorm(a, b, c, d, 1e-12,
                                                                     "interpret"),
-                          jx, jnp.asarray(res), jnp.asarray(gamma), jnp.asarray(beta))
+                          jx, jr, jnp.asarray(gamma), jnp.asarray(beta))
     want = vjp(jnp.asarray(gy).astype(want_y.dtype))
 
-    tx = torch.from_numpy(np.asarray(jx.astype(jnp.float32)).copy()).to(getattr(torch, x_dtype))
-    tx.requires_grad_()
-    tr, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (res, gamma, beta))
-    y = lk.residual_layernorm(tx, tr, tg, tb, 1e-12)
-    assert y.dtype == tx.dtype
-    y.backward(torch.from_numpy(gy).to(y.dtype))
-    tol = 1e-2 if x_dtype == "bfloat16" else 2e-5
-    np.testing.assert_allclose(y.detach().float().numpy(), np.asarray(want_y, np.float32),
-                               atol=tol, rtol=tol)
-    for got, w in zip((tx.grad, tr.grad, tg.grad, tb.grad), want):
+    def tensor(a, dtype):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32)).copy()).to(getattr(torch, dtype))
+
+    args = (tensor(jx, x_dtype), tensor(jr, res_dtype), torch.from_numpy(gamma),
+            torch.from_numpy(beta), torch.from_numpy(gy).to(getattr(torch, x_dtype)))
+    tol = 2e-5 if x_dtype == res_dtype == "float32" else 1e-2
+    return args, want_y, want, tol
+
+
+def _assert_vjp_close(grads, want, tol):
+    for got, w in zip(grads, want):
         assert got.dtype == getattr(torch, str(w.dtype))
         np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32),
                                    atol=tol * 10 if w.ndim == 1 else tol, rtol=tol)
+
+
+@pytest.mark.parametrize("x_dtype,res_dtype", _LN_DTYPES)
+def test_residual_layernorm_matches_pallas(rng, x_dtype, res_dtype):
+    (x, res, gamma, beta, gy), want_y, want, tol = _ln_vjp_case(rng, x_dtype, res_dtype)
+    leaves = [t.requires_grad_() for t in (x, res, gamma, beta)]
+    y = lk.residual_layernorm(*leaves, 1e-12)
+    assert y.dtype == x.dtype
+    y.backward(gy)
+    np.testing.assert_allclose(y.detach().float().numpy(), np.asarray(want_y, np.float32),
+                               atol=tol, rtol=tol)
+    _assert_vjp_close([t.grad for t in leaves], want, tol)
+
+
+@pytest.mark.parametrize("x_dtype,res_dtype", _LN_DTYPES)
+def test_residual_layernorm_backward_plain_matches_jax_vjp(rng, x_dtype, res_dtype):
+    """The backward kernel's plain version on the forward's statistics
+    against aladin_tpu's VJP: (dx, dres, dgamma, dbeta) in the primals'
+    dtypes once the autograd Function casts dgamma / dbeta."""
+    (x, res, gamma, beta, gy), _, want, tol = _ln_vjp_case(rng, x_dtype, res_dtype)
+    _, mean, rstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta, 1e-12)
+    dx, dres, dgamma, dbeta = lk.residual_layernorm_backward_plain(x, res, gamma, mean, rstd, gy)
+    assert dgamma.dtype == dbeta.dtype == torch.float32
+    _assert_vjp_close((dx, dres, dgamma, dbeta), want, tol)
+
+
+def test_residual_layernorm_on_cpu_launches_no_kernel(rng):
+    """On CPU tensors each dispatching entry returns its plain version's
+    result exactly, through autograd too, and no launch count moves."""
+    x, res, gamma, beta = (torch.from_numpy(a) for a in _ln_inputs(rng, (6, 40)))
+    gy = torch.from_numpy(rng.randn(6, 40).astype(np.float32))
+    counters = (lk.residual_layernorm_forward, lk.residual_layernorm_backward,
+                lk.residual_layernorm_q8)
+    before = [fn.launches for fn in counters]
+    y, mean, rstd = lk.residual_layernorm_forward(x, res, gamma, beta)
+    for got, want in zip((y, mean, rstd), lk.residual_layernorm_forward_plain(x, res, gamma, beta)):
+        assert torch.equal(got, want)
+    grads = lk.residual_layernorm_backward(x, res, gamma, mean, rstd, gy)
+    for got, want in zip(grads, lk.residual_layernorm_backward_plain(x, res, gamma, mean, rstd,
+                                                                     gy)):
+        assert torch.equal(got, want)
+    leaves = [t.clone().requires_grad_() for t in (x, res, gamma, beta)]
+    lk.residual_layernorm(*leaves).backward(gy)
+    assert torch.equal(leaves[0].grad, grads[0]) and torch.equal(leaves[2].grad, grads[2])
+    for got, want in zip(lk.residual_layernorm_q8(x, res, gamma, beta),
+                         lk.residual_layernorm_q8_plain(x, res, gamma, beta)):
+        assert torch.equal(got, want)
+    assert [fn.launches for fn in counters] == before
+    with pytest.raises(ValueError, match="f32 CUDA"):
+        lk.quotient(x, x)
 
 
 def test_residual_layernorm_stats_and_plain_autograd(rng):

@@ -45,7 +45,7 @@ VARIANTS = {
     "dynx: GEMM not chained to the quantize": [("constexpr bool kChainDynx = true;",
                                                 "constexpr bool kChainDynx = false;")],
     "quantize: IEEE divide (__fdiv_rn) for each value": [
-        ("  return __fmaf_rn(__fmaf_rn(-scale, q, x), inv, q);", "  return __fdiv_rn(x, scale);")],
+        ("  return -__fmaf_rn(-__fmaf_rn(-scale, q, x), inv, -q);", "  return __fdiv_rn(x, scale);")],
     "diagnostic: no y stores": [("      for (int v = 0; v < 16 * kPiecesRow / 32; ++v) {",
                                  "      for (int v = 0; v < 0; ++v) {")],
     "diagnostic: no TMA loads": NO_LOADS,
@@ -86,6 +86,8 @@ def main() -> int:
 
     with open(os.path.join(build.CSRC_DIR, "quant_matmul.cu")) as f:
         source = f.read()
+    with open(os.path.join(build.CSRC_DIR, "rowquant.cuh")) as f:  # inlined: variants edit it too
+        source = source.replace('#include "rowquant.cuh"', f.read().replace("#pragma once", ""))
     out_dir = os.path.join(build.BUILD_DIR, "k4_variants")
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
