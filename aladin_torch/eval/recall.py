@@ -20,8 +20,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-# Above this (N_im, N_cap) f32 footprint aladin_tpu streams the score matrix
-# (eval/streaming.py); the port has no streaming path yet and refuses.
+# Above this (N_im, N_cap) f32 footprint compute_recall streams the score
+# matrix through eval/streaming.py (the same ranks; device memory holds the
+# embeddings and one tile), as aladin_tpu does.
 STREAMING_SCORE_BYTES = 4 << 30
 
 
@@ -68,17 +69,17 @@ def _assemble(i2t_ranks, t2i_ranks) -> Dict[str, float]:
 
 def compute_recall(img_embs, cap_embs, captions_per_image: int = 5,
                    device="cuda") -> Dict[str, float]:
-    """Both directions + rsum from grouped (5N, D) global embeddings, scored
-    as an f32 matmul on ``device``."""
+    """Both directions + rsum from grouped (5N, D) global embeddings (host
+    arrays or tensors), scored as an f32 matmul on ``device``; corpora whose
+    score matrix would exceed ``STREAMING_SCORE_BYTES`` stream."""
     k = captions_per_image
     n_cap = int(np.shape(cap_embs)[0])
     if 4.0 * (n_cap // k) * n_cap > STREAMING_SCORE_BYTES:
-        raise NotImplementedError(
-            f"a {n_cap // k} x {n_cap} score matrix exceeds {STREAMING_SCORE_BYTES} bytes; "
-            "streamed recall is not ported yet (ROADMAP.md, queue 1: serving remainder, "
-            "eval/streaming.py)")
-    ims = torch.as_tensor(np.asarray(img_embs)[::k], dtype=torch.float32, device=device)
-    caps = torch.as_tensor(np.asarray(cap_embs), dtype=torch.float32, device=device)
+        from aladin_torch.eval.streaming import streaming_matching_recall
+
+        return streaming_matching_recall(img_embs[::k], cap_embs, k, device=device)
+    ims = torch.as_tensor(img_embs[::k], dtype=torch.float32, device=device)
+    caps = torch.as_tensor(cap_embs, dtype=torch.float32, device=device)
     return _assemble(*ranks_from_score_matrix(ims @ caps.T, k))
 
 

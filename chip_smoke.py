@@ -33,21 +33,43 @@ Phases, each printing one JSON line:
               a median cosine of 0.99 of the --int8_encoder encode's; the
               card time of one encode batch's forward (both passes) for
               those two models and the bf16 one (torch.profiler).
-  6. k2     - the fused attention kernels (csrc/attention_kernel.cu, the
+  6. search - aladin_torch.cli.search over that corpus at full width (bf16
+              encoder, a released-format checkpoint of the random weights):
+              build, then query with three free-text captions (each must
+              give the hits of --query_index on its caption row) and by-row
+              queries both ways; curve --shortlists 10,25,50,100 per
+              direction, whose matching-only and full-rerank rows must equal
+              the R@K of brute-force rankings of the same tensors (an
+              i2t full rerank that runs out of memory at query_chunk 64 is
+              recorded and checked at query_chunk 8); serial per-query
+              latency of the three modes at n_serial 64, shortlist 100,
+              with the profiler's card time, beside the reference's 0.023 /
+              0.098 s; batched queries/s over 5000 caption queries; build
+              seconds (of which encode) and peak memory.
+  7. streaming - eval.streaming on the card: (a) matching at 5000 x 25000,
+              cap_block 4096, the ground truth equal to each caption's tile
+              entry bit for bit and the ranks equal to those of the tiles'
+              matrix, rank differences against the dense compute_recall
+              product counted, R@K equal; (b) alignment through K1 at
+              5000 x 25000 (R 34, W 50, bf16, cap_block 2048): ranks equal
+              to K1's full matrix's, K1 launched once a tile and a
+              ground-truth block (13 + 49); (c) compute_recall at 100000 x
+              500000, past the dense limit: seconds and pairs/s.
+  8. k2     - the fused attention kernels (csrc/attention_kernel.cu, the
               bf16 tensor-core forward and backward) against their plain
               versions at B 128, 12 heads of 64, bf16: the training path's
               S 50 and 84 and the ragged S 134 and 160 (MAX_SEQ), both bias
               shapes, dropout 0 and 0.1, a fully padded row; then kernel,
               plain and scaled_dot_product_attention times at S 50 and 84,
               each kernel time with its share of the bound.
-  7. k3     - K3a: the fused residual+LayerNorm Triton forward and its
+  9. k3     - K3a: the fused residual+LayerNorm Triton forward and its
               backward kernel (csrc/layernorm_kernel.cu) against the plain
               versions at M = 128 x 84 and 128 x 50 rows of 768, the
               backward also against autograd through the plain forward, and
               its dgamma / dbeta bitwise equal over two calls; kernel, plain
               and library times (F.layer_norm, and autograd.grad through it
               for the backward) beside each bound.
-  8. k4     - the W8A8 GEMM (csrc/quant_matmul.cu) on int8 x and on bf16 x
+  10. k4    - the W8A8 GEMM (csrc/quant_matmul.cu) on int8 x and on bf16 x
               through the dynx quantize kernel, against the plain versions
               at M 2688 / 1600 / 7 / 37, K 768, N 2304 and 3072, no
               activation / gelu / gelu_tanh, bf16 and f32 out (f32 without
@@ -55,10 +77,10 @@ Phases, each printing one JSON line:
               torch._int_mm and bf16 F.linear times at M 2688 and 1600, the
               quantize pass alone, and the card's SM clock and power draw
               sampled meanwhile.
-  9. k3b    - the q8 residual LayerNorm (csrc/layernorm_kernel.cu) against
+  11. k3b   - the q8 residual LayerNorm (csrc/layernorm_kernel.cu) against
               its plain version at M 2688 and 1600 rows of 768; kernel, plain
               and unfused F.layer_norm + quantize times.
-  10. train_fused - the train step (train.step.make_train_step) on the
+  12. train_fused - the train step (train.step.make_train_step) on the
               flagship recipe at VinVL-base width, B 128, with
               fused_attention and fused_layernorm on, as
               benchmarks/train_bench.py runs it: a few steps at dropout 0.1
@@ -66,7 +88,7 @@ Phases, each printing one JSON line:
               (and never the backward's torch ops); then one step at
               dropout 0 from the same params and batch with the knobs on
               and off, whose loss and grad_norm must agree; the step times.
-  11. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
+  13. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
               bs 32 over a synthetic corpus of 200 images with the
               VinVL-base-shaped random backbone: finite losses, validation
               launching K1, and a checkpoint that loads back.
@@ -547,6 +569,304 @@ def phase_encode_q8ln(oscar: str, data: str) -> dict:
           "card_ms_per_encode_batch": {k: p["device_ms"] for k, p in profiles.items()},
           "device_profile_one_batch": profiles})
     return launches["q8ln"]
+
+
+def write_random_checkpoint(path: str, oscar: str) -> None:
+    """A released-format .pth.tar of the flagship recipe on the VinVL-base
+    backbone of ``oscar``, heads random from the recipe's seed: what
+    ``cli/search build --load_checkpoint`` reads and its query encoder
+    reloads."""
+    import torch
+
+    from aladin_torch.cli.common import _build_aladin
+    from aladin_torch.config import DataArgs, ExperimentConfig
+
+    with open(os.path.join(ROOT, "aladin_torch", "configs", RECIPE)) as f:
+        recipe = json.load(f)
+    args = DataArgs(eval_model_dir=oscar, max_seq_length=50, max_img_seq_length=34)
+    model = _build_aladin(ExperimentConfig.from_dict(recipe), args)
+    torch.save({"epoch": 0, "Eiters": 0, "config": recipe,
+                "model": {"img_txt_enc." + k: v for k, v in model.state_dict().items()}}, path)
+
+
+def ranked_recall(scores, direction: str, cpi: int, ks=(1, 5, 10)) -> dict:
+    """cli/search's R@K of a dense (N_im, N_cap) score matrix, each query's
+    candidates ranked by a stable descending sort (lax.top_k's order)."""
+    import torch
+
+    from aladin_torch.cli.search import _recall_at
+
+    s = scores.T if direction == "t2i" else scores
+    idx = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :max(ks)]
+    return _recall_at(idx.cpu().numpy(), direction, cpi, list(ks))
+
+
+def phase_search(tmp: str, oscar: str, data: str) -> dict:
+    """cli/search at full width over the serving corpus: build, free-text
+    and by-row queries, the recall curve against brute-force rankings,
+    serial per-query latency in the three modes (queued, and served: each
+    query's top index read back before the next), batched queries/s."""
+    import numpy as np
+    import torch
+
+    from aladin_torch.cli import search as cli_search
+    from aladin_torch.eval import latency
+    from aladin_torch.eval.index import load_index
+    from aladin_torch.eval.search import search
+    from aladin_torch.ops.alignment import score_all_pairs
+    from aladin_torch.ops.similarity import l2norm
+
+    ckpt, idx_dir = os.path.join(tmp, "search_ckpt.pth.tar"), os.path.join(tmp, "index")
+    write_random_checkpoint(ckpt, oscar)
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats()
+    built = cli_search.run([
+        "build", "--index_dir", idx_dir, "--load_checkpoint", ckpt, "--eval_model_dir", oscar,
+        "--data_dir", data, "--img_feat_file", os.path.join(data, "features.tsv"),
+        "--eval_img_keys_file", "test_img_keys.tsv", "--max_seq_length", "50",
+        "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
+        "--logger_name", tmp, "--device", "cuda"])
+    peaks["build"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    index = load_index(idx_dir)
+    load_s = time.perf_counter() - t0
+    if (index.n_images, index.n_captions) != (1000, 5000):
+        raise AssertionError(f"index holds {index.n_images} x {index.n_captions}")
+    cpi = index.captions_per_img
+
+    # free text that repeats caption rows j gives the hits of --query_index j
+    rows = [11, 2500, 4999]
+    texts = [a for j in rows for a in ("--text", index.meta["captions"][j])]
+    by_row = [a for j in rows for a in ("--query_index", str(j))]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = cli_search.run(["query", "--index_dir", idx_dir, *texts, *by_row, "--device", "cuda"])
+    query_s = time.perf_counter() - t0
+    res_i2t = cli_search.run(["query", "--index_dir", idx_dir, "--direction", "i2t",
+                              "--query_index", "0", "--query_index", "999", "--device", "cuda"])
+    peaks["query"] = torch.cuda.max_memory_allocated()
+    text_hits, row_hits = res[:len(rows)], res[len(rows):]
+    for t, r in zip(text_hits, row_hits):
+        if [h["image_key"] for h in t["hits"]] != [h["image_key"] for h in r["hits"]]:
+            raise AssertionError(f"free text and its caption row disagree: {t} {r}")
+    for r in res + res_i2t:
+        if len(r["hits"]) != 10 or not all(math.isfinite(h["score"]) for h in r["hits"]):
+            raise AssertionError(f"bad hits {r}")
+    text_score_diff = max(abs(a["score"] - b["score"]) for t, r in zip(text_hits, row_hits)
+                          for a, b in zip(t["hits"], r["hits"]))
+
+    # the curve, each direction against brute-force rankings of the same tensors
+    curves = {}
+    for direction in ("t2i", "i2t"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        curves[direction] = cli_search.run([
+            "curve", "--index_dir", idx_dir, "--direction", direction,
+            "--shortlists", "10,25,50,100", "--device", "cuda"])
+        peaks[f"curve_{direction}"] = torch.cuda.max_memory_allocated()
+        curves[f"{direction}_seconds"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        brute = {}
+        for direction in ("t2i", "i2t"):
+            corpus = index.corpus("image" if direction == "t2i" else "caption", "cuda")
+            q_sets, q_lens = index.query_buffers("caption" if direction == "t2i" else "image")
+            q = torch.as_tensor(q_sets, device="cuda")
+            ql = torch.as_tensor(q_lens, device="cuda")
+            glob_q = q[:, 0] / torch.clamp(torch.linalg.norm(q[:, 0], dim=-1, keepdim=True),
+                                           min=1e-12)
+            match = glob_q @ corpus.globals.T  # stage 1's orientation: (queries, corpus)
+            match = match.T if direction == "t2i" else match
+            if direction == "t2i":  # (1000 images, 5000 captions) either way
+                full = score_all_pairs(corpus.token_sets, l2norm(q, eps=1e-12), corpus.lengths,
+                                       ql, "MrSw", 256, normalized=True)
+            else:
+                full = score_all_pairs(l2norm(q, eps=1e-12), corpus.token_sets, ql,
+                                       corpus.lengths, "MrSw", 256, normalized=True)
+            brute[direction] = {"matching-only": ranked_recall(match, direction, cpi),
+                                "full-rerank": ranked_recall(full, direction, cpi)}
+            del corpus, full
+    for direction, want in brute.items():
+        got = {r["stage"]: r["recall"] for r in curves[direction]["rows"]}
+        for stage, w in want.items():
+            if got[stage] != w:
+                raise AssertionError(f"curve {direction} {stage}: {got[stage]} != brute {w}")
+
+    # serial per-query latency and batched throughput, t2i over 1000 images
+    img = index.corpus("image", "cuda")
+    q_sets, q_lens = index.query_buffers("caption")
+    serial = {}
+    for mode in latency.MODES:
+        sec, note = latency.serial_query_latency(img, q_sets, q_lens, mode=mode, shortlist=100,
+                                                 n_serial=64)
+        run = latency.make_serial_runner(mode, shortlist=100)
+        qs = torch.as_tensor(q_sets[:64], device="cuda")
+        ql = torch.as_tensor(q_lens[:64], device="cuda")
+        prof = device_profile(lambda: run(qs, ql, img), 1, top=4)
+        # the loop above queues query i + 1 while the card runs query i; a
+        # served query waits for its top index on the host before the next
+        served = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(64):
+                run(qs[i:i + 1], ql[i:i + 1], img).item()
+            served = min(served, (time.perf_counter() - t0) / 64)
+        serial[mode] = {"s_per_query": sec, "note": note,
+                        "served_s_per_query": served,
+                        "card_s_per_query": prof["device_ms"] / 1e3 / 64,
+                        "profiler_wall_s_per_query": prof["wall_ms"] / 1e3 / 64,
+                        "top": prof["top"]}
+    batched = {}
+    q_all = torch.as_tensor(q_sets, device="cuda")  # a server's queries come from the card
+    for name, rerank in (("matching", False), ("two_stage", True)):
+        search(img, q_all[:64], q_lens[:64], direction="t2i", rerank=rerank)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search(img, q_all, q_lens, direction="t2i", rerank=rerank, shortlist=100)
+        torch.cuda.synchronize()
+        batched[name] = {"queries": len(q_all), "queries_per_s":
+                         len(q_all) / (time.perf_counter() - t0)}
+    emit({"phase": "search", "card": nvidia_smi_line(), "images": index.n_images,
+          "captions": index.n_captions,
+          "build_seconds": built["seconds"], "build_encode_seconds": built["encode_seconds"],
+          "index_load_seconds": load_s, "query_seconds": query_s,
+          "free_text_equals_row": True, "free_text_max_score_diff": text_score_diff,
+          "curves": curves, "brute_force": brute,
+          "serial_latency_n64_shortlist100": serial,
+          "reference_s_per_query": {"matching": latency.REF_MATCHING_S,
+                                    "full_alignment": latency.REF_ALIGNMENT_S},
+          "batched": batched, "peak_memory_bytes": peaks,
+          "hits_example": {"t2i": res[0]["hits"][:3], "i2t": res_i2t[0]["hits"][:3]}})
+    return {"peaks": peaks}
+
+
+def phase_streaming() -> dict:
+    """Streaming recall on the card: (a) the matching head at 5k x 25k, its
+    ground truth against the tiles bit for bit; (b) the alignment head
+    through K1 at the bench.py shape against K1's full matrix, and K1
+    against its plain version on a sweep tile and a ground-truth block;
+    (c) compute_recall at 100k x 500k, past the dense limit, its ground
+    truth against the first 100000 x 32768 sweep tile bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.eval import streaming as st
+    from aladin_torch.eval.recall import (STREAMING_SCORE_BYTES, compute_recall,
+                                          ranks_from_score_matrix)
+    from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores, mrsw_scores_plain
+    from aladin_torch.ops.similarity import l2norm
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cpi = 5
+
+    def planted(n_im, d=768):
+        """Unit captions; each image its first caption nudged by noise, so
+        the ground truth mostly outranks the rest (streaming_recall_bench.py's
+        corpus)."""
+        caps = F.normalize(torch.randn(n_im * cpi, d, generator=gen, device="cuda"), dim=1)
+        noise = F.normalize(torch.randn(n_im, d, generator=gen, device="cuda"), dim=1)
+        return F.normalize(0.9 * caps[::cpi] + 0.45 * noise, dim=1), caps
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def ranks(scores):
+        return [r.cpu().numpy() for r in ranks_from_score_matrix(scores, cpi)]
+
+    out = {}
+    # (a) matching, 5000 x 25000, cap_block 4096: 7 tiles
+    ims, caps = planted(5000)
+    block = 4096
+    gt = st.matching_ground_truth(ims, caps, cpi, block)
+    tiles = torch.cat([st._matching_tile(ims, F.pad(caps[lo:lo + block],
+                                                    (0, 0, 0, block - caps[lo:lo + block].shape[0])))
+                       for lo in range(0, caps.shape[0], block)], dim=1)[:, :caps.shape[0]]
+    j = torch.arange(caps.shape[0], device="cuda")
+    gt_equal = int((gt == tiles[j // cpi, j]).sum())
+    if gt_equal != caps.shape[0]:
+        raise AssertionError(f"matching ground truth equals {gt_equal} of {caps.shape[0]} "
+                             "tile entries")
+    streamed, sec = timed(lambda: st.streaming_matching_ranks(ims, caps, cpi, cap_block=block))
+    for s, w in zip(streamed, ranks(tiles)):
+        if not (s == w).all():
+            raise AssertionError("streamed matching ranks differ from the tiles' matrix")
+    dense_ranks = ranks(ims @ caps.T)
+    diffs = [int((s != w).sum()) for s, w in zip(streamed, dense_ranks)]
+    dense_m = compute_recall(ims.repeat_interleave(cpi, 0), caps, cpi, device="cuda")
+    stream_m = st.streaming_matching_recall(ims, caps, cpi, cap_block=block)
+    if dense_m != stream_m:
+        raise AssertionError(f"streamed R@K {stream_m} != dense {dense_m}")
+    out["matching_5k"] = {"cap_block": block, "tiles": -(-caps.shape[0] // block),
+                          "gt_equals_tiles": gt_equal, "seconds": sec,
+                          "rank_diffs_vs_dense_matmul_i2t_t2i": diffs, "recall": stream_m}
+    del tiles, gt
+
+    # (b) alignment through K1 at 5000 x 25000, R 34, W 50, bf16, cap_block 2048
+    im, cap, il, cl = corpus(gen, 5000, 25000, 34, 50)
+    im_rows, il_rows = im.repeat_interleave(cpi, 0), il.repeat_interleave(cpi, 0)
+    mrsw_scores.launches = 0
+    streamed, sec = timed(lambda: st.streaming_alignment_ranks(im_rows, cap, il_rows, cl, "MrSw",
+                                                               cpi, cap_block=2048))
+    launches = mrsw_scores.launches
+    want_launches = -(-25000 // 2048) + -(-25000 // 512)
+    if launches != want_launches:
+        raise AssertionError(f"streaming launched K1 {launches} times, expected {want_launches}")
+    del im_rows, il_rows
+    ims_n, caps_n = l2norm(im, eps=1e-12), l2norm(cap, eps=1e-12)
+    dense = mrsw_scores(ims_n, caps_n, il, cl)
+    for s, w in zip(streamed, ranks(dense)):
+        if not (s == w).all():
+            raise AssertionError("streamed alignment ranks differ from K1's full matrix")
+    # K1 against its plain version on the inputs of the path's two shapes:
+    # the first sweep tile and the first ground-truth block (captions 0..511
+    # against their own images)
+    pair = torch.arange(512, device="cuda") // cpi
+    k1_err = {}
+    for tag, args in (("sweep tile 5000x2048", (ims_n, caps_n[:2048], il, cl[:2048])),
+                      ("ground-truth block 512x512",
+                       (ims_n[pair], caps_n[:512], il[pair], cl[:512]))):
+        got, want = mrsw_scores(*args), mrsw_scores_plain(*args)
+        k1_err[tag] = (got - want).abs().max().item()
+        if not (k1_err[tag] <= BF16_ATOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K1 disagrees with its plain version on the {tag}: "
+                                 f"{k1_err[tag]} > {BF16_ATOL}")
+    out["alignment_5k"] = {"cap_block": 2048, "k1_launches": launches, "seconds": sec,
+                           "pairs_per_s": 5000 * 25000 / sec, "ranks_equal_dense_k1": True,
+                           "k1_vs_plain_max_abs_err": k1_err, "bf16_atol": BF16_ATOL}
+    del im, cap, ims_n, caps_n, dense
+
+    # (c) compute_recall at 100000 x 500000 (streams: the matrix would be 200 GB)
+    ims, caps = planted(100_000)
+    if not 4.0 * ims.shape[0] * caps.shape[0] > STREAMING_SCORE_BYTES:
+        raise AssertionError("the 100k x 500k case would not stream")
+    img_rows = ims.repeat_interleave(cpi, 0)
+    torch.cuda.reset_peak_memory_stats()
+    m, sec = timed(lambda: compute_recall(img_rows, caps, cpi, device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in m.values()) or not 0 <= m["t2i_r1"] <= 100:
+        raise AssertionError(f"100k x 500k recall: {m}")
+    # the ground truth against the first sweep tile at this size, bit for bit,
+    # on the operands compute_recall passes (the strided unique-image rows;
+    # the default cap_block 32768 and gt_block 4096)
+    ims_c, first = st._dev(img_rows[::cpi], torch.device("cuda")), caps[:32768]
+    gt = st.matching_ground_truth(ims_c, first, cpi, 4096)
+    tile = st._matching_tile(ims_c, first)
+    j = torch.arange(first.shape[0], device="cuda")
+    gt_equal = int((gt == tile[j // cpi, j]).sum())
+    del tile, gt
+    if gt_equal != first.shape[0]:
+        raise AssertionError(f"100k ground truth equals {gt_equal} of {first.shape[0]} entries "
+                             "of the first sweep tile")
+    out["matching_100k"] = {"seconds": sec, "pairs_per_s": 1e5 * 5e5 / sec, "recall": m,
+                            "peak_memory_bytes": peak,
+                            "gt_equals_first_tile": gt_equal}
+    del ims, caps, img_rows, ims_c, first
+    emit({"phase": "streaming", "card": nvidia_smi_line(), **out})
+    return {"k1_launches": launches, "k1_max_err": max(k1_err.values())}
 
 
 def bound(n_bytes: float, ops: float, peak: str):
@@ -1185,17 +1505,24 @@ def main() -> int:
         oscar, data, setup_s = serving_corpus(tmp)
         launches = phase_main(tmp, oscar, data, setup_s)
         q8ln = phase_encode_q8ln(oscar, data)
+        phase_search(tmp, oscar, data)
+    streamed = phase_streaming()
     k2 = phase_k2()
     k3 = phase_k3()
     k4 = phase_k4()
     k3b = phase_k3b()
     fused = phase_train_fused()["launches"]
     phase_train_cli()
+    # K1 bf16 runs on two paths: cli/test's scoring and streaming alignment recall
+    k1_launches = {"bf16": launches["bf16"]["k1"] + streamed["k1_launches"],
+                   "int8": launches["int8"]["k1"]}
+    k1_err = {"bf16": max(k1["max_err"]["bf16"], streamed["k1_max_err"]),
+              "int8": k1["max_err"]["int8"]}
     kernels = [{
         "name": f"mrsw_scores ({name})", "route": "cuda", "source": "aladin_torch/csrc/mrsw_kernel.cu",
         "replaces": "aladin_tpu/ops/pallas/alignment_kernel.py:59",
-        "launches": launches[name]["k1"],
-        "max_abs_err": k1["max_err"][name], "ms": k1["timings"][name]["ms"],
+        "launches": k1_launches[name],
+        "max_abs_err": k1_err[name], "ms": k1["timings"][name]["ms"],
         "plain_ms": k1["timings"][name]["plain_ms"], "bound_ms": k1["timings"][name]["bound_ms"],
         "bound_by": k1["timings"][name]["bound_by"], "library_ms": None,
     } for name in ("bf16", "int8")]

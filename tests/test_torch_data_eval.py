@@ -127,11 +127,14 @@ def test_recall_from_embeddings(rng):
             == jrec.recall_1k_5fold(img, cap, fold=20))
 
 
-def test_recall_beyond_dense_limit_raises(monkeypatch):
+def test_recall_beyond_dense_limit_raises(monkeypatch, rng):
+    """Beyond the dense limit compute_recall no longer raises: it streams
+    (eval/streaming.py) and returns the dense path's dict and aladin_tpu's."""
+    img = np.repeat(rng.randn(2, 4), 5, axis=0).astype(np.float32)
+    cap = rng.randn(10, 4).astype(np.float32)
+    want = trec.compute_recall(img, cap, device="cpu")
     monkeypatch.setattr(trec, "STREAMING_SCORE_BYTES", 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trec.compute_recall(np.zeros((10, 4), np.float32), np.zeros((10, 4), np.float32),
-                            device="cpu")
+    assert trec.compute_recall(img, cap, device="cpu") == want == jrec.compute_recall(img, cap)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])

@@ -561,3 +561,85 @@ def test_quant_encoder_launches_its_kernels(cuda):
         assert torch.isfinite(got).all()
         cos = torch.nn.functional.cosine_similarity(got.flatten(1), want_out.flatten(1))
         assert cos.min().item() > 0.99
+
+
+def _rank_arrays(scores, cpi):
+    from aladin_torch.eval.recall import ranks_from_score_matrix
+
+    return tuple(r.cpu().numpy() for r in ranks_from_score_matrix(scores, cpi))
+
+
+def test_streamed_alignment_ranks_equal_the_kernels_dense_ranks(cuda):
+    """bf16 streaming through K1 at a ragged shape (37 images, 185 captions,
+    cap_block 50: a padded tail tile and a short ground-truth block) gives
+    the ranks of K1's full matrix exactly; one launch a tile and a
+    ground-truth block."""
+    import numpy as np
+
+    from aladin_torch.eval.streaming import streaming_alignment_ranks
+    from aladin_torch.ops.similarity import l2norm
+
+    cpi, n_im = 5, 37
+    im, cap, il, cl = _corpus(cuda, n_im, n_im * cpi, 34, 50, 768)
+    ims = l2norm(im, eps=1e-12)
+    dense = ak.mrsw_scores(ims, l2norm(cap, eps=1e-12), il, cl)
+    before = ak.mrsw_scores.launches
+    got = streaming_alignment_ranks(im.repeat_interleave(cpi, 0), cap,
+                                    il.repeat_interleave(cpi, 0), cl, "MrSw", cpi,
+                                    cap_block=50)
+    assert ak.mrsw_scores.launches - before == 4 + 4  # ceil(185/50) tiles, ceil(185/50) GT blocks
+    for g, w in zip(got, _rank_arrays(dense, cpi)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_matching_ground_truth_equals_the_tiles_entries(cuda):
+    """The f32 ground-truth pass (diagonals of gathered 64 x 64 products)
+    equals each caption's entry in its sweep tile (all images x 96
+    captions) bit for bit, and the streamed ranks equal the ranks of the
+    matrix those tiles make."""
+    import numpy as np
+
+    from aladin_torch.eval.streaming import (_matching_tile, matching_ground_truth,
+                                             streaming_matching_ranks)
+
+    cpi, n_im, block = 5, 101, 96
+    ims = torch.nn.functional.normalize(torch.randn(n_im, 768, generator=cuda, device="cuda"),
+                                        dim=1)
+    caps = torch.nn.functional.normalize(
+        torch.randn(n_im * cpi, 768, generator=cuda, device="cuda"), dim=1)
+    gt = matching_ground_truth(ims, caps, cpi, 64)
+    tiles = torch.cat([_matching_tile(ims, torch.nn.functional.pad(
+        caps[lo:lo + block], (0, 0, 0, block - caps[lo:lo + block].shape[0])))
+        for lo in range(0, n_im * cpi, block)], dim=1)[:, :n_im * cpi]
+    j = torch.arange(n_im * cpi, device="cuda")
+    assert torch.equal(gt, tiles[j // cpi, j])
+    got = streaming_matching_ranks(ims, caps, cpi, cap_block=block)
+    for g, w in zip(got, _rank_arrays(tiles, cpi)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("direction", ["t2i", "i2t"])
+@pytest.mark.parametrize("rerank", [False, True])
+def test_search_on_the_card_matches_the_cpu(cuda, direction, rerank):
+    """search on CUDA against search on the CPU: indices equal, scores
+    within 1e-4 (the same f32 math summed in another order)."""
+    import numpy as np
+
+    from aladin_torch.eval.search import build_corpus, search
+
+    rng = np.random.default_rng(0)
+
+    def buffers(n, s):
+        embs = rng.standard_normal((n, s, 64)).astype(np.float32)
+        return embs / np.linalg.norm(embs, axis=-1, keepdims=True), \
+            rng.integers(5, s + 1, size=n).astype(np.int32)
+
+    imgs, img_lens = buffers(50, 20)
+    caps, cap_lens = buffers(250, 16)
+    corpus, queries = ((imgs, img_lens), (caps, cap_lens)) if direction == "t2i" else \
+        ((caps, cap_lens), (imgs, img_lens))
+    kw = dict(direction=direction, k=10, shortlist=30, rerank=rerank, query_chunk=16)
+    s_gpu, i_gpu = search(build_corpus(*corpus, device="cuda"), *queries, **kw)
+    s_cpu, i_cpu = search(build_corpus(*corpus, device="cpu"), *queries, **kw)
+    np.testing.assert_array_equal(i_gpu, i_cpu)
+    np.testing.assert_allclose(s_gpu, s_cpu, atol=1e-4, rtol=0)
