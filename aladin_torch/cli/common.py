@@ -7,6 +7,7 @@ import argparse
 import dataclasses
 import logging
 import os
+import tempfile
 
 import torch
 
@@ -65,9 +66,14 @@ def add_shared_flags(p: argparse.ArgumentParser) -> None:
                         "K4); evaluation/serving only (cli/test)")
     p.add_argument("--synthetic", action="store_true",
                    help="build a tiny on-disk synthetic dataset + random backbone")
-    p.add_argument("--profile_dir", default="")
+    p.add_argument("--profile_dir", default="",
+                   help="cli/train: write a torch.profiler Chrome trace (trace.json) of "
+                        "--profile_steps train steps, from the second dispatch, here")
     p.add_argument("--profile_steps", type=int, default=5)
-    p.add_argument("--steps_per_dispatch", type=int, default=1)
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="cli/train: K train steps a dispatch, one CUDA graph of K steps on "
+                        "the card (the same result as K single steps); log/val cadences fire "
+                        "at window boundaries")
     p.add_argument("--device", default="cuda",
                    help="torch device; entry points need CUDA unless this is 'cpu'")
 
@@ -158,10 +164,19 @@ def build_tokenizer(args: DataArgs) -> BertWordPieceTokenizer:
     if args.eval_model_dir and os.path.isdir(args.eval_model_dir):
         return BertWordPieceTokenizer.from_pretrained(args.eval_model_dir,
                                                       do_lower_case=args.do_lower_case)
+    # the synthetic vocab, written to a temporary file so that the C++
+    # WordPiece path engages in synthetic runs too (it reads the file whole
+    # when it is created)
     base = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
     words = ["a", "photo", "of", "the", "dog", "cat", "car", "tree", "person",
              "boat", "bird", "house", "number"] + [str(i) for i in range(10)]
-    return BertWordPieceTokenizer({t: i for i, t in enumerate(base + words)}, do_lower_case=True)
+    with tempfile.NamedTemporaryFile("w", suffix=".vocab.txt", delete=False) as f:
+        f.write("\n".join(base + words) + "\n")
+    try:
+        return BertWordPieceTokenizer({t: i for i, t in enumerate(base + words)},
+                                      do_lower_case=True, vocab_file=f.name)
+    finally:
+        os.unlink(f.name)
 
 
 def prepare_synthetic(args: DataArgs, n_images: int = 8) -> DataArgs:

@@ -99,7 +99,9 @@ def run(argv=None) -> Dict[str, Any]:
     loader = BatchLoader(test_ds, cfg.training.bs, shuffle=False, drop_last=False,
                          device=device, sort_by_length=ns.bucketed_encode,
                          trim_multiple=16 if ns.bucketed_encode else 0)
-    logger.info(f"test set: {len(test_ds.img_keys)} images / {len(test_ds)} captions")
+    native_io = {"reader": test_ds.native_enabled, "tokenizer": tokenizer.native_enabled}
+    logger.info(f"test set: {len(test_ds.img_keys)} images / {len(test_ds)} captions; "
+                f"native IO {native_io}")
 
     model = build_model(cfg, args, device)
     if ns.int8_encoder:
@@ -150,7 +152,7 @@ def run(argv=None) -> Dict[str, Any]:
     logger.info(f"encode {encode_seconds:.3f} s, alignment scoring {score_seconds:.3f} s")
     return {"matching": m, "alignment_i2t": i2t, "alignment_t2i": t2i,
             "scores": scores.cpu().numpy(), "encode_seconds": encode_seconds,
-            "score_seconds": score_seconds}
+            "score_seconds": score_seconds, "native_io": native_io}
 
 
 def main(argv=None) -> int:

@@ -7,7 +7,10 @@
         --logger_name runs/<exp> [--device cuda]
 
 ``--synthetic`` builds a tiny on-disk dataset and a small random backbone
-and runs the whole loop (``--device cpu`` runs it without a card). The
+and runs the whole loop (``--device cpu`` runs it without a card).
+``--steps_per_dispatch K`` runs K steps a dispatch (one CUDA graph replay on
+the card; the same result as K single steps) and ``--profile_dir`` writes a
+``torch.profiler`` trace of ``--profile_steps`` steps. The
 model keeps f32 parameters and computes in bf16 under autocast unless
 ``--compute_dtype float32``; validation scores the alignment head with the
 MrSw kernel on the card. Checkpoints are ``<logger_name>/checkpoint.pth.tar``
@@ -50,11 +53,13 @@ def _parse(argv):
     if ns.int8_encoder:
         # quantization rounds are gradient-dead; the flag is eval/serving only
         parser.error("--int8_encoder is an evaluation/serving flag (cli/test); training runs bf16")
+    if ns.steps_per_dispatch < 1:
+        parser.error(f"--steps_per_dispatch must be >= 1, got {ns.steps_per_dispatch}")
+    if ns.profile_dir and ns.profile_steps < 1:
+        parser.error(f"--profile_steps must be >= 1, got {ns.profile_steps}")
     unported = {
         "--ndcg": ns.ndcg,
-        "--steps_per_dispatch > 1 (queue 1, item 8)": ns.steps_per_dispatch > 1,
-        "--profile_dir (queue 1, item 8)": bool(ns.profile_dir),
-        "a multi-device --mesh_shape (queue 1, item 6)": ns.mesh_shape not in ("dp=-1", "dp=1"),
+        "a multi-device --mesh_shape (queue 1, item 7)": ns.mesh_shape not in ("dp=-1", "dp=1"),
     }
     for flag, given in unported.items():
         if given:
@@ -81,7 +86,9 @@ def run(argv=None) -> Dict[str, Any]:
 
     tokenizer = build_tokenizer(args)
     train_loader, val_loader = build_loaders(tokenizer, args, cfg, device)
-    logger.info(f"train batches/epoch: {len(train_loader)}  val: {len(val_loader)}")
+    logger.info(f"train batches/epoch: {len(train_loader)}  val: {len(val_loader)}  native IO: "
+                f"reader {train_loader.dataset.native_enabled}, tokenizer "
+                f"{tokenizer.native_enabled}")
     model = build_train_model(cfg, args, device)
     state = TrainState(cfg, model, steps_per_epoch=max(len(train_loader), 1))
 

@@ -298,8 +298,8 @@ class DataArgs:
     mesh_shape: str = "dp=-1"  # e.g. "dp=4,tp=2"; -1 = all remaining devices
     compute_dtype: str = "bfloat16"
     synthetic: bool = False  # tiny on-disk dataset + random small backbone
-    profile_dir: str = ""  # JAX profiler trace of the first post-compile steps
+    profile_dir: str = ""  # torch.profiler trace of --profile_steps train steps
     profile_steps: int = 5
-    steps_per_dispatch: int = 1  # K train steps per host dispatch (lax.scan window)
+    steps_per_dispatch: int = 1  # K train steps a dispatch (a CUDA graph of K steps)
     ndcg: bool = False  # NDCG@25 from precomputed relevance matrices
     int8_encoder: bool = False  # W8A8 encoder matmuls (eval/serving only)

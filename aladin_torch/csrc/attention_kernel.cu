@@ -26,6 +26,9 @@
 //     keep = bits >= threshold, threshold = uint32(rate * 2^32),
 // which the plain PyTorch version in ops/kernels/attention_kernel.py computes
 // identically, so kernel and plain version agree with dropout on as well.
+// The seed is read on the card, through a pointer to an int64 whose low 32
+// bits are used: the model draws a layer's seeds on the card, so a CUDA
+// graph that replays the kernel reads a new seed every replay.
 //
 // Bound on an H100 SXM: at this backbone's sequence lengths (S <= 160) the
 // work is small. The forward needs 4 * B * H * S^2 * d operations against
@@ -359,8 +362,9 @@ template <int W>
 __global__ void __launch_bounds__(W * 32)
 attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const float* __restrict__ bias, bf16* __restrict__ out, int s_len, int n_heads,
-              int bias_q, uint32_t seed, uint32_t threshold, float scale, float inv_sqrt_d,
-              int dropout) {
+              int bias_q, const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
+              float inv_sqrt_d, int dropout) {
+  const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   constexpr int SP = 16 * W, NT = 2 * W;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -420,7 +424,9 @@ __global__ void __launch_bounds__(W * 32)
 attn_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const float* __restrict__ bias, const bf16* __restrict__ gy, bf16* __restrict__ dq,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int s_len, int n_heads, int bias_q,
-              uint32_t seed, uint32_t threshold, float scale, float inv_sqrt_d, int dropout) {
+              const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
+              float inv_sqrt_d, int dropout) {
+  const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   constexpr int SP = 16 * W, NT = 2 * W, PP = SP + 8;  // PP: pitch of the pd / ds tiles
   constexpr int kWords = (4 * NT + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -669,8 +675,9 @@ __device__ void softmax_row(const float* qv, const float* ks, const float* brow,
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              const float* __restrict__ bias, float* __restrict__ out, int s_len, int n_heads,
-             int bias_q, uint32_t seed, uint32_t threshold, float scale, float inv_sqrt_d,
-             int dropout) {
+             int bias_q, const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
+             float inv_sqrt_d, int dropout) {
+  const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.x;
   const int b = bh / n_heads, h = bh % n_heads;
@@ -722,7 +729,9 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              const float* __restrict__ bias, const float* __restrict__ gy, float* __restrict__ dq,
              float* __restrict__ dk, float* __restrict__ dv, int s_len, int n_heads, int bias_q,
-             uint32_t seed, uint32_t threshold, float scale, float inv_sqrt_d, int dropout) {
+             const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
+             float inv_sqrt_d, int dropout) {
+  const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int P = kPitchF32;
   const int bh = blockIdx.x;
@@ -860,10 +869,11 @@ extern "C" {
 // dtype: 0 = bf16 (tensor-core kernel), 1 = f32 (CUDA-core kernel); q, k, v,
 // out alike. q, k, v, out: (B, S, H, d) row-major, bf16 pointers 16-byte
 // aligned; bias: f32 (B, bias_q, S). dropout != 0 applies the keep mask of
-// (seed, threshold) and scales kept probabilities by `scale`. Returns a
-// cudaError_t code.
+// (*seed, threshold) and scales kept probabilities by `scale`; seed points
+// to one int64 on the card and is not read (it may be null) when dropout is
+// 0. Returns a cudaError_t code.
 int attn_fwd_launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
-                    void* out, int b, int s, int h, int d, int bias_q, unsigned seed,
+                    void* out, int b, int s, int h, int d, int bias_q, const long long* seed,
                     unsigned threshold, float scale, float inv_sqrt_d, int dropout, void* stream) {
   if (!shape_ok(b, s, h, d, bias_q)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -874,13 +884,13 @@ int attn_fwd_launch(int dtype, const void* q, const void* k, const void* v, cons
     return launch(kernels[w - 1], grid, 32 * w, bf16_fwd_smem_bytes(s), st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), s, h, bias_q,
-                  (uint32_t)seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
   }
   if (dtype == 1)
     return launch(attn_fwd_f32, grid, kThreads, f32_fwd_smem_bytes(s), st,
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), bias, static_cast<float*>(out), s, h, bias_q,
-                  (uint32_t)seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -888,7 +898,8 @@ int attn_fwd_launch(int dtype, const void* q, const void* k, const void* v, cons
 // dq, dk, dv, all (B, S, H, d) in the input type.
 int attn_bwd_launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
                     const void* g, void* dq, void* dk, void* dv, int b, int s, int h, int d,
-                    int bias_q, unsigned seed, unsigned threshold, float scale, float inv_sqrt_d,
+                    int bias_q, const long long* seed, unsigned threshold, float scale,
+                    float inv_sqrt_d,
                     int dropout, void* stream) {
   if (!shape_ok(b, s, h, d, bias_q)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -900,14 +911,14 @@ int attn_bwd_launch(int dtype, const void* q, const void* k, const void* v, cons
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<const bf16*>(g),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, h,
-                  bias_q, (uint32_t)seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  bias_q, seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
   }
   if (dtype == 1)
     return launch(attn_bwd_f32, grid, kThreads, f32_bwd_smem_bytes(s), st,
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), bias, static_cast<const float*>(g),
                   static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), s, h,
-                  bias_q, (uint32_t)seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  bias_q, seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
   return (int)cudaErrorInvalidValue;
 }
 

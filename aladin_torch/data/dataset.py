@@ -1,7 +1,9 @@
 """COCO image-text retrieval dataset: TSV region features + caption stores.
 
-A copy of aladin_tpu/data/dataset.py that decodes features with the
-pure-Python TSV reader only (the native C++ reader is not ported yet).
+A copy of aladin_tpu/data/dataset.py. Region features are decoded by the
+native C++ reader (``io/native.py``) unless ``use_native_io=False`` or the
+library cannot be built; the pure-Python ``TSVFile`` path gives the same
+arrays. ``native_enabled`` says which path a dataset took.
 
 Behavioral contract (ref:alad/dataset.py RetrievalDataset/MyCollate):
 
@@ -149,11 +151,18 @@ def _load_captions(path: str) -> Dict[int, List[str]]:
 class RetrievalDataset:
     """Image/text retrieval dataset over pre-extracted VinVL features."""
 
-    def __init__(self, tokenizer, args: DataArgs, split: str = "train", is_train: bool = True):
+    def __init__(self, tokenizer, args: DataArgs, split: str = "train", is_train: bool = True,
+                 use_native_io: bool = True):
         self.args = args
         self.split = split
         self.is_train = is_train
         self.img_tsv = TSVFile(args.img_feat_file)
+        self._native = None
+        if use_native_io:
+            from aladin_torch.io.native import NativeFeatureReader, available
+
+            if available():  # else io/native.py has logged why, once
+                self._native = NativeFeatureReader(args.img_feat_file)
         cap_file_pt = os.path.join(args.data_dir, f"{split}_captions.pt")
         cap_file_json = os.path.join(args.data_dir, f"{split}_captions.json")
         self.captions = _load_captions(
@@ -205,8 +214,14 @@ class RetrievalDataset:
     def __len__(self) -> int:
         return len(self.img_keys) * self.num_captions_per_img
 
+    @property
+    def native_enabled(self) -> bool:
+        return self._native is not None
+
     def get_image(self, image_id: int) -> np.ndarray:
         idx = self.image_id2idx[str(image_id)]
+        if self._native is not None:
+            return self._native.read_features(idx)
         row = self.img_tsv.seek(idx)
         return decode_region_features(row[-1], int(row[1]))
 

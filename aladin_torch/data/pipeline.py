@@ -3,6 +3,9 @@
 A thread pool tensorizes numpy batches ahead of the device; each batch is
 copied to the entry point's device from pinned memory with
 ``non_blocking=True``, so the copy overlaps the previous batch's compute.
+The native reader and tokenizer (``io/native.py``) run without the GIL, so
+the pool's threads decode in parallel; each thread has its own decode
+buffer, and every row handed out is a copy of it.
 """
 
 from __future__ import annotations

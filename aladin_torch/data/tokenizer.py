@@ -8,15 +8,17 @@ followed by greedy longest-match WordPiece - verified against HuggingFace's
 BertTokenizer in tests.
 
 Tokenization is pure host-side preprocessing; ids enter the device path as
-int32 arrays. A copy of aladin_tpu/data/tokenizer.py without the native C++
-fast path (not ported yet): every call takes the pure-Python tokenizer.
+int32 arrays. A copy of aladin_tpu/data/tokenizer.py: ``encode_trunc`` takes
+the C++ tokenizer (``io/native.py``) for ASCII text when the tokenizer was
+built from a vocab file, and this module's Python tokenizer otherwise; the
+ids are the same either way.
 """
 
 from __future__ import annotations
 
 import os
 import unicodedata
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 NEVER_SPLIT = ("[UNK]", "[SEP]", "[PAD]", "[CLS]", "[MASK]")
 
@@ -181,17 +183,31 @@ class BertWordPieceTokenizer:
     unk_token = "[UNK]"
     mask_token = "[MASK]"
 
-    def __init__(self, vocab: Dict[str, int], do_lower_case: bool = True):
+    def __init__(self, vocab: Dict[str, int], do_lower_case: bool = True,
+                 vocab_file: Optional[str] = None):
         self.vocab = vocab
         self.basic = BasicTokenizer(do_lower_case=do_lower_case)
         self.wordpiece = WordpieceTokenizer(vocab)
+        # C++ fast path (native/wordpiece.cpp): the same ids for ASCII text,
+        # declines (-> this class) otherwise. Only the lowercasing
+        # configuration it implements is eligible.
+        self._native = None
+        if vocab_file is not None and do_lower_case:
+            from aladin_torch.io.native import NativeWordPiece, available
+
+            if available():
+                self._native = NativeWordPiece(vocab_file)
 
     @classmethod
     def from_pretrained(cls, dir_or_file: str, do_lower_case: bool = True):
         path = dir_or_file
         if os.path.isdir(path):
             path = os.path.join(path, "vocab.txt")
-        return cls(load_vocab(path), do_lower_case=do_lower_case)
+        return cls(load_vocab(path), do_lower_case=do_lower_case, vocab_file=path)
+
+    @property
+    def native_enabled(self) -> bool:
+        return self._native is not None
 
     def tokenize(self, text: str) -> List[str]:
         out: List[str] = []
@@ -213,9 +229,14 @@ class BertWordPieceTokenizer:
         """First ``max_tokens`` WordPiece ids of ``text`` — equivalent to
         ``tokenize()[:max_tokens]`` converted to ids (greedy WordPiece is
         left-to-right, so id-level and token-level truncation coincide).
-        This is the tensorizer hot path."""
+        This is the tensorizer hot path; it takes the C++ tokenizer when
+        available and the text is ASCII."""
         if max_tokens <= 0:  # callers may compute a non-positive budget
             return []
+        if self._native is not None:
+            ids = self._native.encode(text, max_tokens)
+            if ids is not None:
+                return ids
         return self.convert_tokens_to_ids(self.tokenize(text)[:max_tokens])
 
     @property

@@ -5,8 +5,9 @@ a ``.lineidx`` sidecar of line byte offsets enables O(1) row seeks into the
 multi-GB features TSV; the file handle is lazily opened and re-opened when
 the process id changes (fork-safety for loader workers, ref:tsv_file.py:77-85).
 
-A copy of aladin_tpu/data/tsv.py; the port decodes rows in pure Python
-(the native C++ reader is not ported yet).
+A copy of aladin_tpu/data/tsv.py: the pure-Python reader, which the dataset
+takes where the native C++ reader (``io/native.py``) is unavailable or
+turned off.
 """
 
 from __future__ import annotations

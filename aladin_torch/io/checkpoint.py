@@ -114,7 +114,7 @@ def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any]
     ckpt = {
         "epoch": int(epoch),
         "model": {PREFIX + k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "optimizer": _cpu(state.optimizer.state_dict()),
+        "optimizer": _cpu(state.optimizer_state_dict()),
         "scheduler": {"step": int(state.step)},  # the schedule is closed-form in the step
         "opt": opt,
         "config": config_dict,
@@ -154,7 +154,7 @@ def resume_state(state, path: str):
         state.model.load_state_dict(sd, strict=True)
         _load_aux(state, ckpt["aux"])
         try:
-            state.optimizer.load_state_dict(optim)
+            state.load_optimizer_state_dict(optim)
         except ValueError as e:
             raise ValueError(f"{path}: the optimizer state does not match the current train "
                              f"state (freeze-teran or the loss set changed since save?): {e}")

@@ -23,9 +23,10 @@ the autocast dtype in training). Two knobs route to the port's kernels, as
 in aladin_tpu:
 
   * ``fused_attention``: kernel K2 (ops/kernels/attention_kernel.py) on
-    ``bias[:, 0]`` with one dropout seed per layer call, drawn from the
-    model's CPU ``seed_generator`` (no card sync); it returns no probs, so
-    ``output_attentions`` raises;
+    ``bias[:, 0]`` with one dropout seed per layer call, drawn on the card
+    from the CUDA default generator (no card sync, and new on every replay
+    of a CUDA graph), or on the CPU from the model's ``seed_generator``; it
+    returns no probs, so ``output_attentions`` raises;
   * ``fused_layernorm``: kernel K3a (ops/kernels/layernorm.py) on
     ``(x, sublayer_out)`` cast to the sublayer's dtype.
 
@@ -147,7 +148,7 @@ class BertSelfAttention(nn.Module):
         self.qkv = (FusedQuantLinear([self.query, self.key, self.value]) if cfg.quant_matmuls
                     else None)
 
-    def forward(self, x, bias, seed: Optional[int] = None, x_q8=None):
+    def forward(self, x, bias, seed=None, x_q8=None):
         b, s, _ = x.shape
         if self.qkv is not None:  # one W8A8 GEMM; x_q8: x quantized upstream
             qkv = self.qkv(x) if x_q8 is None else self.qkv.forward_xq(*x_q8, x.dtype)
@@ -269,7 +270,8 @@ class BertImgModel(nn.Module):
             raise NotImplementedError("BertImgConfig.remat (the B >= 512 memory lever) is not "
                                       "ported yet (ROADMAP.md, queue 1, item 4)")
         self.cfg = cfg
-        # per-call dropout seeds of the fused attention kernel (a CPU draw)
+        # per-call dropout seeds of the fused attention on the CPU; on the
+        # card they are drawn on the card (see forward)
         self.seed_generator = torch.Generator().manual_seed(0)
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
@@ -301,8 +303,13 @@ class BertImgModel(nn.Module):
         layers = self.encoder.layer
         seeds = [None] * len(layers)
         if self.cfg.fused_attention and self.training and self.cfg.attention_probs_dropout_prob > 0:
-            seeds = torch.randint(0, 2 ** 31 - 1, (len(layers),),
-                                  generator=self.seed_generator).tolist()
+            if x.device.type == "cuda":
+                # the CUDA default generator: Philox offsets that a CUDA graph
+                # advances on every replay, read by the kernel on the card
+                seeds = list(torch.randint(0, 2 ** 31 - 1, (len(layers),), device=x.device))
+            else:
+                seeds = torch.randint(0, 2 ** 31 - 1, (len(layers),),
+                                      generator=self.seed_generator).tolist()
 
         # the int8 stream of the quantized encoder with fused LayerNorms
         x_q8 = layernorm_q8(x) if self.cfg.quant_matmuls and self.cfg.fused_layernorm else None

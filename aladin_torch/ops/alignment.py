@@ -91,7 +91,10 @@ def alignment_scores_chunked(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: 
     axis goes in ``chunk``-sized blocks and each block is recomputed in the
     backward pass (``torch.utils.checkpoint``, JAX's remat), so the
     (B_i, B_c, R, W) tensor never exists whole in either direction. The last
-    block may be short: no padding captions are needed."""
+    block may be short: no padding captions are needed. A block draws no
+    random numbers, so the checkpoint keeps no RNG state
+    (``preserve_rng_state=False``): the recompute is the same without it,
+    and a CUDA graph can capture it."""
     if not normalized:
         im_set = l2norm(im_set, eps=1e-12)
         s_seq = l2norm(s_seq, eps=1e-12)
@@ -101,7 +104,7 @@ def alignment_scores_chunked(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: 
 
     return torch.cat([
         checkpoint(block, im_set, s_seq[s:s + chunk], im_len, s_len[s:s + chunk],
-                   use_reentrant=False)
+                   use_reentrant=False, preserve_rng_state=False)
         for s in range(0, s_seq.shape[0], chunk)
     ], dim=1)
 

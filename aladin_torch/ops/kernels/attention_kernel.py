@@ -24,13 +24,19 @@ the same in the kernel and the plain version, so the two agree with dropout
 on as well. keep = bits >= uint32(rate * 2^32) and kept probabilities are
 scaled by 1 / (1 - rate), as in the JAX kernel. The mask is not the TPU
 PRNG's: the same distribution, other draws.
+
+The seed is an int or a one-element integer tensor; the kernels read it on
+the card through a pointer (its low 32 bits), so a seed drawn on the card
+(``models/bert_img.py``) changes on every replay of a CUDA graph that
+captured the launch. An int seed on the card is wrapped in an int64 tensor
+first; the backward reads the same tensor as the forward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -64,13 +70,19 @@ def _threshold(rate: float) -> int:
     return min(int(rate * 2 ** 32), _M32)
 
 
-def keep_mask(seed: int, b: int, h: int, s: int, rate: float,
+Seed = Union[int, torch.Tensor]
+
+
+def keep_mask(seed: Seed, b: int, h: int, s: int, rate: float,
               device="cpu") -> torch.Tensor:
-    """(B, H, S, S) bool keep mask of ``seed``: bits >= uint32(rate * 2^32)
-    with bits = mix32(mix32(mix32(seed) ^ (b * H + h)) ^ (q * S + k))."""
+    """(B, H, S, S) bool keep mask of ``seed`` (an int or a one-element
+    tensor): bits >= uint32(rate * 2^32) with
+    bits = mix32(mix32(mix32(seed) ^ (b * H + h)) ^ (q * S + k))."""
     bh = torch.arange(b * h, device=device, dtype=torch.int64).reshape(b, h, 1, 1)
     qk = torch.arange(s * s, device=device, dtype=torch.int64).reshape(1, 1, s, s)
-    key = _mix32(_mix32(int(seed) & _M32) ^ bh)
+    seed = (seed.to(device=device, dtype=torch.int64).reshape(()) if torch.is_tensor(seed)
+            else int(seed)) & _M32  # a tensor stays on its device: no sync
+    key = _mix32(_mix32(seed) ^ bh)
     return _mix32(key ^ qk) >= _threshold(rate)
 
 
@@ -93,7 +105,7 @@ def _probs(q, k, bias):
     return e / e.sum(dim=-1, keepdim=True), qh, kh
 
 
-def attention_forward_plain(q, k, v, bias, seed: int = 0, dropout_rate: float = 0.0,
+def attention_forward_plain(q, k, v, bias, seed: Seed = 0, dropout_rate: float = 0.0,
                             train: bool = False) -> torch.Tensor:
     """The forward kernel's arithmetic in PyTorch, on any device (f32
     accumulation; f64 for f64 inputs)."""
@@ -106,7 +118,7 @@ def attention_forward_plain(q, k, v, bias, seed: int = 0, dropout_rate: float = 
     return ctx.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def attention_backward_plain(q, k, v, bias, g, seed: int = 0, dropout_rate: float = 0.0,
+def attention_backward_plain(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0.0,
                              train: bool = False):
     """The backward kernel's arithmetic in PyTorch: (dq, dk, dv) in q's dtype."""
     b, s, h, d = q.shape
@@ -132,10 +144,10 @@ def _kernel_library() -> ctypes.CDLL:
     lib = build.load_library(_KERNEL_SOURCE)
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.attn_fwd_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                    u32, u32, f32, f32, i32, ptr]
+                                    ptr, u32, f32, f32, i32, ptr]
     lib.attn_fwd_launch.restype = i32
     lib.attn_bwd_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                    i32, i32, u32, u32, f32, f32, i32, ptr]
+                                    i32, i32, ptr, u32, f32, f32, i32, ptr]
     lib.attn_bwd_launch.restype = i32
     lib.attn_smem_bytes.argtypes = [i32, i32, i32]
     lib.attn_smem_bytes.restype = ctypes.c_ulong
@@ -171,11 +183,28 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def seed_tensor(seed: Seed, device) -> torch.Tensor:
+    """``seed`` as the kernels read it: a 0-d int64 tensor on ``device``
+    (an int is wrapped, keeping its low 32 bits, by a fill on the device:
+    no copy from host memory, so the host does not wait for the card; a
+    tensor on the device is used as it is, so a seed drawn there is not
+    copied)."""
+    if not torch.is_tensor(seed):
+        return torch.full((), int(seed) & _M32, dtype=torch.int64, device=device)
+    if seed.numel() != 1 or seed.device != torch.device(device) or seed.is_floating_point():
+        raise ValueError(f"the seed must be one integer on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return seed.reshape(()) if seed.dtype == torch.int64 else seed.reshape(()).long()
+
+
 def _launch_args(q, bias, seed, dropout_rate, train, stream):
+    """The launch's arguments after the tensors: shape, seed pointer (null
+    without dropout: the kernels do not read it), threshold, scales."""
     b, s, h, d = q.shape
     on = _dropout_on(dropout_rate, train)
     scale = 1.0 / (1.0 - dropout_rate) if on else 1.0
-    return (b, s, h, d, bias.shape[1], int(seed) & _M32, _threshold(dropout_rate) if on else 0,
+    seed_ptr = seed_tensor(seed, q.device).data_ptr() if on else None
+    return (b, s, h, d, bias.shape[1], seed_ptr, _threshold(dropout_rate) if on else 0,
             scale, 1.0 / d ** 0.5, int(on), stream)
 
 
@@ -185,7 +214,7 @@ def _raise_on(lib, err: int, what: str) -> None:
                            f"{lib.attn_error_string(err).decode()}")
 
 
-def attention_forward(q, k, v, bias, seed: int = 0, dropout_rate: float = 0.0,
+def attention_forward(q, k, v, bias, seed: Seed = 0, dropout_rate: float = 0.0,
                       train: bool = False) -> torch.Tensor:
     """ctx (B, S, H, d): the forward kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -211,7 +240,7 @@ def attention_forward(q, k, v, bias, seed: int = 0, dropout_rate: float = 0.0,
 attention_forward.launches = 0  # kernel launches; the plain version does not count
 
 
-def attention_backward(q, k, v, bias, g, seed: int = 0, dropout_rate: float = 0.0,
+def attention_backward(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0.0,
                        train: bool = False):
     """(dq, dk, dv): the backward kernel for CUDA tensors, the plain version
     for CPU tensors."""
@@ -242,24 +271,32 @@ attention_backward.launches = 0
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, dropout_rate, train):
-        ctx.save_for_backward(q, k, v, bias)
-        ctx.args = (seed, dropout_rate, train)
+        if q.device.type == "cuda" and _dropout_on(dropout_rate, train):
+            seed = seed_tensor(seed, q.device)  # one tensor for the forward and the backward
+        if torch.is_tensor(seed):
+            ctx.save_for_backward(q, k, v, bias, seed)
+        else:
+            ctx.save_for_backward(q, k, v, bias)
+        ctx.args = (seed if not torch.is_tensor(seed) else None, dropout_rate, train)
         return attention_forward(q, k, v, bias, seed, dropout_rate, train)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, *seed = ctx.saved_tensors
+        int_seed, dropout_rate, train = ctx.args
+        seed = seed[0] if seed else int_seed
         with torch.autocast(q.device.type, enabled=False):
-            dq, dk, dv = attention_backward(q, k, v, bias, g, *ctx.args)
+            dq, dk, dv = attention_backward(q, k, v, bias, g, seed, dropout_rate, train)
         return dq, dk, dv, None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-                    seed: Optional[int] = None, dropout_rate: float = 0.0,
+                    seed: Optional[Seed] = None, dropout_rate: float = 0.0,
                     train: bool = False) -> torch.Tensor:
     """ctx (B, S, H, d) = dropout(softmax(QK^T / sqrt(d) + bias)) V,
-    differentiable in q, k, v. ``seed`` (an int) must change from call to
-    call in training; the backward regenerates the forward's mask from it."""
+    differentiable in q, k, v. ``seed`` (an int, or a one-element integer
+    tensor on q's device) must change from call to call in training; the
+    backward regenerates the forward's mask from it."""
     with torch.autocast(q.device.type, enabled=False):
-        return _FusedAttention.apply(q, k, v, bias, 0 if seed is None else int(seed),
+        return _FusedAttention.apply(q, k, v, bias, 0 if seed is None else seed,
                                      float(dropout_rate), bool(train))

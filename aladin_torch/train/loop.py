@@ -1,14 +1,22 @@
 """The training orchestrator: epochs, in-loop validation, checkpointing
-(mirrors aladin_tpu/train/loop.py for one step per dispatch on one device).
+(mirrors aladin_tpu/train/loop.py on one device).
 
-  * per step: the train step; every ``log_step`` steps the window's metrics
-    come to the host in one copy (a ``.item()`` a step would stall the
-    card) and go to the meters and the log;
+  * per dispatch: one train step, or with ``--steps_per_dispatch K > 1`` a
+    window of K steps (``make_multi_train_step``: one CUDA graph replay on
+    the card); the epoch's remainder runs as a shorter window, and a
+    remainder of one as the single step;
+  * at every ``log_step`` boundary the pending metrics come to the host in
+    one copy (a ``.item()`` a step would stall the card) and go to the
+    meters and the log; ``log_step`` and ``val_step`` fire at the first
+    window boundary at or past each multiple (``crossed``);
   * every ``val_step`` steps and at each epoch's end: validate - encode the
     minival split, matching-head R@K always, alignment-head i2t/t2i (the
     MrSw kernel on the card) when the loss set has 'alignment'; rsum =
     matching rsum (+ alignment rsum) gates the best checkpoint;
-  * a checkpoint after each validation, copied on a new best.
+  * a checkpoint after each validation, copied on a new best;
+  * ``--profile_dir``: a ``torch.profiler`` trace of the dispatches that
+    cover ``--profile_steps`` steps, from the second dispatch of the first
+    epoch this Trainer runs (the first, for an epoch of one dispatch), once.
 
 The validation dataset is built with is_train=True, as the reference does.
 """
@@ -26,8 +34,15 @@ from aladin_torch.eval.recall import compute_recall
 from aladin_torch.eval.retrieval import evaluate_alignment_head
 from aladin_torch.io.checkpoint import save_checkpoint
 from aladin_torch.train.state import TrainState
-from aladin_torch.train.step import make_eval_step, make_train_step
+from aladin_torch.train.step import make_eval_step, make_multi_train_step, make_train_step
 from aladin_torch.utils.logging import AverageMeter, LogCollector, setup_logger
+from aladin_torch.utils.profiling import Trace
+
+
+def crossed(gstep: int, width: int, period: int) -> bool:
+    """Did a positive multiple of ``period`` land in (gstep - width, gstep]?"""
+    r = gstep % period
+    return r < width and r < gstep
 
 
 class Trainer:
@@ -41,7 +56,17 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = torch.device(device)
+        self.steps_per_dispatch = int(getattr(args, "steps_per_dispatch", 1))
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"--steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}")
         self.train_step = make_train_step(model, cfg, compute_dtype)
+        self.multi_step = (make_multi_train_step(model, cfg, compute_dtype, self.steps_per_dispatch)
+                           if self.steps_per_dispatch > 1 else None)
+        self.profile_dir = getattr(args, "profile_dir", "")
+        self.profile_steps = int(getattr(args, "profile_steps", 5))
+        if self.profile_dir and self.profile_steps < 1:
+            raise ValueError(f"--profile_steps must be >= 1, got {self.profile_steps}")
+        self.profiled = False  # one trace a Trainer
         self.eval_step = make_eval_step(model, compute_dtype)
         self.logger = setup_logger("vlpretrain", args.logger_name)
         self.best_rsum = -1.0
@@ -56,8 +81,9 @@ class Trainer:
     def train_epoch(self, epoch: int) -> None:
         batch_time, data_time = AverageMeter(), AverageMeter()
         collector = LogCollector()
+        k = self.steps_per_dispatch
         step0 = self.state.step
-        pending = []  # device metric dicts of the window since the last flush
+        pending = []  # device metric dicts, (width,) tensors or scalars, since the last flush
         window_start = time.time()
 
         def flush(i):
@@ -65,31 +91,71 @@ class Trainer:
             if not pending:
                 return
             names = list(pending[0])
-            host = torch.stack([torch.stack([m[k].float() for k in names])
-                                for m in pending]).cpu()  # the window's one sync
-            batch_time.update((time.time() - window_start) / len(pending), n=len(pending))
-            for row in host.tolist():
-                for k, v in zip(names, row):
-                    collector.update(k, v, n=1)
-            self.last_metrics = dict(zip(names, host[-1].tolist()))
+            host = torch.cat([torch.stack([m[n].float().reshape(-1) for n in names])
+                              for m in pending], dim=1).cpu()  # the window's one sync
+            batch_time.update((time.time() - window_start) / host.shape[1], n=host.shape[1])
+            for col in host.T.tolist():
+                for n, v in zip(names, col):
+                    collector.update(n, v, n=1)
+            self.last_metrics = dict(zip(names, host[:, -1].tolist()))
             pending.clear()
             window_start = time.time()
             self.logger.info(f"Epoch: [{epoch}][{i}/{len(self.train_loader)}]\t{collector}\t"
                              f"lr {self.state.schedule(self.state.schedule_step - 1):.3g}\t"
                              f"Time {batch_time}\tData {data_time}")
 
+        ndisp = 0  # dispatches issued this epoch
+        prof = None
+        prof_start = 1 if len(self.train_loader) > k else 0
+
+        def prof_tick():
+            nonlocal prof
+            if not self.profile_dir or self.profiled:
+                return
+            if prof is None and ndisp == prof_start:
+                prof = Trace(self.profile_dir, cuda=self.device.type == "cuda")
+                prof.start()
+            elif prof is not None and (ndisp - prof_start) * k >= self.profile_steps:
+                self._stop_trace(prof)
+                prof = None
+
+        window, widx = [], []
+
+        def dispatch():
+            nonlocal ndisp
+            prof_tick()
+            if len(window) == 1:  # K = 1, or a remainder of one: the single step
+                pending.append(self.train_step(self.state, window[0], epoch))
+            else:
+                pending.append(self.multi_step(self.state, list(window), epoch))
+            ndisp += 1
+            gstep, i, width = step0 + widx[-1] + 1, widx[-1], len(widx)
+            window.clear()
+            widx.clear()
+            if crossed(gstep, width, self.args.log_step):
+                flush(i)
+            if self.args.val_step > 0 and crossed(gstep, width, self.args.val_step):
+                flush(i)
+                self._checkpoint(epoch, self.validate())
+
         end = time.time()
         for i, batch in enumerate(self.train_loader.epoch(epoch)):
             data_time.update(time.time() - end, n=1)
-            pending.append(self.train_step(self.state, batch, epoch))
-            gstep = step0 + i + 1
+            window.append(batch)
+            widx.append(i)
+            if len(window) == k:
+                dispatch()
             end = time.time()
-            if gstep % self.args.log_step == 0:
-                flush(i)
-            if self.args.val_step > 0 and gstep % self.args.val_step == 0:
-                flush(i)
-                self._checkpoint(epoch, self.validate())
+        if window:
+            dispatch()  # the epoch's remainder
+        if prof is not None:  # an epoch shorter than the trace
+            self._stop_trace(prof)
         flush(max(len(self.train_loader) - 1, 0))
+
+    def _stop_trace(self, prof: Trace) -> None:
+        path = prof.stop()
+        self.profiled = True
+        self.logger.info(f"profiler trace ({self.profile_steps} steps) -> {path}")
 
     def validate(self) -> float:
         """Encode the validation split; returns rsum (matching, plus

@@ -16,6 +16,14 @@ multi_transform with ``set_to_zero`` gives them in aladin_tpu: they stay
 out of the optimizer and out of the clip norm, but their gradients are
 still computed and still count in the ``grad_norm`` metric.
 
+On the card the optimizer is ``Adam(capturable=True)`` with its learning
+rate in a one-element device tensor, so that a CUDA graph can capture the
+step (``train/step.py::make_multi_train_step``): the eager step writes the
+schedule's value into that tensor, a graph copies it from the window's lr
+vector. ``optimizer_state_dict`` / ``load_optimizer_state_dict`` give and
+take the eager form (a float lr, ``capturable`` False, CPU step counts)
+whatever the mode, so checkpoints keep one format and load either way.
+
 Auxiliary learnables owned here:
   * the 'auto' loss weights s_k, initialised to -2.3 (learnable, unlike the
     reference's, which never reach its optimizer);
@@ -24,7 +32,7 @@ Auxiliary learnables owned here:
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -61,7 +69,7 @@ class TrainState:
     which the optimizer and its schedule last started fresh."""
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module, steps_per_epoch: int = 1000,
-                 aux: Dict[str, nn.Parameter] = None):
+                 aux: Dict[str, nn.Parameter] = None, capturable: Optional[bool] = None):
         self.cfg = cfg
         self.model = model
         device = next(model.parameters()).device
@@ -75,8 +83,14 @@ class TrainState:
         for name, p in model.named_parameters():
             (self.frozen if name.split(".")[0] in frozen else self.trainable).append(p)
         self.trainable += list(self.aux.values())
-        self.optimizer = torch.optim.Adam(self.trainable, lr=self.schedule(0),
-                                          betas=(0.9, 0.999), eps=1e-8)
+        # capturable: the default on the card; a CPU state can hold one (and
+        # convert its state dict) but cannot step it
+        self.capturable = device.type == "cuda" if capturable is None else bool(capturable)
+        lr = self.schedule(0)
+        if self.capturable:
+            lr = torch.tensor(lr, dtype=torch.float32, device=device)
+        self.optimizer = torch.optim.Adam(self.trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                          capturable=self.capturable)
 
     def parameters(self) -> Iterable[nn.Parameter]:
         """Every parameter that takes a gradient (frozen ones included)."""
@@ -93,9 +107,11 @@ class TrainState:
         """The schedule's count: updates since the optimizer started fresh."""
         return self.step - self.schedule_offset
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, lr: Optional[torch.Tensor] = None) -> None:
         """Clip the trainable gradients to ``grad-clip`` by their global
-        norm, take one Adam step at this step's learning rate, count it."""
+        norm, take one Adam step at this step's learning rate, count it.
+        ``lr``: a one-element device tensor holding the rate (a CUDA graph's
+        slot, written before each replay) instead of the schedule's value."""
         grads = [p.grad for p in self.trainable if p.grad is not None]
         clip = self.cfg.training.grad_clip
         if clip > 0 and grads:
@@ -104,9 +120,43 @@ class TrainState:
             scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
             torch._foreach_mul_(grads, scale)
         for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.schedule_step)
+            if lr is not None:
+                group["lr"].copy_(lr)
+            elif self.capturable:
+                group["lr"].fill_(self.schedule(self.schedule_step))
+            else:
+                group["lr"] = self.schedule(self.schedule_step)
         self.optimizer.step()
         self.step += 1
+
+    def optimizer_state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state dict in the eager form (float lr,
+        ``capturable`` False, step counts on the CPU): one checkpoint format
+        for both modes. The moment tensors are the live ones, not copies."""
+        sd = self.optimizer.state_dict()
+        groups = [{**g, "lr": float(g["lr"]), "capturable": False} for g in sd["param_groups"]]
+        state = {i: {k: (v.detach().cpu() if k == "step" else v) for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        return {"state": state, "param_groups": groups}
+
+    def load_optimizer_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Load a state dict of either form into this optimizer, keeping its
+        own mode: ``capturable``, the lr tensor and where the step counts
+        live (the card for a capturable optimizer, the CPU otherwise)."""
+        group = self.optimizer.param_groups[0]
+        lr = group["lr"]
+        self.optimizer.load_state_dict(sd)
+        for g in self.optimizer.param_groups:
+            g["capturable"] = self.capturable
+            if self.capturable:
+                lr.fill_(float(g["lr"]))
+                g["lr"] = lr
+            else:
+                g["lr"] = float(g["lr"])
+        for p, st in self.optimizer.state.items():
+            if "step" in st:
+                dev = p.device if self.capturable else "cpu"
+                st["step"] = st["step"].detach().to(device=dev, dtype=torch.float32)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -27,6 +27,9 @@ Phases, each printing one JSON line:
               give finite metrics; the int8-encoder run must launch K4-dynx
               exactly 48 times an encode batch (12 layers x {QKV, FFN-up} x
               2 passes) and its scores correlate with the bf16 run's > 0.99.
+              Each run must read through the native TSV reader and WordPiece
+              tokenizer; the loader alone is timed through them and through
+              the pure-Python ones, whose first 8 batches must be equal.
   5. encode_q8ln - eval.encode.encode_data over 1000 rows of that corpus
               with quant_matmuls + fused_layernorm: 48 K3b and 48 K4
               launches a batch, no K4-dynx or K3a, global embeddings within
@@ -88,10 +91,25 @@ Phases, each printing one JSON line:
               (and never the backward's torch ops); then one step at
               dropout 0 from the same params and batch with the knobs on
               and off, whose loss and grad_norm must agree; the step times.
-  13. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
+  13. train_graph - --steps_per_dispatch's CUDA graph: the flagship step
+              at VinVL-base width with fused_attention and fused_layernorm,
+              at bs 32 and B 128 on random batches on the card: one graphed
+              window of 8 steps against 8 eager steps from the same state at
+              dropout 0, bit for bit (at B 128 with the token-type table
+              frozen, whose gradient PyTorch sums with atomics there, and
+              the full step's metrics within 1e-2 relative), host-clock ms a
+              step over 4 windows each, the profiler's card ms, busy share
+              and kernels a step by name (24 K2 forwards, 24 backwards, 48
+              K3a forwards and 48 backwards), peak memory; at bs 32 and
+              dropout 0.1, two replays draw other K2 seeds and the graphed
+              losses equal the eager ones from one CUDA generator state.
+  14. train_cli - aladin_torch.cli.train, the flagship recipe, one epoch at
               bs 32 over a synthetic corpus of 200 images with the
               VinVL-base-shaped random backbone: finite losses, validation
-              launching K1, and a checkpoint that loads back.
+              launching K1, and a checkpoint that loads back; then with K2
+              and K3a on, one epoch at K 1 and one at --steps_per_dispatch 8
+              with --profile_dir, whose checkpoint loads back and whose
+              trace names the K2 and K3a kernels.
 
 Then the kernels line ({"kernels": [...]}), the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -377,13 +395,15 @@ def phase_k1() -> dict:
     return {"max_err": max_err, "timings": timings}
 
 
-def write_oscar_dir(path: str, vocab) -> None:
-    """A VinVL-base-shaped OSCAR directory with random weights from a seed."""
+def write_oscar_dir(path: str, vocab, **knobs) -> None:
+    """A VinVL-base-shaped OSCAR directory with random weights from a seed;
+    ``knobs``: BertImgConfig fields its config.json sets (the kernels)."""
     import torch
 
     from aladin_torch.models.bert_img import BertImgConfig, BertImgModel
 
-    cfg = BertImgConfig()  # 12 layers, hidden 768, 12 heads, FFN 3072, vocab 30522, 2054-d
+    # 12 layers, hidden 768, 12 heads, FFN 3072, vocab 30522, 2054-d
+    cfg = BertImgConfig(**knobs)
     gen = torch.Generator().manual_seed(1234)
     model = BertImgModel(cfg)
     with torch.no_grad():
@@ -399,26 +419,38 @@ def write_oscar_dir(path: str, vocab) -> None:
         f.write("\n".join(vocab) + "\n")
 
 
-def time_loader(oscar_dir: str, data: str) -> float:
-    """Seconds to read, tensorize and copy the encode batches to the card
-    without running the model: the host data path's share of encode."""
+def time_loader(oscar_dir: str, data: str, use_native_io: bool = True, keep: int = 8):
+    """(seconds, the first ``keep`` batches): the time to read, tensorize and
+    copy the encode batches to the card without running the model (the host
+    data path's share of encode), through the native reader and tokenizer
+    or, with ``use_native_io=False``, the pure-Python ones. Raises when the
+    native path was asked for and not taken."""
     import torch
 
     from aladin_torch.cli.common import build_tokenizer
     from aladin_torch.config import DataArgs
     from aladin_torch.data.dataset import RetrievalDataset
     from aladin_torch.data.pipeline import BatchLoader
+    from aladin_torch.data.tokenizer import BertWordPieceTokenizer
 
     args = DataArgs(data_dir=data, img_feat_file=os.path.join(data, "features.tsv"),
                     eval_model_dir=oscar_dir, max_seq_length=50, max_img_seq_length=34,
                     add_od_labels=True, eval_img_keys_file="test_img_keys.tsv")
-    ds = RetrievalDataset(build_tokenizer(args), args, "test", is_train=False)
+    tok = build_tokenizer(args)
+    if not use_native_io:
+        tok = BertWordPieceTokenizer(tok.vocab)
+    ds = RetrievalDataset(tok, args, "test", is_train=False, use_native_io=use_native_io)
+    if (ds.native_enabled, tok.native_enabled) != (use_native_io, use_native_io):
+        raise AssertionError(f"asked for native IO {use_native_io}, got reader "
+                             f"{ds.native_enabled} and tokenizer {tok.native_enabled}")
     loader = BatchLoader(ds, 32, shuffle=False, drop_last=False, device="cuda")
+    kept = []
     t0 = time.perf_counter()
-    for _ in loader.epoch(0):
-        pass
+    for i, batch in enumerate(loader.epoch(0)):
+        if i < keep:
+            kept.append(batch)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, kept
 
 
 def serving_corpus(tmp: str):
@@ -475,7 +507,16 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
                 or launches[name]["k3b"] or launches[name]["k3a"]):
             raise AssertionError(f"{name} run launched {launches[name]}; expected "
                                  f"{want_dynx} K4-dynx ({batches} encode batches) and no K4/K3")
-    loader_s = time_loader(oscar, data)
+    for name, res in results.items():
+        if res["native_io"] != {"reader": True, "tokenizer": True}:
+            raise AssertionError(f"{name} run did not read through the native IO path: "
+                                 f"{res['native_io']}")
+    loader_s, native_batches = time_loader(oscar, data)
+    python_loader_s, python_batches = time_loader(oscar, data, use_native_io=False)
+    for a, b in zip(native_batches, python_batches, strict=True):
+        for f in a.__dataclass_fields__:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"native and Python loaders disagree on {f}")
     for name, res in results.items():
         metrics = {**{f"matching_{k}": v for k, v in res["matching"].items()},
                    **{f"alignment_i2t_{k}": v for k, v in res["alignment_i2t"].items()},
@@ -486,6 +527,7 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
         emit({"phase": "main", "run": name, "images": 1000, "captions": 5000,
               "encode_batches": batches, "setup_seconds": setup_s,
               "encode_seconds": res["encode_seconds"], "loader_only_seconds": loader_s,
+              "loader_only_seconds_python_io": python_loader_s, "native_io": res["native_io"],
               "score_seconds": res["score_seconds"], "kernel_launches": launches[name],
               "metrics": metrics})
 
@@ -500,7 +542,8 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
         raise AssertionError(f"int8 and bf16 alignment scores disagree: {check}")
     if not check["bf16_int8_encoder_score_corr"] > INT8_ENCODER_CORR:
         raise AssertionError(f"the int8 encoder's alignment scores disagree with bf16's: {check}")
-    emit({"phase": "main_check", **check, "int8_encoder_corr_limit": INT8_ENCODER_CORR})
+    emit({"phase": "main_check", **check, "int8_encoder_corr_limit": INT8_ENCODER_CORR,
+          "loader_batches_equal_native_vs_python": len(native_batches)})
     return {name: launches[name] for name, _ in runs}
 
 
@@ -941,12 +984,13 @@ def phase_k2() -> dict:
                         checks, "K2 backward", f"{tag} {name}", gt, wt,
                         BF16_ULP * wt.float().abs().max().item()))
 
-    # times at the path's shapes: key-padding bias, dropout 0.1 (the
+    # times at the path's shapes: key-padding bias, dropout 0.1 with the
+    # seed on the card, as the model passes it (an int seed adds a fill; the
     # library call at rate 0: its dropout draws its own mask)
     timings = {}
     for s in (50, 84):
         q, k, v, g, bias = inputs(s, 1)
-        extra = (7, 0.1, True)
+        extra = (torch.full((), 7, dtype=torch.int64, device="cuda"), 0.1, True)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         mask = bias[:, None].to(torch.bfloat16)  # (B, 1, 1, S)
 
@@ -1301,14 +1345,14 @@ def flagship_train_model(fused: bool, dropout: float, state_dict=None):
 
 
 def synth_train_batch(b: int, l: int = 50, r: int = 34, feat_dim: int = 2054,
-                      vocab: int = 30522):
+                      vocab: int = 30522, seed: int = 5):
     """A random disentangled batch on the card (benchmarks/
     retrieval_eval_bench.py::synth_batch's distributions)."""
     import torch
 
     from aladin_torch.models.aladin import Batch
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
@@ -1322,6 +1366,14 @@ def synth_train_batch(b: int, l: int = 50, r: int = 34, feat_dim: int = 2054,
         img_mask=torch.cat([pos_l < lab_len[:, None], pos_r < img_len[:, None]], dim=1).int(),
         img_type=torch.ones(b, l, dtype=torch.int32, device="cuda"),
         img_feats=torch.randn(b, r, feat_dim, generator=gen, device="cuda"), img_len=img_len)
+
+
+# the train step's kernels as the profiler names them (K2 forward and
+# backward, K3a's Triton forward, K3a's backward row pass; the backward's
+# second launch, sum_partials, is not counted, as its wrapper counts once)
+STEP_KERNELS = {"k2_fwd": "attn_fwd", "k2_bwd": "attn_bwd", "k3a": "rln_fwd",
+                "k3a_bwd": "rln_bwd"}
+GRAPH_K = 8  # steps a window in train_graph and the train_cli window run
 
 
 def device_profile(fn, n: int, top: int = 12) -> dict:
@@ -1340,12 +1392,16 @@ def device_profile(fn, n: int, top: int = 12) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
                    and not getattr(e, "is_user_annotation", False)),  # spans, not work
                   key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+            # the step kernels by name: a CUDA graph's replay shows its kernels
+            # too, where the Python launch counters see only the capture
+            "step_kernels": {k: sum(r[2] for r in rows if pat in r[0])
+                             for k, pat in STEP_KERNELS.items()},
             "top": [{"name": name[:80], "ms": ms, "calls": calls} for name, ms, calls in rows[:top]]}
 
 
@@ -1440,8 +1496,228 @@ def phase_train_fused() -> dict:
     return {"launches": launches}
 
 
+# PyTorch's embedding backward on the card takes a direct, deterministic
+# path up to this many indices and past it sums rows with atomics: the
+# token-type rows (every caption token is type 0, every image-pass text token
+# type 1) then differ between two runs of the same eager step
+EMBEDDING_DIRECT_INDICES = 3072
+# the graphed window's metrics against the eager steps' where the step does
+# not repeat itself bit for bit (that atomic sum, compounded over 8 steps
+# with the clip active): 8 eager steps repeated differ by up to ~1.5e-3
+# relative in loss and grad_norm (my chip runs)
+GRAPH_NONDET_RTOL = 1e-2
+
+
+def train_graph_at(b: int, check_dropout: bool) -> dict:
+    """The flagship step at batch ``b``, knobs on, dropout 0: one graphed
+    window of 8 against 8 eager steps from the same state, params, Adam
+    moments and metrics bit for bit. Where PyTorch's token-type embedding
+    backward sums with atomics (B x 50 > 3072 indices) that bitwise check
+    runs with the token-type table frozen, after two eager runs show the
+    step then repeats itself bit for bit, and the full step's graphed
+    metrics are held to GRAPH_NONDET_RTOL of the eager ones. Then, on the
+    full step, host-clock ms a step over 4 windows each, the profiler's card
+    ms, busy share and kernels a step by name, peak memory; with
+    ``check_dropout``, at dropout 0.1 the seeds of two replays and the
+    losses against eager from one generator state."""
+    import gc
+
+    import torch
+
+    from aladin_torch.ops.kernels import attention_kernel as ak
+    from aladin_torch.ops.kernels import layernorm as lk
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    k, windows = GRAPH_K, 4
+    batches = [synth_train_batch(b, seed=10 + i) for i in range(k)]
+    atomic = b * batches[0].txt_ids.shape[1] > EMBEDDING_DIRECT_INDICES
+    out = {"batch": b, "k": k}
+
+    def host_ms(fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (windows * k)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def build(start, freeze_token_types=False):
+        _, model = flagship_train_model(True, 0.0, start)
+        if freeze_token_types:
+            model.oscar_model.bert.embeddings.token_type_embeddings.weight.requires_grad_(False)
+        return model, TrainState(cfg, model, steps_per_epoch=100)
+
+    def snapshot(state, rows):
+        """(stacked metrics, the trainable params and Adam moments, cloned)."""
+        metrics = {n: torch.stack([m[n] for m in rows]).reshape(-1) for n in rows[0]}
+        tensors = [p.detach().clone() for p in state.trainable]
+        tensors += [v.clone() for p in state.trainable
+                    for v in state.optimizer.state.get(p, {}).values()]
+        return metrics, tensors
+
+    def eager_run(start, freeze=False):
+        model, state = build(start, freeze)
+        step = make_train_step(model, cfg, torch.bfloat16)
+        torch.cuda.manual_seed(1)
+        return model, state, step, snapshot(state, [step(state, x, 0) for x in batches])
+
+    def graph_run(start, freeze=False):
+        model, state = build(start, freeze)
+        multi = make_multi_train_step(model, cfg, torch.bfloat16, k=k)
+        torch.cuda.manual_seed(1)
+        t0 = time.perf_counter()
+        got = snapshot(state, [multi(state, batches, 0)])
+        torch.cuda.synchronize()
+        return model, state, multi, got, time.perf_counter() - t0
+
+    def bitwise(a, c):
+        return all(torch.equal(a[0][n], c[0][n]) for n in a[0]) and len(a[1]) == len(c[1]) \
+            and all(torch.equal(x, y) for x, y in zip(a[1], c[1]))
+
+    fresh()
+    cfg, model = flagship_train_model(True, 0.0)
+    start = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    del model
+
+    # 1. bit for bit: the graph replays the eager step's kernels
+    want = eager_run(start, atomic)[3]
+    if atomic and not bitwise(want, eager_run(start, True)[3]):
+        raise AssertionError(f"B {b}: with the token-type table frozen the eager step still "
+                             f"does not repeat itself bit for bit")
+    got = graph_run(start, atomic)[3]
+    if not bitwise(want, got):
+        diff = [n for n in want[0] if not torch.equal(want[0][n], got[0][n])]
+        raise AssertionError(f"B {b}: the graphed window of {k} differs from {k} eager steps "
+                             f"(metrics {diff}, {sum(not torch.equal(x, y) for x, y in zip(want[1], got[1]))} "
+                             f"tensors){' with the token-type table frozen' if atomic else ''}")
+    out["graph_equals_eager_bitwise"] = {
+        "metrics": len(want[0]), "tensors": len(want[1]),
+        "token_type_table": "frozen (atomic embedding backward)" if atomic else "trained"}
+    del want, got
+    fresh()
+
+    # 2. the full step: eager timing, then the graph's
+    model, eager, step, want = eager_run(start)
+
+    def eager_window():
+        for x in batches:
+            step(eager, x, 0)
+
+    out["eager_ms_per_step"] = host_ms(eager_window)
+    out["eager_profile"] = device_profile(eager_window, 1, top=0)
+    out["eager_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, eager, step, eager_window
+    fresh()
+    model, graphed, multi, got, out["capture_and_first_replay_s"] = graph_run(start)
+    rel = {n: float(((got[0][n] - want[0][n]).abs() / want[0][n].abs().clamp_min(1e-30)).max())
+           for n in want[0]}
+    out["graph_vs_eager_metrics_rel_diff"] = rel
+    if atomic:
+        if max(rel.values()) > GRAPH_NONDET_RTOL:
+            raise AssertionError(f"B {b}: graphed metrics differ from eager by {rel}, beyond "
+                                 f"{GRAPH_NONDET_RTOL}")
+    elif not bitwise(want, got):
+        raise AssertionError(f"B {b}: the full graphed step differs from eager: {rel}")
+    del want, got
+    counters = (ak.attention_forward, ak.attention_backward, lk.residual_layernorm_forward,
+                lk.residual_layernorm_backward)
+    before = [c.launches for c in counters]
+    out["graph_ms_per_step"] = host_ms(lambda: multi(graphed, batches, 0))
+    if [c.launches for c in counters] != before:
+        raise AssertionError("a replay called a kernel wrapper from Python")
+    out["graph_profile"] = device_profile(lambda: multi(graphed, batches, 0), 1, top=0)
+    out["graph_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    layers = model.oscar_model.bert.cfg.num_hidden_layers
+    want = {"k2_fwd": 2 * layers, "k2_bwd": 2 * layers, "k3a": 4 * layers, "k3a_bwd": 4 * layers}
+    for mode in ("eager", "graph"):  # one window profiled: per step, / k
+        prof = out.pop(f"{mode}_profile")
+        out[f"{mode}_kernels_per_step"] = {n: c / k for n, c in prof["step_kernels"].items()}
+        out[f"{mode}_device_ms_per_step"] = prof["device_ms"] / k
+        if out[f"{mode}_kernels_per_step"] != want:
+            raise AssertionError(f"B {b} {mode}: kernels a step {out[f'{mode}_kernels_per_step']} "
+                                 f"!= {want}")
+        # the profiled window's card time against the unprofiled host time
+        out[f"{mode}_busy_share"] = out[f"{mode}_device_ms_per_step"] / out[f"{mode}_ms_per_step"]
+    out["python_launches_per_replay"] = 0
+    del model, graphed, multi
+    fresh()
+    if check_dropout:
+        out["dropout"] = graph_dropout_check(batches)
+    return out
+
+
+def graph_dropout_check(batches) -> dict:
+    """At dropout 0.1: a graphed window's losses equal the eager steps'
+    from the same CUDA generator state, and two replays draw other K2
+    seeds (each seed is copied out inside the capture)."""
+    import torch
+
+    from aladin_torch.ops.kernels import attention_kernel as ak
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    k = len(batches)
+    cfg, model = flagship_train_model(True, 0.1)
+    start = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    eager = TrainState(cfg, model, steps_per_epoch=100)
+    step = make_train_step(model, cfg, torch.bfloat16)
+    torch.cuda.manual_seed(3)
+    want = torch.stack([step(eager, x, 0)["loss"] for x in batches])
+    del model, eager, step
+    _, model = flagship_train_model(True, 0.1, start)
+    graphed = TrainState(cfg, model, steps_per_epoch=100)
+    multi = make_multi_train_step(model, cfg, torch.bfloat16, k=k)
+    seen, launch = [], ak.attention_forward
+
+    def recording(q, kk, v, bias, seed=0, *args):
+        if torch.is_tensor(seed):
+            seen.append(seed.clone())
+        return launch(q, kk, v, bias, seed, *args)
+
+    recording.launches = 0  # the wrapper's body counts on the name it is called by
+    ak.attention_forward = recording
+    try:
+        torch.cuda.manual_seed(3)
+        got = multi(graphed, batches, 0)["loss"]
+    finally:
+        ak.attention_forward = launch
+    layers = model.oscar_model.bert.cfg.num_hidden_layers
+    captured = seen[-k * 2 * layers:]  # the capture's: k steps x 2 passes x layers
+    first = torch.stack(captured).cpu()
+    multi(graphed, batches, 0)
+    second = torch.stack(captured).cpu()
+    if not torch.equal(got, want):
+        raise AssertionError(f"dropout 0.1: graphed losses {got.tolist()} != eager {want.tolist()}")
+    if torch.equal(first, second) or first.unique().numel() < first.numel() // 2:
+        raise AssertionError("K2's seeds did not change across replays")
+    return {"losses_equal_eager": True, "loss": got.tolist(),
+            "seeds_per_replay": first.numel(), "seeds_changed_across_replays": True}
+
+
+def phase_train_graph() -> dict:
+    """--steps_per_dispatch's CUDA graph on the flagship step at VinVL-base
+    width with both kernel knobs, at the recipe's bs 32 and at B 128."""
+    import torch
+
+    runs = {b: train_graph_at(b, check_dropout=b == 32) for b in (32, 128)}
+    emit({"phase": "train_graph", "card": nvidia_smi_line(), "k": GRAPH_K,
+          "runs": {str(b): r for b, r in runs.items()},
+          "cuda": torch.version.cuda})
+    return runs
+
+
 def phase_train_cli() -> dict:
-    """aladin_torch.cli.train end to end: one epoch, validation, checkpoint."""
+    """aladin_torch.cli.train end to end: one epoch, validation, checkpoint;
+    then with both kernel knobs (an OSCAR directory whose config sets them),
+    one epoch at K 1 and one at --steps_per_dispatch 8 with --profile_dir,
+    whose checkpoint must load back and whose trace must name K2 and K3a."""
     import torch
 
     from aladin_torch.cli import train as cli_train
@@ -1449,18 +1725,9 @@ def phase_train_cli() -> dict:
     from aladin_torch.io.checkpoint import load_checkpoint
     from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        oscar, data = os.path.join(tmp, "oscar"), os.path.join(tmp, "coco_ir")
-        write_oscar_dir(oscar, SYNTH_VOCAB)
-        make_synthetic_dataset(data, n_images=200, feat_dim=2054)
-        setup_s = time.perf_counter() - t0
-        argv = ["--config", os.path.join(ROOT, "aladin_torch", "configs", RECIPE),
-                "--eval_model_dir", oscar, "--data_dir", data,
-                "--img_feat_file", os.path.join(data, "features.tsv"), "--max_seq_length", "50",
-                "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
-                "--logger_name", os.path.join(tmp, "run"), "--num_epochs", "1",
-                "--val_step", "0", "--log_step", "10", "--device", "cuda"]
+    def run(argv):
+        """(cli/train's result, seconds, K1 launches); the checkpoint must
+        load back equal and the metrics be finite."""
         mrsw_scores.launches = 0
         t0 = time.perf_counter()
         out = cli_train.run(argv)
@@ -1477,10 +1744,49 @@ def phase_train_cli() -> dict:
         if (payload["step"] != state.step or set(payload["model"]) != set(sd)
                 or not all(torch.equal(payload["model"][k], v.cpu()) for k, v in sd.items())):
             raise AssertionError("the checkpoint cli/train wrote does not load back equal")
-    emit({"phase": "train_cli", "images": 200, "bs": 32, "steps": state.step,
-          "setup_seconds": setup_s, "run_seconds": run_s, "k1_launches": launches,
-          "best_rsum": trainer.best_rsum, "metrics_last": metrics,
-          "checkpoint_loads_back": True})
+        return out, run_s, launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        oscar, data = os.path.join(tmp, "oscar"), os.path.join(tmp, "coco_ir")
+        write_oscar_dir(oscar, SYNTH_VOCAB)
+        make_synthetic_dataset(data, n_images=200, feat_dim=2054)
+        setup_s = time.perf_counter() - t0
+        argv = ["--config", os.path.join(ROOT, "aladin_torch", "configs", RECIPE),
+                "--eval_model_dir", oscar, "--data_dir", data,
+                "--img_feat_file", os.path.join(data, "features.tsv"), "--max_seq_length", "50",
+                "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
+                "--logger_name", os.path.join(tmp, "run"), "--num_epochs", "1",
+                "--val_step", "0", "--log_step", "10", "--device", "cuda"]
+        out, run_s, launches = run(argv)
+        trainer, state = out["trainer"], out["state"]
+        emit({"phase": "train_cli", "images": 200, "bs": 32, "steps": state.step,
+              "setup_seconds": setup_s, "run_seconds": run_s, "k1_launches": launches,
+              "best_rsum": trainer.best_rsum, "metrics_last": trainer.last_metrics,
+              "checkpoint_loads_back": True})
+
+        fused = os.path.join(tmp, "oscar_fused")
+        write_oscar_dir(fused, SYNTH_VOCAB, fused_attention=True, fused_layernorm=True)
+        argv[argv.index(oscar)] = fused
+        windowed = {}
+        for k in (1, GRAPH_K):
+            extra = ["--logger_name", os.path.join(tmp, f"run_fused_k{k}"),
+                     "--steps_per_dispatch", str(k)]
+            if k > 1:
+                extra += ["--profile_dir", os.path.join(tmp, "trace")]
+            out, run_s, launches = run(argv + extra)
+            windowed[k] = {"steps": out["state"].step, "run_seconds": run_s,
+                           "k1_launches": launches, "best_rsum": out["trainer"].best_rsum,
+                           "metrics_last": out["trainer"].last_metrics}
+        with open(os.path.join(tmp, "trace", "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        traced = {k: sum(pat in n for n in names) for k, pat in STEP_KERNELS.items()}
+        if not all(traced.values()):
+            raise AssertionError(f"the --profile_dir trace misses step kernels: {traced}")
+    emit({"phase": "train_cli_windowed", "images": 200, "bs": 32, "knobs": "K2 + K3a",
+          "card": nvidia_smi_line(), "runs": {f"k{k}": v for k, v in windowed.items()},
+          "trace_kernel_names": traced, "checkpoint_loads_back": True})
     return {"launches": launches}
 
 
@@ -1512,6 +1818,7 @@ def main() -> int:
     k4 = phase_k4()
     k3b = phase_k3b()
     fused = phase_train_fused()["launches"]
+    phase_train_graph()
     phase_train_cli()
     # K1 bf16 runs on two paths: cli/test's scoring and streaming alignment recall
     k1_launches = {"bf16": launches["bf16"]["k1"] + streamed["k1_launches"],

@@ -643,3 +643,187 @@ def test_search_on_the_card_matches_the_cpu(cuda, direction, rerank):
     s_cpu, i_cpu = search(build_corpus(*corpus, device="cpu"), *queries, **kw)
     np.testing.assert_array_equal(i_gpu, i_cpu)
     np.testing.assert_allclose(s_gpu, s_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_device_seed_equals_int_seed(cuda, dtype):
+    """K2 reads its seed through a pointer: a seed tensor on the card gives
+    the bits of the same int seed, forward and backward, and another seed
+    another mask."""
+    q, k, v, bias, g = _attention_inputs(cuda, 8, 50, 1, dtype)
+    seed = torch.tensor(123457, dtype=torch.int64, device="cuda")
+    for fn, extra in ((at.attention_forward, ()), (at.attention_backward, (g,))):
+        by_int = fn(q, k, v, bias, *extra, 123457, 0.1, True)
+        by_tensor = fn(q, k, v, bias, *extra, seed, 0.1, True)
+        other = fn(q, k, v, bias, *extra, seed + 1, 0.1, True)
+        for a, b, c in zip(*(t if isinstance(t, tuple) else (t,)
+                             for t in (by_int, by_tensor, other))):
+            assert torch.equal(a, b)
+            assert not torch.equal(a, c)
+    # a seed of the int32 range as int32, and one past 2^32 (its low bits)
+    assert torch.equal(at.attention_forward(q, k, v, bias, seed.int(), 0.1, True),
+                       at.attention_forward(q, k, v, bias, 123457, 0.1, True))
+    assert torch.equal(at.attention_forward(q, k, v, bias, 2 ** 32 + 5, 0.1, True),
+                       at.attention_forward(q, k, v, bias, 5, 0.1, True))
+
+
+def _small_train(dropout, chunk=0, seed=0):
+    """(model, state) at a small width the kernels take (heads of 64), both
+    kernel knobs on, weights from ``seed``."""
+    from aladin_torch.config import ExperimentConfig
+    from aladin_torch.models.aladin import ALADIN
+    from aladin_torch.models.bert_img import BertImgConfig
+    from aladin_torch.train.state import TrainState
+
+    cfg = ExperimentConfig.from_dict({
+        "model": {"embed-size": 128, "tern-layers": 1, "dropout": dropout},
+        "training": {"loss-type": "alignment-distillation", "loss-weights": [1, 1],
+                     "lr": 1e-3, "bs": 8, "grad-clip": 2.0, "alignment-chunk": chunk,
+                     "activate-distillation-after": 1}})
+    bert = BertImgConfig(vocab_size=97, hidden_size=128, num_hidden_layers=2,
+                         num_attention_heads=2, intermediate_size=256,
+                         max_position_embeddings=64, img_feature_dim=40,
+                         hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
+                         fused_attention=True, fused_layernorm=True)
+    model = ALADIN(cfg, bert)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.cuda().train()
+    return model, TrainState(cfg, model, steps_per_epoch=3)
+
+
+def _small_batches(n, b=8, l=16, r=6):
+    from aladin_torch.models.aladin import Batch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for _ in range(n):
+        def ints(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+        cap_len, img_len, lab_len = ints(5, l + 1, (b,)), ints(2, r + 1, (b,)), ints(2, l + 1, (b,))
+        pl, pr = torch.arange(l, device="cuda")[None], torch.arange(r, device="cuda")[None]
+        out.append(Batch(
+            txt_ids=ints(3, 97, (b, l)), txt_mask=(pl < cap_len[:, None]).int(),
+            txt_type=torch.zeros(b, l, dtype=torch.int32, device="cuda"), cap_len=cap_len,
+            img_ids=ints(3, 97, (b, l)),
+            img_mask=torch.cat([pl < lab_len[:, None], pr < img_len[:, None]], dim=1).int(),
+            img_type=torch.ones(b, l, dtype=torch.int32, device="cuda"),
+            img_feats=torch.randn(b, r, 40, generator=gen, device="cuda"), img_len=img_len))
+    return out
+
+
+@pytest.mark.parametrize("dropout,chunk", [(0.0, 0), (0.0, 3), (0.1, 0)])
+def test_graphed_window_equals_eager_steps(cuda, dropout, chunk):
+    """A CUDA graph of 4 steps, replayed twice (8 steps, across the
+    distillation gate's epoch and a schedule decay), against 8 eager steps
+    from the same state and the same CUDA generator state: metrics,
+    parameters and Adam moments bit for bit, dropout on or off, with the
+    checkpointed alignment chunks inside the capture. The first call
+    captures (its warm-up step is undone) and replays; the second only
+    replays, so the Python launch counters do not move."""
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    batches = _small_batches(8)
+    eager_model, eager = _small_train(dropout, chunk)
+    graph_model, graphed = _small_train(dropout, chunk)
+    step = make_train_step(eager_model, eager.cfg, torch.bfloat16)
+    torch.cuda.manual_seed(5)
+    singles = [step(eager, b, i // 4) for i, b in enumerate(batches)]
+    multi = make_multi_train_step(graph_model, graphed.cfg, torch.bfloat16, k=4)
+    torch.cuda.manual_seed(5)
+    windows = [multi(graphed, batches[:4], 0)]
+    before = (at.attention_forward.launches, lk.residual_layernorm_backward.launches)
+    windows.append(multi(graphed, batches[4:], 1))
+    assert (at.attention_forward.launches, lk.residual_layernorm_backward.launches) == before
+    assert list(multi.windows) == [4]
+    assert graphed.step == eager.step == 8
+    for name in singles[0]:
+        got = torch.cat([w[name] for w in windows])
+        assert torch.equal(got, torch.stack([m[name] for m in singles])), name
+    for p, q in zip(graphed.trainable, eager.trainable):
+        assert torch.equal(p, q)
+        for key, v in eager.optimizer.state[q].items():
+            assert torch.equal(graphed.optimizer.state[p][key], v), key
+
+
+def test_graph_replays_draw_new_attention_seeds(cuda, monkeypatch):
+    """K2's seeds are drawn inside the graph: two replays use other seeds."""
+    from aladin_torch.train.step import make_multi_train_step
+
+    seen = []
+    launch = at.attention_forward
+
+    def recording(q, k, v, bias, seed=0, *args):
+        if torch.is_tensor(seed):
+            seen.append(seed.clone())
+        return launch(q, k, v, bias, seed, *args)
+
+    recording.launches = 0  # the wrapper's body counts on the name it is called by
+    monkeypatch.setattr(at, "attention_forward", recording)
+    model, state = _small_train(0.1)
+    multi = make_multi_train_step(model, state.cfg, torch.bfloat16, k=2)
+    batches = _small_batches(2)
+    multi(state, batches, 0)
+    captured = seen[-8:]  # 2 steps x 2 passes x 2 layers, the capture's
+    first = torch.stack(captured).cpu()
+    multi(state, batches, 0)
+    second = torch.stack(captured).cpu()
+    assert first.unique().numel() == 8
+    assert not torch.equal(first, second)
+
+
+def test_native_loader_on_the_card(cuda, tmp_path):
+    """The loader through the native reader and tokenizer gives the pure
+    Python path's batches on the card, bit for bit."""
+    import os
+
+    from aladin_torch.cli.common import build_tokenizer
+    from aladin_torch.config import DataArgs
+    from aladin_torch.data.dataset import RetrievalDataset, make_synthetic_dataset
+    from aladin_torch.data.pipeline import BatchLoader
+    from aladin_torch.data.tokenizer import BertWordPieceTokenizer
+
+    make_synthetic_dataset(str(tmp_path), n_images=20, feat_dim=64)
+    args = DataArgs(data_dir=str(tmp_path), img_feat_file=os.path.join(tmp_path, "features.tsv"),
+                    max_seq_length=24, max_img_seq_length=10, img_feature_dim=64,
+                    add_od_labels=True)
+    tok = build_tokenizer(args)
+    fast = RetrievalDataset(tok, args, "train", is_train=False)
+    slow = RetrievalDataset(BertWordPieceTokenizer(tok.vocab), args, "train", is_train=False,
+                            use_native_io=False)
+    assert tok.native_enabled and fast.native_enabled and not slow.native_enabled
+    for a, b in zip(BatchLoader(fast, 16, shuffle=False, device="cuda").epoch(0),
+                    BatchLoader(slow, 16, shuffle=False, device="cuda").epoch(0)):
+        for f in a.__dataclass_fields__:
+            assert getattr(a, f).is_cuda
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_graphed_state_resumes_on_the_card_and_on_the_cpu(cuda, tmp_path):
+    """A checkpoint of a capturable state after a graphed window resumes
+    into a fresh card state whose next eager step equals the original's bit
+    for bit, and into a CPU state (the eager optimizer) that steps."""
+    from aladin_torch.io.checkpoint import resume_state, save_checkpoint
+    from aladin_torch.models.aladin import Batch
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    batches = _small_batches(3)
+    model, state = _small_train(0.0, seed=4)
+    make_multi_train_step(model, state.cfg, torch.bfloat16, k=2)(state, batches[:2], 0)
+    path = save_checkpoint(str(tmp_path), state, 1, state.cfg.to_dict(), 0.0)
+    card_model, card = _small_train(0.0, seed=9)
+    card, _, _ = resume_state(card, path)
+    assert card.step == state.step == 2 and card.capturable
+    make_train_step(model, state.cfg, torch.bfloat16)(state, batches[2], 1)
+    make_train_step(card_model, card.cfg, torch.bfloat16)(card, batches[2], 1)
+    for p, q in zip(state.trainable, card.trainable):
+        assert torch.equal(p, q)
+
+    cpu_model = _small_train(0.0, seed=9)[0].cpu()
+    cpu = TrainState(state.cfg, cpu_model, steps_per_epoch=3)
+    cpu, _, _ = resume_state(cpu, path)
+    assert not cpu.capturable and isinstance(cpu.optimizer.param_groups[0]["lr"], float)
+    cpu_batch = Batch(**{f: getattr(batches[2], f).cpu() for f in Batch.__dataclass_fields__})
+    metrics = make_train_step(cpu_model, cpu.cfg)(cpu, cpu_batch, 1)
+    assert all(torch.isfinite(v) for v in metrics.values())

@@ -17,6 +17,7 @@ Tolerances:
     up to lr; there the update must only stay within lr.
 """
 
+import copy
 import dataclasses
 import os
 
@@ -37,6 +38,7 @@ from aladin_tpu.models.aladin import ALADIN as JaxALADIN
 from aladin_tpu.train.schedule import make_lr_schedule as jax_schedule
 from aladin_tpu.train.state import create_train_state
 from aladin_tpu.train.step import make_loss_fn as jax_make_loss_fn
+from aladin_tpu.train.step import make_multi_train_step as jax_make_multi_train_step
 from aladin_tpu.train.step import make_train_step as jax_make_train_step
 from aladin_torch.cli import train as torch_train_cli
 from aladin_torch.config import ExperimentConfig, TrainingConfig
@@ -50,8 +52,9 @@ from aladin_torch.io.convert import aux_from_flax, params_from_flax, state_dict_
 from aladin_torch.models.aladin import ALADIN, Batch
 from aladin_torch.models.bert_img import BertImgConfig
 from aladin_torch.train.schedule import make_adamw, make_lr_schedule, warmup_linear_schedule
+from aladin_torch.train.loop import crossed
 from aladin_torch.train.state import TrainState
-from aladin_torch.train.step import make_loss_fn, make_train_step
+from aladin_torch.train.step import make_loss_fn, make_multi_train_step, make_train_step
 from tests.test_models import SMALL, make_batch, small_cfg
 
 LR = 1e-3
@@ -218,8 +221,7 @@ def test_train_cli_runs_saves_and_resumes(tmp_path):
     assert load_checkpoint(again["checkpoint"])[0]["epoch"] == 2
 
 
-@pytest.mark.parametrize("flags", [["--ndcg"], ["--steps_per_dispatch", "2"],
-                                   ["--profile_dir", "x"], ["--mesh_shape", "dp=2"]])
+@pytest.mark.parametrize("flags", [["--ndcg"], ["--mesh_shape", "dp=2"]])
 def test_train_cli_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_train_cli.main(CLI + ["--output_dir", str(tmp_path), *flags])
@@ -397,3 +399,182 @@ def test_orbax_directories_are_refused(tmp_path):
                lambda p: load_teacher_params(state, p)):
         with pytest.raises(NotImplementedError, match="orbax"):
             fn(str(tmp_path))
+
+
+# --steps_per_dispatch: a window of K steps is one dispatch (one CUDA graph
+# replay on the card, tests/test_torch_gpu.py); on the CPU it is K eager
+# steps, and everywhere it must equal K single steps.
+
+def _dropout_state(seed=0):
+    """A small flagship state with dropout 0.1 and both kernel knobs (their
+    plain versions on the CPU), weights from ``seed``."""
+    d = _recipe("flagship")
+    d["model"]["dropout"] = 0.1
+    model = ALADIN(ExperimentConfig.from_dict(d),
+                   BertImgConfig(**SMALL, fused_attention=True, fused_layernorm=True))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return TrainState(ExperimentConfig.from_dict(d), model, steps_per_epoch=2)
+
+
+def _reseed(state, seed):
+    torch.manual_seed(seed)
+    state.model.oscar_model.bert.seed_generator.manual_seed(seed)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_window_equals_single_steps_with_dropout(rng, k):
+    """K steps as one window give the params, Adam state and per-step
+    metrics of K single steps exactly, dropout on (both draw the same
+    numbers from the same generators), across a schedule decay."""
+    batches = [_torch_batch(make_batch(np.random.RandomState(s))) for s in range(k)]
+    a, b = _dropout_state(), _dropout_state()
+    _reseed(a, 7)
+    step = make_train_step(a.model, a.cfg)
+    singles = [step(a, x, 0) for x in batches]
+    _reseed(b, 7)
+    window = make_multi_train_step(b.model, b.cfg, k=k)(b, batches, 0)
+    assert a.step == b.step == k
+    assert set(window) == set(singles[0])
+    for name, v in window.items():
+        assert v.shape == (k,)
+        assert torch.equal(v, torch.stack([m[name] for m in singles])), name
+    for (name, p), q in zip(a.named_params().items(), b.named_params().values()):
+        assert torch.equal(p, q), name
+    for p, q in zip(a.trainable, b.trainable):
+        for key, v in a.optimizer.state[p].items():
+            assert torch.equal(v, b.optimizer.state[q][key]), key
+
+
+def test_window_matches_jax_multi_step(rng):
+    """The port's K=4 window against aladin_tpu's make_multi_train_step at
+    dropout 0 from the same weights and batches: each step's loss terms and
+    grad_norm, and the params after 4 clip + Adam steps, to the one-step
+    test's tolerances (rtol 1e-4; atol 1e-6 on entries whose first gradient
+    exceeds 1e-4 of the largest, and every entry within 4 lr of JAX's)."""
+    k = 4
+    jmodel, jstate, model, state, jbatch, _ = _both("auto", rng)
+    jcfg = JaxExperimentConfig.from_dict(_recipe("auto"))
+    jbatches = [make_batch(np.random.RandomState(10 + s)) for s in range(k)]
+    _, jgrads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jmodel, jcfg), has_aux=True))(
+        jstate.params, jbatches[0], jnp.int32(0), jax.random.PRNGKey(1))
+    grads = params_from_flax(jax.tree.map(np.asarray, jgrads))
+    new_jstate, jm = jax_make_multi_train_step(jmodel, jcfg)(jstate, jbatches, jnp.int32(0),
+                                                             jax.random.PRNGKey(1))
+    metrics = make_multi_train_step(model, state.cfg, k=k)(
+        state, [_torch_batch(b) for b in jbatches], 0)
+    assert state.step == int(new_jstate.step) == k
+    assert set(metrics) == set(jm)
+    for name, v in jm.items():
+        np.testing.assert_allclose(metrics[name].numpy(), np.asarray(v), rtol=1e-4, err_msg=name)
+    want = params_from_flax(jax.tree.map(np.asarray, new_jstate.params))
+    scale = max(float(np.abs(g.numpy()).max()) for g in grads.values())
+    for name, p in state.named_params().items():
+        got, w = p.detach().numpy(), want[name].numpy()
+        live = np.abs(grads[name].numpy()) > 1e-4 * scale
+        np.testing.assert_allclose(got[live], w[live], atol=1e-6, err_msg=name)
+        assert np.all(np.abs(got - w) <= k * LR * 1.001), name
+
+
+def test_train_cli_steps_per_dispatch_matches(tmp_path):
+    """--steps_per_dispatch 3 through the CLI: 5 batches an epoch make a
+    window of 3 and a remainder of 2 each epoch. Final weights, Adam state,
+    step, epoch and best_rsum equal the K=1 run's exactly."""
+    import json
+
+    with open(CLI[1]) as f:
+        recipe = json.load(f)
+    recipe["training"]["bs"] = 8  # the synthetic corpus: 40 captions -> 5 batches
+    cfg_path = str(tmp_path / "k_recipe.json")
+    with open(cfg_path, "w") as f:
+        json.dump(recipe, f)
+    runs = {}
+    for k in ("1", "3"):
+        out = str(tmp_path / f"spd_{k}")
+        argv = CLI[2:] + ["--config", cfg_path, "--output_dir", out, "--logger_name", out,
+                          "--num_epochs", "2", "--log_step", "4", "--steps_per_dispatch", k]
+        res = torch_train_cli.run(argv)
+        assert len(res["trainer"].train_loader) == 5
+        runs[k] = torch.load(res["checkpoint"], weights_only=False)
+    a, b = runs["1"], runs["3"]
+    assert (a["best_rsum"], a["epoch"], a["Eiters"]) == (b["best_rsum"], b["epoch"], b["Eiters"])
+    assert a["Eiters"] == 10
+    assert set(a["model"]) == set(b["model"])
+    for name, v in a["model"].items():
+        assert torch.equal(v, b["model"][name]), name
+    for i, st in a["optimizer"]["state"].items():
+        for key, v in st.items():
+            assert torch.equal(v, b["optimizer"]["state"][i][key]), (i, key)
+
+
+def test_crossed_fires_at_the_first_window_boundary_past_each_multiple():
+    """log_step / val_step in windows: a period fires once per multiple, at
+    the window that contains it, and never at step 0; with width 1 it is
+    gstep % period == 0."""
+    for period in (1, 2, 3, 4, 7):
+        for width in (1, 2, 3, 5):
+            fired = [g for g in range(width, 60, width) if crossed(g, width, period)]
+            want = [g for g in range(width, 60, width)
+                    if any(m % period == 0 for m in range(g - width + 1, g + 1))]
+            assert fired == want, (period, width)
+            if width == 1:
+                assert fired == [g for g in range(1, 60) if g % period == 0]
+    assert not crossed(0, 1, 5)
+
+
+def test_capturable_optimizer_state_loads_into_an_eager_state_and_back(rng):
+    """The card's capturable Adam (a tensor lr, step counts beside the
+    params) and the CPU's eager Adam load each other's state dicts, and the
+    checkpoint form is the eager one in both modes."""
+    batches = [_torch_batch(make_batch(np.random.RandomState(s))) for s in range(3)]
+    d = _recipe("auto")
+    eager = _small_state(d, seed=3)
+    step = make_train_step(eager.model, eager.cfg)
+    for x in batches[:2]:
+        step(eager, x, 0)
+    saved = copy.deepcopy(eager.optimizer_state_dict())  # state dicts hold the live moments
+    own = eager.optimizer.state_dict()  # the eager form is the optimizer's own
+    assert saved["param_groups"] == own["param_groups"]
+    assert all(torch.equal(v, own["state"][i][key])
+               for i, st in saved["state"].items() for key, v in st.items())
+
+    cap = TrainState(ExperimentConfig.from_dict(d), eager.model, steps_per_epoch=10,
+                     capturable=True)
+    cap.load_optimizer_state_dict(copy.deepcopy(saved))
+    group = cap.optimizer.param_groups[0]
+    assert group["capturable"] and torch.is_tensor(group["lr"])
+    assert float(group["lr"]) == pytest.approx(saved["param_groups"][0]["lr"])
+    assert len(cap.optimizer.state) == len(eager.optimizer.state) > 0
+    for p, st in cap.optimizer.state.items():
+        assert st["step"].device == p.device and st["step"].dtype == torch.float32
+
+    for raw in map(copy.deepcopy, (cap.optimizer.state_dict(), cap.optimizer_state_dict())):
+        back = _small_state(d, seed=3)
+        with torch.no_grad():
+            for p, q in zip(back.trainable, eager.trainable):
+                p.copy_(q)
+        back.step = eager.step
+        back.load_optimizer_state_dict(raw)
+        group = back.optimizer.param_groups[0]
+        assert not group["capturable"] and isinstance(group["lr"], float)
+        # the capturable state holds lr in f32 (the step rewrites it from the schedule)
+        (g_back,), (g_saved,) = back.optimizer_state_dict()["param_groups"], saved["param_groups"]
+        assert g_back.pop("lr") == pytest.approx(g_saved["lr"], rel=1e-7)
+        assert g_back == {k: v for k, v in g_saved.items() if k != "lr"}
+        # the next step from the loaded state equals the original's
+        twin = _small_state(d, seed=3)
+        with torch.no_grad():
+            for p, q in zip(twin.trainable, eager.trainable):
+                p.copy_(q)
+        twin.step = eager.step
+        twin.load_optimizer_state_dict(copy.deepcopy(saved))
+        make_train_step(back.model, back.cfg)(back, batches[2], 0)
+        make_train_step(twin.model, twin.cfg)(twin, batches[2], 0)
+        for p, q in zip(back.trainable, twin.trainable):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("flags", [["--steps_per_dispatch", "0"],
+                                   ["--profile_dir", "x", "--profile_steps", "0"]])
+def test_train_cli_refuses_bad_dispatch_and_profile_counts(flags, tmp_path):
+    with pytest.raises(SystemExit):
+        torch_train_cli.main(CLI + ["--output_dir", str(tmp_path), *flags])
