@@ -3,8 +3,7 @@
 
   * per dispatch: one train step, or with ``--steps_per_dispatch K > 1`` a
     window of K steps (``make_multi_train_step``: one CUDA graph replay on
-    the card); the epoch's remainder runs as a shorter window, and a
-    remainder of one as the single step;
+    the card); the epoch's remainder runs as single steps;
   * at every ``log_step`` boundary the pending metrics come to the host in
     one copy (a ``.item()`` a step would stall the card) and go to the
     meters and the log; ``log_step`` and ``val_step`` fire at the first
@@ -124,7 +123,7 @@ class Trainer:
         def dispatch():
             nonlocal ndisp
             prof_tick()
-            if len(window) == 1:  # K = 1, or a remainder of one: the single step
+            if self.multi_step is None:
                 pending.append(self.train_step(self.state, window[0], epoch))
             else:
                 pending.append(self.multi_step(self.state, list(window), epoch))

@@ -69,7 +69,7 @@ class TrainState:
     which the optimizer and its schedule last started fresh."""
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module, steps_per_epoch: int = 1000,
-                 aux: Dict[str, nn.Parameter] = None, capturable: Optional[bool] = None):
+                 aux: Dict[str, nn.Parameter] = None):
         self.cfg = cfg
         self.model = model
         device = next(model.parameters()).device
@@ -83,9 +83,7 @@ class TrainState:
         for name, p in model.named_parameters():
             (self.frozen if name.split(".")[0] in frozen else self.trainable).append(p)
         self.trainable += list(self.aux.values())
-        # capturable: the default on the card; a CPU state can hold one (and
-        # convert its state dict) but cannot step it
-        self.capturable = device.type == "cuda" if capturable is None else bool(capturable)
+        self.capturable = device.type == "cuda"
         lr = self.schedule(0)
         if self.capturable:
             lr = torch.tensor(lr, dtype=torch.float32, device=device)

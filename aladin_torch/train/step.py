@@ -141,30 +141,29 @@ def make_multi_train_step(model: ALADIN, cfg: ExperimentConfig,
     of up to ``k`` steps as one dispatch, equal to as many single steps
     (``make_train_step``) bit for bit.
 
-    On the card, the first window of each length is captured as one CUDA
-    graph (``CapturedWindow``; a length is captured once, as JAX compiles
-    once per K) and every window replays it: the batches are copied into
-    the graph's static buffers on the current stream, so they are ordered
-    after the loader's copies, and the metrics come back as a copy of the
-    graph's (len,) slots. On the CPU, the steps run one after another."""
+    On the card, the first window of ``k`` batches is captured as one CUDA
+    graph (``CapturedWindow``, kept as ``multi_step.window``) and every
+    window of ``k`` replays it: the batches are copied into the graph's
+    static buffers on the current stream, so they are ordered after the
+    loader's copies, and the metrics come back as a copy of the graph's
+    (k,) slots. A shorter window (an epoch's remainder) and every window on
+    the CPU run as single steps, one after another."""
     if k < 1:
         raise ValueError(f"steps per dispatch must be >= 1, got {k}")
     single = make_train_step(model, cfg, compute_dtype)
     loss_fn = make_loss_fn(model, cfg, compute_dtype)
-    windows: Dict[int, CapturedWindow] = {}
 
     def multi_step(state: TrainState, batches: List[Batch], epoch: int) -> Dict[str, torch.Tensor]:
         if not 1 <= len(batches) <= k:
             raise ValueError(f"a window holds 1..{k} batches, got {len(batches)}")
-        if batches[0].txt_ids.device.type != "cuda":
+        if len(batches) < k or batches[0].txt_ids.device.type != "cuda":
             rows = [single(state, b, epoch) for b in batches]
             return {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
-        window = windows.get(len(batches))
-        if window is None:
-            window = windows[len(batches)] = CapturedWindow(model, cfg, loss_fn, state, batches)
-        return window.replay(state, batches, epoch)
+        if multi_step.window is None:
+            multi_step.window = CapturedWindow(model, cfg, loss_fn, state, batches)
+        return multi_step.window.replay(state, batches, epoch)
 
-    multi_step.windows = windows  # captured graphs by window length
+    multi_step.window = None
     return multi_step
 
 

@@ -108,8 +108,9 @@ Phases, each printing one JSON line:
               VinVL-base-shaped random backbone: finite losses, validation
               launching K1, and a checkpoint that loads back; then with K2
               and K3a on, one epoch at K 1 and one at --steps_per_dispatch 8
-              with --profile_dir, whose checkpoint loads back and whose
-              trace names the K2 and K3a kernels.
+              with --profile_dir, whose checkpoint loads back, whose
+              trace names the K2 and K3a kernels, and whose steps, last
+              metrics and best rsum equal the K 1 run's.
 
 Then the kernels line ({"kernels": [...]}), the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -1717,7 +1718,9 @@ def phase_train_cli() -> dict:
     """aladin_torch.cli.train end to end: one epoch, validation, checkpoint;
     then with both kernel knobs (an OSCAR directory whose config sets them),
     one epoch at K 1 and one at --steps_per_dispatch 8 with --profile_dir,
-    whose checkpoint must load back and whose trace must name K2 and K3a."""
+    whose checkpoint must load back, whose trace must name K2 and K3a, and
+    whose steps, last metrics and best rsum must equal the K 1 run's (a
+    window equals its single steps bit for bit at bs 32)."""
     import torch
 
     from aladin_torch.cli import train as cli_train
@@ -1778,6 +1781,11 @@ def phase_train_cli() -> dict:
             windowed[k] = {"steps": out["state"].step, "run_seconds": run_s,
                            "k1_launches": launches, "best_rsum": out["trainer"].best_rsum,
                            "metrics_last": out["trainer"].last_metrics}
+        same = {key: windowed[1][key] == windowed[GRAPH_K][key]
+                for key in ("steps", "best_rsum", "metrics_last")}
+        if not all(same.values()):
+            raise AssertionError(f"cli/train at K {GRAPH_K} differs from K 1 in "
+                                 f"{[key for key, v in same.items() if not v]}: {windowed}")
         with open(os.path.join(tmp, "trace", "trace.json")) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]
                      if e.get("cat") == "kernel"}
@@ -1786,7 +1794,8 @@ def phase_train_cli() -> dict:
             raise AssertionError(f"the --profile_dir trace misses step kernels: {traced}")
     emit({"phase": "train_cli_windowed", "images": 200, "bs": 32, "knobs": "K2 + K3a",
           "card": nvidia_smi_line(), "runs": {f"k{k}": v for k, v in windowed.items()},
-          "trace_kernel_names": traced, "checkpoint_loads_back": True})
+          "trace_kernel_names": traced, "checkpoint_loads_back": True,
+          "k8_equals_k1": True})
     return {"launches": launches}
 
 

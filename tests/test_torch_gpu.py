@@ -667,9 +667,9 @@ def test_attention_device_seed_equals_int_seed(cuda, dtype):
                        at.attention_forward(q, k, v, bias, 5, 0.1, True))
 
 
-def _small_train(dropout, chunk=0, seed=0):
+def _small_train(dropout, chunk=0, seed=0, training=None):
     """(model, state) at a small width the kernels take (heads of 64), both
-    kernel knobs on, weights from ``seed``."""
+    kernel knobs on, weights from ``seed``; ``training``: more recipe keys."""
     from aladin_torch.config import ExperimentConfig
     from aladin_torch.models.aladin import ALADIN
     from aladin_torch.models.bert_img import BertImgConfig
@@ -679,7 +679,7 @@ def _small_train(dropout, chunk=0, seed=0):
         "model": {"embed-size": 128, "tern-layers": 1, "dropout": dropout},
         "training": {"loss-type": "alignment-distillation", "loss-weights": [1, 1],
                      "lr": 1e-3, "bs": 8, "grad-clip": 2.0, "alignment-chunk": chunk,
-                     "activate-distillation-after": 1}})
+                     "activate-distillation-after": 1, **(training or {})}})
     bert = BertImgConfig(vocab_size=97, hidden_size=128, num_hidden_layers=2,
                          num_attention_heads=2, intermediate_size=256,
                          max_position_embeddings=64, img_feature_dim=40,
@@ -724,8 +724,10 @@ def test_graphed_window_equals_eager_steps(cuda, dropout, chunk):
     from aladin_torch.train.step import make_multi_train_step, make_train_step
 
     batches = _small_batches(8)
-    eager_model, eager = _small_train(dropout, chunk)
-    graph_model, graphed = _small_train(dropout, chunk)
+    decay = {"step-size": 1, "gamma": 0.5}  # the lr halves every epoch of 3 steps
+    eager_model, eager = _small_train(dropout, chunk, training=decay)
+    graph_model, graphed = _small_train(dropout, chunk, training=decay)
+    assert len({eager.schedule(i) for i in range(8)}) == 3
     step = make_train_step(eager_model, eager.cfg, torch.bfloat16)
     torch.cuda.manual_seed(5)
     singles = [step(eager, b, i // 4) for i, b in enumerate(batches)]
@@ -735,7 +737,7 @@ def test_graphed_window_equals_eager_steps(cuda, dropout, chunk):
     before = (at.attention_forward.launches, lk.residual_layernorm_backward.launches)
     windows.append(multi(graphed, batches[4:], 1))
     assert (at.attention_forward.launches, lk.residual_layernorm_backward.launches) == before
-    assert list(multi.windows) == [4]
+    assert multi.window.n == 4
     assert graphed.step == eager.step == 8
     for name in singles[0]:
         got = torch.cat([w[name] for w in windows])
@@ -770,6 +772,65 @@ def test_graph_replays_draw_new_attention_seeds(cuda, monkeypatch):
     second = torch.stack(captured).cpu()
     assert first.unique().numel() == 8
     assert not torch.equal(first, second)
+
+
+def test_graph_remainder_runs_single_steps(cuda):
+    """A window shorter than k (an epoch's remainder) after a captured
+    window runs as single eager steps, with no second capture: 4 + 2 steps
+    equal 6 eager steps bit for bit."""
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    batches = _small_batches(6)
+    eager_model, eager = _small_train(0.0)
+    graph_model, graphed = _small_train(0.0)
+    step = make_train_step(eager_model, eager.cfg, torch.bfloat16)
+    singles = [step(eager, b, 0) for b in batches]
+    multi = make_multi_train_step(graph_model, graphed.cfg, torch.bfloat16, k=4)
+    windows = [multi(graphed, batches[:4], 0)]
+    window, before = multi.window, at.attention_forward.launches
+    windows.append(multi(graphed, batches[4:], 0))
+    assert multi.window is window and window.n == 4
+    assert at.attention_forward.launches == before + 2 * 2 * 2  # steps x passes x layers
+    assert graphed.step == eager.step == 6
+    for name in singles[0]:
+        got = torch.cat([w[name] for w in windows])
+        assert torch.equal(got, torch.stack([m[name] for m in singles])), name
+    for p, q in zip(graphed.trainable, eager.trainable):
+        assert torch.equal(p, q)
+
+
+def test_capturable_adam_equals_torch_eager_adam(cuda):
+    """The card state's optimizer, Adam(capturable=True) with its lr in a
+    device tensor (the eager step's as well as the graph's), against torch's
+    non-capturable Adam with a float lr, from the same parameters and the
+    same clipped gradients over 6 steps through the schedule's decay:
+    moments bit for bit, parameters to 1e-6 relative and 2e-7 absolute. The
+    capturable form computes the bias corrections in f32 on the card, as
+    optax does, the eager one in double on the host: 1 - 0.999 in f32 is
+    1.3e-5 off, so each update differs by up to ~7e-6 of itself, and 6
+    updates of at most 1e-3 x |m / sqrt(v)| (<= 3 here) by under 2e-7."""
+    _, state = _small_train(0.0, seed=6, training={"step-size": 1, "gamma": 0.5})
+    group = state.optimizer.param_groups[0]
+    assert state.capturable and group["capturable"] and torch.is_tensor(group["lr"])
+    ref_params = [p.detach().clone().requires_grad_(True) for p in state.trainable]
+    ref = torch.optim.Adam(ref_params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    assert not ref.param_groups[0]["capturable"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lrs = []
+    for _ in range(6):
+        lrs.append(state.schedule(state.schedule_step))
+        for p in state.trainable:
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+        state.apply_gradients()
+        for p, q in zip(state.trainable, ref_params):
+            q.grad = p.grad.clone()  # the clip scaled it in place
+        ref.param_groups[0]["lr"] = lrs[-1]
+        ref.step()
+    assert len(set(lrs)) > 1
+    for p, q in zip(state.trainable, ref_params):
+        torch.testing.assert_close(p.detach(), q.detach(), rtol=1e-6, atol=2e-7)
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(state.optimizer.state[p][key], ref.state[q][key]), key
 
 
 def test_native_loader_on_the_card(cuda, tmp_path):

@@ -537,8 +537,12 @@ def test_capturable_optimizer_state_loads_into_an_eager_state_and_back(rng):
     assert all(torch.equal(v, own["state"][i][key])
                for i, st in saved["state"].items() for key, v in st.items())
 
-    cap = TrainState(ExperimentConfig.from_dict(d), eager.model, steps_per_epoch=10,
-                     capturable=True)
+    cap = TrainState(ExperimentConfig.from_dict(d), eager.model, steps_per_epoch=10)
+    # the optimizer a card state builds, here over CPU parameters: it loads
+    # and gives state dicts there, though it cannot step
+    cap.capturable = True
+    cap.optimizer = torch.optim.Adam(cap.trainable, lr=torch.tensor(cap.schedule(0)),
+                                     betas=(0.9, 0.999), eps=1e-8, capturable=True)
     cap.load_optimizer_state_dict(copy.deepcopy(saved))
     group = cap.optimizer.param_groups[0]
     assert group["capturable"] and torch.is_tensor(group["lr"])
