@@ -15,6 +15,7 @@ from aladin_torch.config import DataArgs, ExperimentConfig
 from aladin_torch.data.dataset import RetrievalDataset, make_synthetic_dataset
 from aladin_torch.data.pipeline import BatchLoader
 from aladin_torch.data.tokenizer import BertWordPieceTokenizer
+from aladin_torch.eval.dcg import DCG
 from aladin_torch.io.checkpoint import load_state_dict_report
 from aladin_torch.io.convert import load_oscar_checkpoint
 from aladin_torch.models.aladin import ALADIN
@@ -56,7 +57,8 @@ def add_shared_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh_shape", default="dp=-1",
                    help="one device only in the port: dp=-1 or dp=1")
     p.add_argument("--ndcg", action="store_true", default=False,
-                   help="NDCG@25 from relevance matrices (not ported yet)")
+                   help="NDCG@25 from the relevance matrices on disk (<data_dir>/relevances "
+                        "or <dataset.data>/<dataset.name>/relevances)")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8"],
                    help="bfloat16/float32: encoder dtype. int8: the encoder stays bfloat16 and "
@@ -200,3 +202,18 @@ def build_loaders(tokenizer, args: DataArgs, cfg: ExperimentConfig, device,
     val_loader = BatchLoader(val_ds, bs, shuffle=False, drop_last=False, device=device,
                              num_threads=args.num_workers)
     return train_loader, val_loader
+
+
+def build_ndcg_scorer(cfg: ExperimentConfig, args: DataArgs, split: str, n_queries: int):
+    """A DCG scorer over whichever relevance matrices exist on disk, else
+    None: ``<data_dir>/relevances`` first, then the config's
+    ``<dataset.data>/<dataset.name>/relevances``; files
+    ``{dataset}-{split}-{rougeL,spice}.npy``, raw float32 (n_queries,
+    n_images), methods in (rougeL, spice) order."""
+    for rel_dir in (os.path.join(args.data_dir, "relevances"),
+                    os.path.join(cfg.dataset.data, cfg.dataset.name, "relevances")):
+        methods = [m for m in ("rougeL", "spice") if os.path.exists(
+            os.path.join(rel_dir, f"{cfg.dataset.name}-{split}-{m}.npy"))]
+        if methods:
+            return DCG(cfg, n_queries, split, relevance_methods=methods, rel_dir=rel_dir)
+    return None

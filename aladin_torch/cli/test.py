@@ -6,7 +6,9 @@ in ``--eval_model_dir``), encodes the test split with both heads, and
 reports matching-head R@K and alignment-head R@K from the all-pairs MrSw
 scores (the CUDA kernel on the card; ``--compute_dtype int8`` scores with
 int8 operands). ``--int8_encoder`` runs the encoder's QKV and FFN-up
-projections as W8A8 int8 GEMMs (kernel K4-dynx on the card).
+projections as W8A8 int8 GEMMs (kernel K4-dynx on the card). ``--ndcg``
+adds the alignment head's NDCG@25 from the relevance matrices on disk
+(``cli/common.py::build_ndcg_scorer``), per fold under ``--fivefold``.
 
     python -m aladin_torch.cli.test --config aladin_torch/configs/<recipe>.json \\
         --eval_model_dir <oscar dir> --data_dir <coco_ir> --img_feat_file <features.tsv> \\
@@ -27,6 +29,7 @@ import torch
 from aladin_torch.cli.common import (
     add_shared_flags,
     build_model,
+    build_ndcg_scorer,
     build_tokenizer,
     prepare_synthetic,
     restore_training_settings,
@@ -37,7 +40,8 @@ from aladin_torch.data.dataset import RetrievalDataset
 from aladin_torch.data.pipeline import BatchLoader
 from aladin_torch.eval.encode import encode_data
 from aladin_torch.eval.recall import compute_recall, recall_1k_5fold
-from aladin_torch.eval.retrieval import evaluate_alignment_head, fivefold_from_scores
+from aladin_torch.eval.retrieval import (evaluate_alignment_head, fivefold_from_scores,
+                                         ndcg_from_scores)
 from aladin_torch.io.checkpoint import load_checkpoint, load_state_dict_report
 from aladin_torch.utils.device import resolve_device
 from aladin_torch.utils.logging import setup_logger
@@ -58,19 +62,18 @@ def _parse(argv) -> argparse.Namespace:
     parser.add_argument("--bucketed_encode", action="store_true",
                         help="length-sorted, length-trimmed encode batches")
     ns = parser.parse_args(argv)
-    unported = {
-        "--ndcg": ns.ndcg,
-        "a multi-device --mesh_shape": ns.mesh_shape not in ("dp=-1", "dp=1"),
-    }
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue 1)")
+    if ns.mesh_shape not in ("dp=-1", "dp=1"):
+        raise NotImplementedError("a multi-device --mesh_shape is not ported yet "
+                                  "(ROADMAP.md, queue 1)")
     return ns
 
 
 def run(argv=None) -> Dict[str, Any]:
     """Evaluate; returns {"matching", "alignment_i2t", "alignment_t2i",
-    "scores", "encode_seconds", "score_seconds"}."""
+    "scores", "encode_seconds", "score_seconds", "ndcg_seconds",
+    "native_io"}; ``score_seconds`` includes ``ndcg_seconds``, the NDCG
+    pass on the host (under ``--fivefold`` the folds' whole metric pass; 0
+    without ``--ndcg``)."""
     ns = _parse(argv)
     args = to_data_args(ns)
     device = resolve_device(ns.device)
@@ -134,14 +137,24 @@ def run(argv=None) -> Dict[str, Any]:
     logger.info(str({k: round(v, 2) for k, v in m.items()}))
 
     logger.info("Alignment head:")
+    ndcg_scorer = None
+    if ns.ndcg:
+        ndcg_scorer = build_ndcg_scorer(cfg, args, ns.test_split, len(test_ds))
+        logger.info(f"ndcg scorer: {ndcg_scorer.relevance_methods if ndcg_scorer else None}")
     t0 = time.perf_counter()
     i2t, t2i, scores = evaluate_alignment_head(
         img_embs, cap_embs, img_lens, cap_lens, aggregation=cfg.training.alignment_mode,
         compute_dtype=scoring_dtype, device=device)
-    if ns.fivefold:
-        i2t, t2i = fivefold_from_scores(scores)
     _sync(device)
+    t1 = time.perf_counter()
+    if ns.fivefold:  # NDCG per fold, at the fold's relevance rows
+        i2t, t2i = fivefold_from_scores(scores, ndcg_scorer=ndcg_scorer)
+    elif ndcg_scorer is not None:
+        for metrics, retrieval in ((i2t, "sentence"), (t2i, "image")):
+            metrics["ndcg_rougel"], metrics["ndcg_spice"] = ndcg_from_scores(
+                scores, ndcg_scorer, 0, retrieval)
     score_seconds = time.perf_counter() - t0
+    ndcg_seconds = time.perf_counter() - t1 if ndcg_scorer is not None else 0.0
     rsum = i2t["r1"] + i2t["r5"] + i2t["r10"] + t2i["r1"] + t2i["r5"] + t2i["r10"]
     logger.info(
         "Alignment i2t %.1f/%.1f/%.1f (medr %.0f) t2i %.1f/%.1f/%.1f (medr %.0f) rsum %.1f "
@@ -149,10 +162,12 @@ def run(argv=None) -> Dict[str, Any]:
         % (i2t["r1"], i2t["r5"], i2t["r10"], i2t["medr"],
            t2i["r1"], t2i["r5"], t2i["r10"], t2i["medr"], rsum,
            i2t["ndcg_rougel"] + t2i["ndcg_rougel"], i2t["ndcg_spice"] + t2i["ndcg_spice"]))
-    logger.info(f"encode {encode_seconds:.3f} s, alignment scoring {score_seconds:.3f} s")
+    logger.info(f"encode {encode_seconds:.3f} s, alignment scoring {score_seconds:.3f} s "
+                f"(ndcg {ndcg_seconds:.3f} s)")
     return {"matching": m, "alignment_i2t": i2t, "alignment_t2i": t2i,
             "scores": scores.cpu().numpy(), "encode_seconds": encode_seconds,
-            "score_seconds": score_seconds, "native_io": native_io}
+            "score_seconds": score_seconds, "ndcg_seconds": ndcg_seconds,
+            "native_io": native_io}
 
 
 def main(argv=None) -> int:

@@ -13,8 +13,10 @@ the card; the same result as K single steps) and ``--profile_dir`` writes a
 ``torch.profiler`` trace of ``--profile_steps`` steps. The
 model keeps f32 parameters and computes in bf16 under autocast unless
 ``--compute_dtype float32``; validation scores the alignment head with the
-MrSw kernel on the card. Checkpoints are ``<logger_name>/checkpoint.pth.tar``
-and ``model_best_rsum.pth.tar``; ``--resume`` continues from one.
+MrSw kernel on the card; ``--ndcg`` adds NDCG@25 over the minival
+relevance matrices on disk. Checkpoints are ``<logger_name>/checkpoint.pth.tar``,
+``model_best_rsum.pth.tar`` and, with ``--ndcg``, ``model_best_ndcgspice.pth.tar``;
+``--resume`` continues from one.
 
 ``run(argv)`` returns {"trainer", "state", "checkpoint"}; ``main`` returns 0.
 """
@@ -31,6 +33,7 @@ import torch
 from aladin_torch.cli.common import (
     add_shared_flags,
     build_loaders,
+    build_ndcg_scorer,
     build_tokenizer,
     build_train_model,
     compute_dtype_of,
@@ -57,13 +60,9 @@ def _parse(argv):
         parser.error(f"--steps_per_dispatch must be >= 1, got {ns.steps_per_dispatch}")
     if ns.profile_dir and ns.profile_steps < 1:
         parser.error(f"--profile_steps must be >= 1, got {ns.profile_steps}")
-    unported = {
-        "--ndcg": ns.ndcg,
-        "a multi-device --mesh_shape (queue 1, item 7)": ns.mesh_shape not in ("dp=-1", "dp=1"),
-    }
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md)")
+    if ns.mesh_shape not in ("dp=-1", "dp=1"):
+        raise NotImplementedError("a multi-device --mesh_shape is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 7)")
     if not ns.config:
         parser.error("--config is required (see aladin_torch/configs/)")
     return ns
@@ -102,8 +101,12 @@ def run(argv=None) -> Dict[str, Any]:
         logger.info(f"teacher weights from {args.load_teacher_model}: {stats['matched']} loaded, "
                     f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")
 
+    ndcg_scorer = None
+    if args.ndcg:
+        ndcg_scorer = build_ndcg_scorer(cfg, args, "minival", len(val_loader.dataset))
+        logger.info(f"ndcg scorer: {ndcg_scorer.relevance_methods if ndcg_scorer else None}")
     trainer = Trainer(cfg, args, model, state, train_loader, val_loader, device,
-                      compute_dtype=compute_dtype_of(args))
+                      compute_dtype=compute_dtype_of(args), ndcg_scorer=ndcg_scorer)
     trainer.best_rsum = best
     trainer.fit(start_epoch)
     logger.info(f"done; best rsum {trainer.best_rsum:.2f}")

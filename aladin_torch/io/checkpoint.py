@@ -13,7 +13,8 @@ files without it read 0).
 
   * ``save_checkpoint`` writes ``<dir>/checkpoint.pth.tar`` through a
     temporary file swapped in atomically (retrying IO failures), then copies
-    it to ``model_best_rsum.pth.tar`` on a new best;
+    it to ``model_best_rsum.pth.tar`` / ``model_best_ndcgspice.pth.tar`` on
+    a new best of either gate;
   * ``resume_state`` restores model, aux, optimizer and step from such a
     file; a released reference file restores the weights only;
   * ``load_teacher_params`` is the non-strict weights-only load, with a
@@ -106,9 +107,11 @@ def _write(obj, path: str, retries: int) -> None:
 def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any],
                     best_rsum: float, is_best_rsum: bool = False,
                     opt: Optional[Dict[str, Any]] = None, name: str = "checkpoint",
-                    retries: int = 10) -> str:
+                    retries: int = 10, is_best_ndcgspice: bool = False) -> str:
     """Write ``<out_dir>/<name>.pth.tar``; copy it to
-    ``model_best_rsum.pth.tar`` when ``is_best_rsum``. Returns the path."""
+    ``model_best_rsum.pth.tar`` when ``is_best_rsum`` and to
+    ``model_best_ndcgspice.pth.tar`` when ``is_best_ndcgspice``. Returns the
+    path."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(out_dir, f"{name}.pth.tar"))
     ckpt = {
@@ -124,10 +127,12 @@ def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any]
         "schedule_offset": int(state.schedule_offset),
     }
     _write(ckpt, path, retries)
-    if is_best_rsum:
-        best = os.path.join(out_dir, "model_best_rsum.pth.tar")
-        shutil.copyfile(path, best + ".tmp")
-        os.replace(best + ".tmp", best)
+    for flag, tag in ((is_best_rsum, "model_best_rsum"),
+                      (is_best_ndcgspice, "model_best_ndcgspice")):
+        if flag:
+            best = os.path.join(out_dir, f"{tag}.pth.tar")
+            shutil.copyfile(path, best + ".tmp")
+            os.replace(best + ".tmp", best)
     return path
 
 

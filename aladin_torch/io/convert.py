@@ -10,7 +10,11 @@ The port's module names are the reference torch names, so:
     loads into ``ALADIN`` after removing ``img_txt_enc.``;
   * ``aladin_tpu``'s Flax parameter tree, as numpy arrays, becomes the
     port's state dict through the inverse of its key maps
-    (``state_dict_from_flax``; aladin_tpu/io/convert.py:254-305), and a
+    (``state_dict_from_flax``; aladin_tpu/io/convert.py:254-340: the
+    backbone, the TE stacks, the gated depth aggregators and the feature
+    fusion; the 'transformer' depth mode's ``depth_transformer``, which
+    has no reference name, under ``depth_aggregator_model_<side>.
+    depth_transformer.`` in the TE layout), and a
     train state's {"model", "aux"} tree becomes the port's named parameters
     (``params_from_flax``). A gradient tree has the same structure, so the
     same maps name its entries.
@@ -78,20 +82,25 @@ def bert_state_dict(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.T
     return sd
 
 
+def _attention(sd: Dict[str, torch.Tensor], key: str, node: Dict[str, Any]) -> None:
+    """A Flax TorchMultiheadAttention (q/k/v/out Dense) -> nn.MultiheadAttention
+    names (q/k/v packed into ``in_proj``)."""
+    projs = ("q_proj", "k_proj", "v_proj")
+    sd[key + ".in_proj_weight"] = torch.cat(
+        [_t(node[k]["kernel"]).T for k in projs], dim=0).contiguous()
+    sd[key + ".in_proj_bias"] = torch.cat([_t(node[k]["bias"]) for k in projs])
+    _dense(sd, key + ".out_proj", node["out_proj"])
+
+
 def te_state_dict(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
     """A Flax TorchTransformerEncoder subtree -> nn.TransformerEncoder-style
-    state dict (q/k/v packed into ``in_proj``)."""
+    state dict."""
     sd: Dict[str, torch.Tensor] = {}
     for name, node in tree.items():
         if not name.startswith("layer_"):
             continue
         src = f"{prefix}layers.{int(name.split('_')[1])}."
-        sa = node["self_attn"]
-        projs = ("q_proj", "k_proj", "v_proj")
-        sd[src + "self_attn.in_proj_weight"] = torch.cat(
-            [_t(sa[k]["kernel"]).T for k in projs], dim=0).contiguous()
-        sd[src + "self_attn.in_proj_bias"] = torch.cat([_t(sa[k]["bias"]) for k in projs])
-        _dense(sd, src + "self_attn.out_proj", sa["out_proj"])
+        _attention(sd, src + "self_attn", node["self_attn"])
         _dense(sd, src + "linear1", node["linear1"])
         _dense(sd, src + "linear2", node["linear2"])
         _layernorm(sd, src + "norm1", node["norm1"])
@@ -108,6 +117,17 @@ def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for name in _TE_STACKS:
         if name in tree:
             sd.update(te_state_dict(tree[name], name + "."))
+    for side in ("alignment", "matching"):
+        node = tree.get(f"depth_aggregator_{side}", {})
+        key = f"depth_aggregator_model_{side}"
+        if "self_attn" in node:  # gated
+            _attention(sd, key + ".self_attn", node["self_attn"])
+            _dense(sd, key + ".gate_ffn", node["gate_ffn"])
+        if "depth_transformer" in node:  # no reference name: the TE layout
+            sd.update(te_state_dict(node["depth_transformer"], key + ".depth_transformer."))
+    if "feature_fusion" in tree:
+        _dense(sd, "feature_fusion.alphas.0", tree["feature_fusion"]["fc1"])
+        _dense(sd, "feature_fusion.alphas.3", tree["feature_fusion"]["fc2"])
     return sd
 
 

@@ -30,6 +30,14 @@ in aladin_tpu:
   * ``fused_layernorm``: kernel K3a (ops/kernels/layernorm.py) on
     ``(x, sublayer_out)`` cast to the sublayer's dtype.
 
+``remat`` (training only: the module in train mode with grad enabled) runs
+each encoder layer under a non-reentrant ``torch.utils.checkpoint``: only
+the layer's inputs stay for the backward, which runs the layer again. The
+K2 seeds are drawn before the layers and enter each as an input, so the
+rerun regenerates the same masks; checkpoint restores the generators for
+the plain dropouts. Under remat K2 and K3a launch their forwards twice a
+layer call.
+
 and the int8 serving encoder (``quant_matmuls``, evaluation only):
 
   * the Q/K/V projections run as one W8A8 GEMM over their concatenated
@@ -58,6 +66,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aladin_torch.models.quant import FusedQuantLinear, QuantLinear
 from aladin_torch.ops.kernels.attention_kernel import fused_attention
@@ -266,9 +275,6 @@ class BertImgModel(nn.Module):
 
     def __init__(self, cfg: BertImgConfig):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError("BertImgConfig.remat (the B >= 512 memory lever) is not "
-                                      "ported yet (ROADMAP.md, queue 1, item 4)")
         self.cfg = cfg
         # per-call dropout seeds of the fused attention on the CPU; on the
         # card they are drawn on the card (see forward)
@@ -313,9 +319,16 @@ class BertImgModel(nn.Module):
 
         # the int8 stream of the quantized encoder with fused LayerNorms
         x_q8 = layernorm_q8(x) if self.cfg.quant_matmuls and self.cfg.fused_layernorm else None
+        # remat: each layer keeps only its inputs and runs again in the
+        # backward; the seeds were drawn above, so the rerun reads the same
+        # ones, and checkpoint restores the generators for the plain dropouts
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         hidden, attentions = [x], []
         for layer, seed in zip(layers, seeds):
-            x, probs, x_q8 = layer(x, bias, seed, x_q8)
+            if remat:
+                x, probs, x_q8 = checkpoint(layer, x, bias, seed, x_q8, use_reentrant=False)
+            else:
+                x, probs, x_q8 = layer(x, bias, seed, x_q8)
             if output_hidden_states:
                 hidden.append(x)
             if output_attentions:

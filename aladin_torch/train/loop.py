@@ -10,9 +10,11 @@
     window boundary at or past each multiple (``crossed``);
   * every ``val_step`` steps and at each epoch's end: validate - encode the
     minival split, matching-head R@K always, alignment-head i2t/t2i (the
-    MrSw kernel on the card) when the loss set has 'alignment'; rsum =
-    matching rsum (+ alignment rsum) gates the best checkpoint;
-  * a checkpoint after each validation, copied on a new best;
+    MrSw kernel on the card) when the loss set has 'alignment', with
+    NDCG@25 when an NDCG scorer is given; rsum = matching rsum (+
+    alignment rsum) gates the best checkpoint, and the alignment head's
+    spice NDCG sum (i2t + t2i) gates the best-NDCG one;
+  * a checkpoint after each validation, copied on a new best of either;
   * ``--profile_dir``: a ``torch.profiler`` trace of the dispatches that
     cover ``--profile_steps`` steps, from the second dispatch of the first
     epoch this Trainer runs (the first, for an epoch of one dispatch), once.
@@ -23,7 +25,7 @@ The validation dataset is built with is_train=True, as the reference does.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,7 +49,7 @@ def crossed(gstep: int, width: int, period: int) -> bool:
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, args: DataArgs, model, state: TrainState,
                  train_loader, val_loader, device: torch.device,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, ndcg_scorer=None):
         self.cfg = cfg
         self.args = args
         self.model = model
@@ -68,13 +70,15 @@ class Trainer:
         self.profiled = False  # one trace a Trainer
         self.eval_step = make_eval_step(model, compute_dtype)
         self.logger = setup_logger("vlpretrain", args.logger_name)
+        self.ndcg_scorer = ndcg_scorer
         self.best_rsum = -1.0
+        self.best_ndcgspice = -1.0
         self.last_metrics = {}
 
     def fit(self, start_epoch: int = 0) -> TrainState:
         for epoch in range(start_epoch, self.args.num_epochs):
             self.train_epoch(epoch)
-            self._checkpoint(epoch, self.validate())
+            self._checkpoint(epoch, *self.validate())
         return self.state
 
     def train_epoch(self, epoch: int) -> None:
@@ -135,7 +139,7 @@ class Trainer:
                 flush(i)
             if self.args.val_step > 0 and crossed(gstep, width, self.args.val_step):
                 flush(i)
-                self._checkpoint(epoch, self.validate())
+                self._checkpoint(epoch, *self.validate())
 
         end = time.time()
         for i, batch in enumerate(self.train_loader.epoch(epoch)):
@@ -156,33 +160,40 @@ class Trainer:
         self.profiled = True
         self.logger.info(f"profiler trace ({self.profile_steps} steps) -> {path}")
 
-    def validate(self) -> float:
-        """Encode the validation split; returns rsum (matching, plus
-        alignment when trained)."""
+    def validate(self) -> Tuple[float, float]:
+        """Encode the validation split; returns (rsum: matching, plus
+        alignment when trained; the alignment head's spice NDCG sum, 0
+        without a scorer or an alignment loss)."""
         if self.val_loader is None:
-            return 0.0
+            return 0.0, 0.0
         img_embs, cap_embs, img_lens, cap_lens = encode_data(self.eval_step, self.val_loader,
                                                              logger=self.logger)
         m = compute_recall(img_embs[:, 0, :], cap_embs[:, 0, :], device=self.device)
         self.logger.info("Matching: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f"
                          % (m["i2t_r1"], m["i2t_r5"], m["i2t_r10"],
                             m["t2i_r1"], m["t2i_r5"], m["t2i_r10"], m["rsum"]))
-        rsum = m["rsum"]
+        rsum, ndcg_sum = m["rsum"], 0.0
         if "alignment" in self.cfg.training.loss_types:
             scoring = torch.int8 if self.args.compute_dtype == "int8" else torch.bfloat16
             i2t, t2i, _ = evaluate_alignment_head(
                 img_embs, cap_embs, img_lens, cap_lens,
                 aggregation=self.cfg.training.alignment_mode, compute_dtype=scoring,
-                device=self.device)
+                device=self.device, ndcg_scorer=self.ndcg_scorer)
             rsum_align = i2t["r1"] + i2t["r5"] + i2t["r10"] + t2i["r1"] + t2i["r5"] + t2i["r10"]
-            self.logger.info("Alignment: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f"
+            ndcg_sum = i2t["ndcg_spice"] + t2i["ndcg_spice"]
+            self.logger.info("Alignment: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f "
+                             "ndcg_rouge %.4f ndcg_spice %.4f"
                              % (i2t["r1"], i2t["r5"], i2t["r10"], t2i["r1"], t2i["r5"],
-                                t2i["r10"], rsum_align))
+                                t2i["r10"], rsum_align, i2t["ndcg_rougel"] + t2i["ndcg_rougel"],
+                                ndcg_sum))
             rsum += rsum_align
-        return rsum
+        return rsum, ndcg_sum
 
-    def _checkpoint(self, epoch: int, rsum: float) -> str:
+    def _checkpoint(self, epoch: int, rsum: float, ndcg_sum: float = 0.0) -> str:
         is_best = rsum > self.best_rsum
         self.best_rsum = max(rsum, self.best_rsum)
+        is_best_ndcg = self.ndcg_scorer is not None and ndcg_sum > self.best_ndcgspice
+        self.best_ndcgspice = max(ndcg_sum, self.best_ndcgspice)
         return save_checkpoint(self.args.logger_name, self.state, epoch + 1, self.cfg.to_dict(),
-                               self.best_rsum, is_best_rsum=is_best, opt=vars(self.args))
+                               self.best_rsum, is_best_rsum=is_best, opt=vars(self.args),
+                               is_best_ndcgspice=is_best_ndcg)

@@ -16,6 +16,11 @@ parameters and f32 gradients, as aladin_tpu runs its bf16 model over f32
 parameters. Metrics come back as device tensors; nothing here waits for the
 card.
 
+Memory levers, as in aladin_tpu: ``BertImgConfig.remat`` checkpoints each
+backbone layer (models/bert_img.py), and ``training.encoder-microbatch`` runs
+the whole model over micro-batches under checkpoints
+(``encode_microbatched``) while the losses see the whole batch.
+
 ``make_multi_train_step`` runs a window of K steps as one dispatch, the
 counterpart of aladin_tpu's jitted ``lax.scan``: on the card one CUDA graph
 that captured K consecutive steps over K static batch buffers, replayed once
@@ -32,9 +37,10 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aladin_torch.config import ExperimentConfig
-from aladin_torch.models.aladin import ALADIN, Batch
+from aladin_torch.models.aladin import ALADIN, AladinOutputs, Batch
 from aladin_torch.ops import losses as L
 from aladin_torch.train.state import TrainState, global_norm
 
@@ -43,6 +49,58 @@ def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
     if dtype is None or dtype == torch.float32:
         return contextlib.nullcontext()
     return torch.autocast(device.type, dtype=dtype)
+
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(Batch))
+
+
+def encode_microbatched(model: ALADIN, batch: Batch, microbatch: int) -> AladinOutputs:
+    """The whole batch's outputs, the model run over micro-batches of
+    ``microbatch`` rows, each under a non-reentrant checkpoint: only each
+    micro-batch's outputs outlive its forward, and the backward runs it
+    again. The losses still see the whole batch (its B x B score
+    matrices), so they equal the unsplit run's; the GEMMs run at another M,
+    and dropout draws differ from the unsplit run's (as in aladin_tpu,
+    which folds the micro-batch index into its key). ``l1_reg`` is the mean
+    of the micro-batches' values."""
+    b = batch.txt_ids.shape[0]
+    if b % microbatch:
+        raise ValueError(f"encoder-microbatch {microbatch} does not divide the batch of {b}")
+    gen = model.oscar_model.bert.seed_generator
+
+    def run(*fields):
+        return model(Batch(*fields))
+
+    outs = [checkpoint(run, *(getattr(batch, f)[i:i + microbatch] for f in _FIELDS),
+                       use_reentrant=False, context_fn=lambda: _replay_generator(gen))
+            for i in range(0, b, microbatch)]
+    merged = {f.name: torch.cat([getattr(o, f.name) for o in outs])
+              for f in dataclasses.fields(AladinOutputs) if f.name != "l1_reg"}
+    return AladinOutputs(**merged, l1_reg=torch.stack([o.l1_reg for o in outs]).mean())
+
+
+def _replay_generator(gen: torch.Generator):
+    """checkpoint's (forward, recompute) contexts for a generator that
+    checkpoint does not restore itself: the recompute draws from the state
+    the forward drew from (the K2 seeds of a model on the CPU), and leaves
+    ``gen`` as it found it."""
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward():
+        saved["state"] = gen.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = gen.get_state()
+        gen.set_state(saved["state"])
+        try:
+            yield
+        finally:
+            gen.set_state(now)
+
+    return forward(), recompute()
 
 
 def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
@@ -55,14 +113,15 @@ def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
     of the epoch it is replayed in."""
     tc = cfg.training
     types = tc.loss_types
-    if tc.encoder_microbatch:
-        raise NotImplementedError("encoder-microbatch (the B >= 1024 memory lever) is not ported "
-                                  "yet (ROADMAP.md, queue 1, item 4)")
+    mb = tc.encoder_microbatch
 
     def loss_fn(aux: Dict[str, torch.Tensor], batch: Batch, epoch: int,
                 distill_gate: Optional[torch.Tensor] = None):
         with _autocast(batch.txt_ids.device, compute_dtype):
-            out = model(batch)
+            if mb and batch.txt_ids.shape[0] > mb:
+                out = encode_microbatched(model, batch, mb)
+            else:
+                out = model(batch)
         terms: Dict[str, torch.Tensor] = {}
         matching_loss, matching_mat = L.matching_loss(out.img_global, out.cap_global, tc.margin,
                                                       tc.measure, tc.max_violation)
@@ -167,9 +226,6 @@ def make_multi_train_step(model: ALADIN, cfg: ExperimentConfig,
     return multi_step
 
 
-_FIELDS = tuple(f.name for f in dataclasses.fields(Batch))
-
-
 class CapturedWindow:
     """``n`` consecutive train steps captured as one CUDA graph.
 
@@ -187,7 +243,12 @@ class CapturedWindow:
     step does: each step's autocast region begins and ends inside the
     graph, so the cache is filled and cleared there. Without it the two
     backbone passes would each cast a weight and sum its two gradients in
-    f32 instead of in bf16, and the window would not equal the eager steps."""
+    f32 instead of in bf16, and the window would not equal the eager steps.
+
+    The memory levers capture too: non-reentrant checkpoint's stash and
+    restore of the CUDA generator's state for the recompute happen inside
+    the capture, so a window with remat or micro-batches equals its eager
+    steps bit for bit (``tests/test_torch_gpu.py``, torch 2.11 + CUDA 12.8)."""
 
     def __init__(self, model: ALADIN, cfg: ExperimentConfig, loss_fn: Callable,
                  state: TrainState, batches: List[Batch]):

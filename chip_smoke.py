@@ -29,7 +29,12 @@ Phases, each printing one JSON line:
               2 passes) and its scores correlate with the bf16 run's > 0.99.
               Each run must read through the native TSV reader and WordPiece
               tokenizer; the loader alone is timed through them and through
-              the pure-Python ones, whose first 8 batches must be equal.
+              the pure-Python ones, whose first 8 batches must be equal. A
+              fourth run, bf16 with --ndcg over synthetic rougeL / spice
+              relevance matrices (raw float32, 5000 x 1000, from a seed),
+              must give NDCG@25 above 0 equal (1e-6) to a numpy NDCG written
+              here over every query of its score matrix, and per query to
+              the port's scorer for 50 seeded queries each way.
   5. encode_q8ln - eval.encode.encode_data over 1000 rows of that corpus
               with quant_matmuls + fused_layernorm: 48 K3b and 48 K4
               launches a batch, no K4-dynx or K3a, global embeddings within
@@ -110,9 +115,34 @@ Phases, each printing one JSON line:
               and K3a on, one epoch at K 1 and one at --steps_per_dispatch 8
               with --profile_dir, whose checkpoint loads back, whose
               trace names the K2 and K3a kernels, and whose steps, last
-              metrics and best rsum equal the K 1 run's.
+              metrics and best rsum equal the K 1 run's. The first epoch
+              runs with --ndcg over synthetic minival relevances and must
+              write model_best_ndcgspice.pth.tar.
+  15. train_levers - the memory levers on the flagship step at VinVL-base
+              width with K2 and K3a, on random batches on the card: (a) bs
+              32, dropout 0.1, remat against no remat from one state and
+              one CUDA generator state, loss and parameters bit for bit,
+              24 -> 48 K2 and 48 -> 96 K3a forwards (backwards 24 / 48);
+              (b) B 512, dropout 0, no lever / remat / encoder-microbatch
+              128 / both: peak memory, host and card ms a step, launches;
+              remat's first loss equal to the no-lever one bit for bit,
+              the micro-batched ones within 1e-3, remat's peak below the
+              no-lever peak; (c) B 1024, dropout 0.1, remat +
+              encoder-microbatch 128 + alignment-chunk 64: two finite steps
+              and the peak memory; (d) a CUDA graph of 8 remat steps, and
+              of remat with micro-batches of 16, against 8 eager steps at
+              bs 32, bit for bit.
+  16. variants - the model variants at VinVL-base width, bs 32, knobs on:
+              alignment-side gated depth aggregation with the feature
+              fusion, matching-side transformer aggregation with post-layers
+              1, matching-side mean, teran-layers 2 shared, and separate
+              with freeze-teran. Each: a step with the knobs against the
+              same weights without them at dropout 0 (train_fused's
+              tolerances), then steps that must be finite with 24 / 24 / 48
+              / 48 K2 / K3a launches; host ms a step and peak memory.
 
-Then the kernels line ({"kernels": [...]}), the card's name and power limit
+Then the total seconds, the kernels line ({"kernels": [...]}; K2 and K3a
+also with their launches in one remat step), the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
 phase raises, so the script exits nonzero without that last line. It also
 refuses to run without a CUDA device or outside the repository.
@@ -466,6 +496,71 @@ def serving_corpus(tmp: str):
     return oscar, data, time.perf_counter() - t0
 
 
+# the port's NDCG against the numpy one below: the same gains, the port's in
+# f32 (2 ** a float32 relevance), these in f64
+NDCG_ATOL = 1e-6
+NDCG_RANK = 25
+
+
+def write_relevances(rel_dir: str, split: str, n_captions: int, n_images: int) -> dict:
+    """Synthetic rougeL and spice relevance matrices from a seed, raw float32
+    (n_captions, n_images) files as the offline builder writes them;
+    returns {method: the matrix}."""
+    import numpy as np
+
+    os.makedirs(rel_dir, exist_ok=True)
+    rng = np.random.RandomState(77)
+    out = {}
+    for method in ("rougeL", "spice"):
+        out[method] = rng.rand(n_captions, n_images).astype(np.float32)
+        out[method].tofile(os.path.join(rel_dir, f"coco-{split}-{method}.npy"))
+    return out
+
+
+def numpy_ndcg(scores, relevances: dict, data: str, n_sampled: int = 50):
+    """({"i2t" | "t2i": {"rougel", "spice": mean NDCG@25}}, sampled): an
+    NDCG written here from the definition, over every query of the
+    (images, captions) score matrix: each query's candidates by score,
+    descending (numpy's argsort reversed, the order ties take in the port
+    and aladin_tpu), gains 2^rel - 1 over log2(rank + 2), over the ideal
+    ranking's. i2t's queries are images over the captions' relevance
+    column; t2i's captions over their row. Then, for 50 seeded queries each
+    way, the per-query values against the port's DCG scorer on the files
+    under ``data``; ``sampled`` counts them."""
+    import numpy as np
+
+    from aladin_torch.eval.dcg import DCG
+
+    disc = 1.0 / np.log2(np.arange(NDCG_RANK) + 2.0)
+
+    def per_query(s, r):
+        top = np.argsort(s, axis=1)[:, ::-1][:, :NDCG_RANK]
+        dcg = ((2.0 ** np.take_along_axis(r, top, 1).astype(np.float64) - 1.0) * disc).sum(1)
+        best = -np.sort(-r.astype(np.float64), axis=1)[:, :NDCG_RANK]
+        ideal = ((2.0 ** best - 1.0) * disc).sum(1)
+        return np.where(ideal > 0, dcg / np.where(ideal > 0, ideal, 1.0), 0.0)
+
+    names = {"rougeL": "rougel", "spice": "spice"}
+    directions = {"i2t": (scores, "sentence", lambda r: r.T),
+                  "t2i": (scores.T, "image", lambda r: r)}
+    scorer = DCG({"dataset": {"name": "coco"}}, scores.shape[1], "test",
+                 relevance_methods=list(relevances), rel_dir=os.path.join(data, "relevances"))
+    rng = np.random.RandomState(5)
+    out, sampled = {}, 0
+    for d, (s, retrieval, view) in directions.items():
+        vals = {m: per_query(s, view(r)) for m, r in relevances.items()}
+        out[d] = {names[m]: float(v.mean()) for m, v in vals.items()}
+        for q in rng.choice(s.shape[0], n_sampled, replace=False):
+            port = scorer.compute_ndcg(scores.shape[0], int(q), np.argsort(s[q])[::-1], 0,
+                                       retrieval)
+            for m, v in vals.items():
+                if abs(port[m] - v[q]) > NDCG_ATOL:
+                    raise AssertionError(f"{d} query {q} {m}: the port's NDCG {port[m]} "
+                                         f"against {v[q]}")
+            sampled += 1
+    return out, sampled
+
+
 def recipe_bs() -> int:
     with open(os.path.join(ROOT, "aladin_torch", "configs", RECIPE)) as f:
         return json.load(f)["training"]["bs"]
@@ -493,8 +588,9 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
         "--logger_name", tmp, "--device", "cuda",
     ]
     batches = math.ceil(5000 / recipe_bs())
+    relevances = write_relevances(os.path.join(data, "relevances"), "test", 5000, 1000)
     runs = (("bf16", []), ("int8", ["--compute_dtype", "int8"]),
-            ("int8_encoder", ["--int8_encoder"]))
+            ("int8_encoder", ["--int8_encoder"]), ("ndcg", ["--ndcg"]))
     for name, extra in runs:
         for fn in counters.values():
             fn.launches = 0
@@ -529,8 +625,8 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
               "encode_batches": batches, "setup_seconds": setup_s,
               "encode_seconds": res["encode_seconds"], "loader_only_seconds": loader_s,
               "loader_only_seconds_python_io": python_loader_s, "native_io": res["native_io"],
-              "score_seconds": res["score_seconds"], "kernel_launches": launches[name],
-              "metrics": metrics})
+              "score_seconds": res["score_seconds"], "ndcg_seconds": res["ndcg_seconds"],
+              "kernel_launches": launches[name], "metrics": metrics})
 
     def corr(a, b):
         a = torch.from_numpy(results[a]["scores"]).double().flatten()
@@ -543,6 +639,17 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
         raise AssertionError(f"int8 and bf16 alignment scores disagree: {check}")
     if not check["bf16_int8_encoder_score_corr"] > INT8_ENCODER_CORR:
         raise AssertionError(f"the int8 encoder's alignment scores disagree with bf16's: {check}")
+    res = results["ndcg"]
+    got = {d: {m: res[f"alignment_{d}"][f"ndcg_{m}"] for m in ("rougel", "spice")}
+           for d in ("i2t", "t2i")}
+    want, sampled = numpy_ndcg(res["scores"], relevances, data)
+    check["ndcg"] = {"run": got, "numpy": want, "atol": NDCG_ATOL, "sampled_queries": sampled,
+                     "ndcg_seconds": res["ndcg_seconds"]}
+    for d in got:
+        for m in got[d]:
+            if not (got[d][m] > 0 and abs(got[d][m] - want[d][m]) <= NDCG_ATOL):
+                raise AssertionError(f"--ndcg {d} {m}: the run's {got[d][m]} against the numpy "
+                                     f"NDCG@25 {want[d][m]}")
     emit({"phase": "main_check", **check, "int8_encoder_corr_limit": INT8_ENCODER_CORR,
           "loader_batches_equal_native_vs_python": len(native_batches)})
     return {name: launches[name] for name, _ in runs}
@@ -1319,11 +1426,14 @@ def phase_k3b() -> dict:
     return {"max_err": max_err, "timings": timings}
 
 
-def flagship_train_model(fused: bool, dropout: float, state_dict=None):
+def flagship_train_model(fused: bool, dropout: float, state_dict=None, remat: bool = False,
+                         model_over=None, training_over=None):
     """(cfg, ALADIN on the card in train mode): the flagship recipe at bs 128
     and VinVL-base width, as benchmarks/train_bench.py builds it, with both
     kernel knobs set to ``fused``; random weights from a seed unless
-    ``state_dict`` is given."""
+    ``state_dict`` is given. ``remat``: BertImgConfig.remat;
+    ``model_over`` / ``training_over``: more recipe keys (a variant, a
+    memory lever)."""
     import torch
 
     from aladin_torch.config import ExperimentConfig
@@ -1332,10 +1442,10 @@ def flagship_train_model(fused: bool, dropout: float, state_dict=None):
 
     with open(os.path.join(ROOT, "aladin_torch", "configs", RECIPE)) as f:
         recipe = json.load(f)
-    recipe["training"]["bs"] = 128
-    recipe["model"]["dropout"] = dropout
+    recipe["training"].update({"bs": 128, **(training_over or {})})
+    recipe["model"].update({"dropout": dropout, **(model_over or {})})
     cfg = ExperimentConfig.from_dict(recipe)
-    bert_cfg = BertImgConfig(fused_attention=fused, fused_layernorm=fused,
+    bert_cfg = BertImgConfig(fused_attention=fused, fused_layernorm=fused, remat=remat,
                              hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
     model = ALADIN(cfg, bert_cfg)
     if state_dict is None:
@@ -1761,11 +1871,18 @@ def phase_train_cli() -> dict:
                 "--max_img_seq_length", "34", "--add_od_labels", "--output_dir", tmp,
                 "--logger_name", os.path.join(tmp, "run"), "--num_epochs", "1",
                 "--val_step", "0", "--log_step", "10", "--device", "cuda"]
-        out, run_s, launches = run(argv)
+        # the first run also scores NDCG over synthetic minival relevances
+        write_relevances(os.path.join(data, "relevances"), "minival", 5 * 200, 200)
+        out, run_s, launches = run(argv + ["--ndcg"])
         trainer, state = out["trainer"], out["state"]
+        best_ndcg = os.path.join(tmp, "run", "model_best_ndcgspice.pth.tar")
+        if not (trainer.best_ndcgspice > 0 and os.path.exists(best_ndcg)):
+            raise AssertionError(f"cli/train --ndcg: best spice NDCG {trainer.best_ndcgspice}, "
+                                 f"{best_ndcg} written: {os.path.exists(best_ndcg)}")
         emit({"phase": "train_cli", "images": 200, "bs": 32, "steps": state.step,
               "setup_seconds": setup_s, "run_seconds": run_s, "k1_launches": launches,
-              "best_rsum": trainer.best_rsum, "metrics_last": trainer.last_metrics,
+              "best_rsum": trainer.best_rsum, "best_ndcgspice": trainer.best_ndcgspice,
+              "model_best_ndcgspice_written": True, "metrics_last": trainer.last_metrics,
               "checkpoint_loads_back": True})
 
         fused = os.path.join(tmp, "oscar_fused")
@@ -1798,6 +1915,294 @@ def phase_train_cli() -> dict:
           "k8_equals_k1": True})
     return {"launches": launches}
 
+# encoder micro-batch losses against the unsplit step's at dropout 0: the
+# same math with the GEMMs at another M (other cuBLAS tiles, other bf16
+# sums), which moves a loss of O(10) by far less than 1e-3 of itself
+MICROBATCH_LOSS_RTOL = 1e-3
+LEVER_MB = 128  # encoder-microbatch of the B 512 and B 1024 runs
+
+
+def step_counters():
+    """The train step's kernel wrappers by name: K2 forward / backward, K3a
+    forward / backward (each counts the calls that launched its kernel)."""
+    from aladin_torch.ops.kernels import attention_kernel as ak
+    from aladin_torch.ops.kernels import layernorm as lk
+
+    return {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
+            "k3a": lk.residual_layernorm_forward, "k3a_bwd": lk.residual_layernorm_backward}
+
+
+def counted(fn):
+    """(fn's result, the step kernels' launches while it ran)."""
+    import torch
+
+    counters = step_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def step_launches(layers: int, remat: bool, micro: int = 0, passes: int = 2) -> dict:
+    """The K2 / K3a launches of one step over ``micro`` encoder
+    micro-batches (0: unsplit): a backward a layer call, and a forward a
+    layer call and run of it: once, twice under remat or micro-batches (the
+    recompute), three times under both (the micro-batch's recompute runs
+    the remat layers, which the backward runs again); two LayerNorms a
+    layer."""
+    runs = (3 if remat else 2) if micro else (2 if remat else 1)
+    calls = max(micro, 1) * passes * layers
+    return {"k2_fwd": calls * runs, "k2_bwd": calls, "k3a": 2 * calls * runs,
+            "k3a_bwd": 2 * calls}
+
+
+def fresh_memory() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def lever_step(start, b: int, dropout: float, remat: bool, mb: int = 0, chunk: int = 0):
+    """(model, state, step fn) of the flagship recipe at batch ``b`` with
+    the kernel knobs, from the weights ``start``."""
+    import torch
+
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_train_step
+
+    cfg, model = flagship_train_model(True, dropout, start, remat=remat,
+                                      training_over={"bs": b, "encoder-microbatch": mb,
+                                                     "alignment-chunk": chunk})
+    state = TrainState(cfg, model, steps_per_epoch=100)
+    return model, state, make_train_step(model, cfg, torch.bfloat16)
+
+
+def phase_train_levers() -> dict:
+    """The memory levers at VinVL-base width with K2 and K3a: (a) remat
+    equals no remat bit for bit at bs 32, dropout 0.1, and doubles the
+    forward launches; (b) B 512 at dropout 0 with no lever, remat,
+    encoder-microbatch 128 and both: peak memory, host and card ms a step,
+    launches, the first step's loss against the no-lever one (remat bit for
+    bit, micro-batches within MICROBATCH_LOSS_RTOL), remat's peak below the
+    no-lever peak; (c) B 1024 at dropout 0.1 with remat, encoder-microbatch
+    128 and alignment-chunk 64: two steps with finite losses, peak memory
+    (no no-lever B 1024 step is run); (d) a CUDA graph of 8 remat steps
+    (and of remat with micro-batches of 16) against 8 eager steps at bs 32,
+    bit for bit."""
+    import torch
+
+    from aladin_torch.train.step import make_multi_train_step
+
+    _, model = flagship_train_model(True, 0.0)
+    start = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    layers = model.oscar_model.bert.cfg.num_hidden_layers
+    del model
+    out = {"card": nvidia_smi_line()}
+
+    # (a) bs 32, dropout 0.1: remat against no remat, one eager step
+    batch = synth_train_batch(32)
+    runs = {}
+    for remat in (False, True):
+        fresh_memory()
+        model, state, step = lever_step(start, 32, 0.1, remat)
+        torch.cuda.manual_seed(7)
+        metrics, launches = counted(lambda: step(state, batch, 0))
+        runs[remat] = (metrics, [p.detach().clone() for p in state.trainable], launches)
+        del model, state, step
+    (m0, p0, n0), (m1, p1, n1) = runs[False], runs[True]
+    diff = [k for k in m0 if not torch.equal(m0[k], m1[k])]
+    if diff or not all(torch.equal(a, c) for a, c in zip(p0, p1)):
+        raise AssertionError(f"bs 32, dropout 0.1: remat differs from no remat in metrics "
+                             f"{diff} or the post-step parameters")
+    if n0 != step_launches(layers, False) or n1 != step_launches(layers, True):
+        raise AssertionError(f"launches a step without / with remat {n0} / {n1}, expected "
+                             f"{step_launches(layers, False)} / {step_launches(layers, True)}")
+    out["bs32_dropout0.1"] = {"remat_equals_no_remat_bitwise": True, "loss": m0["loss"].item(),
+                              "launches_no_remat": n0, "launches_remat": n1}
+    del runs, p0, p1
+
+    # (b) B 512, dropout 0: the four settings from one state and batch
+    batch = synth_train_batch(512)
+    settings = {"none": (False, 0), "remat": (True, 0), "microbatch128": (False, LEVER_MB),
+                "both": (True, LEVER_MB)}
+    b512, losses = {}, {}
+    for name, (remat, mb) in settings.items():
+        fresh_memory()
+        model, state, step = lever_step(start, 512, 0.0, remat, mb)
+        metrics, launches = counted(lambda: step(state, batch, 0))
+        losses[name] = metrics["loss"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, batch, 0)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / 2
+        prof = device_profile(lambda: step(state, batch, 0), 1, top=0)
+        b512[name] = {"peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "host_ms_per_step": host_ms, "card_ms_per_step": prof["device_ms"],
+                      "launches": launches, "first_loss": metrics["loss"].item()}
+        if not all(math.isfinite(v.item()) for v in metrics.values()):
+            raise AssertionError(f"B 512 {name}: non-finite metrics {metrics}")
+        want = step_launches(layers, remat, 512 // mb if mb else 0)
+        if launches != want:
+            raise AssertionError(f"B 512 {name}: launches {launches}, expected {want}")
+        del model, state, step
+    if not torch.equal(losses["remat"], losses["none"]):
+        raise AssertionError(f"B 512: remat's loss {losses['remat'].item()} != the no-lever "
+                             f"loss {losses['none'].item()}")
+    for name in ("microbatch128", "both"):
+        rel = abs(losses[name].item() - losses["none"].item()) / abs(losses["none"].item())
+        b512[name]["loss_rel_diff_vs_none"] = rel
+        if not rel <= MICROBATCH_LOSS_RTOL:
+            raise AssertionError(f"B 512 {name}: loss {losses[name].item()} against "
+                                 f"{losses['none'].item()} (rel {rel} > {MICROBATCH_LOSS_RTOL})")
+    if not b512["remat"]["peak_mem_gb"] < b512["none"]["peak_mem_gb"]:
+        raise AssertionError(f"B 512: remat's peak {b512['remat']['peak_mem_gb']} GB is not "
+                             f"below the no-lever peak {b512['none']['peak_mem_gb']} GB")
+    out["b512_dropout0"] = b512
+    del batch
+
+    # (c) B 1024, dropout 0.1, every lever: two steps
+    fresh_memory()
+    batch = synth_train_batch(1024)
+    model, state, step = lever_step(start, 1024, 0.1, True, LEVER_MB, chunk=64)
+    t0 = time.perf_counter()
+    rows = [step(state, batch, 0) for _ in range(2)]
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 2
+    b1024 = [{k: v.item() for k, v in m.items()} for m in rows]
+    if not all(math.isfinite(v) for m in b1024 for v in m.values()):
+        raise AssertionError(f"B 1024: non-finite metrics {b1024}")
+    out["b1024_dropout0.1"] = {"levers": {"remat": True, "encoder-microbatch": LEVER_MB,
+                                          "alignment-chunk": 64},
+                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                               "host_ms_per_step_incl_first": host_ms, "metrics": b1024}
+    del model, state, step, batch, rows
+
+    # (d) the levers inside a CUDA graph of 8 steps, bs 32, dropout 0
+    batches = [synth_train_batch(32, seed=10 + i) for i in range(GRAPH_K)]
+    windows = {}
+    for name, mb in (("remat", 0), ("remat_microbatch16", 16)):
+        fresh_memory()
+        model, state, step = lever_step(start, 32, 0.0, True, mb)
+        torch.cuda.manual_seed(1)
+        eager = [step(state, x, 0) for x in batches]
+        want_m = {n: torch.stack([r[n] for r in eager]) for n in eager[0]}
+        want_p = [p.detach().clone() for p in state.trainable]
+        del model, state, step, eager
+        fresh_memory()
+        model, state, _ = lever_step(start, 32, 0.0, True, mb)
+        multi = make_multi_train_step(model, state.cfg, torch.bfloat16, k=GRAPH_K)
+        torch.cuda.manual_seed(1)
+        t0 = time.perf_counter()
+        got = multi(state, batches, 0)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        if multi.window is None:
+            raise AssertionError(f"{name}: no CUDA graph was captured")
+        diff = [n for n in want_m if not torch.equal(want_m[n], got[n])]
+        if diff or not all(torch.equal(a, c) for a, c in zip(want_p, state.trainable)):
+            raise AssertionError(f"{name}: the graphed window of {GRAPH_K} differs from "
+                                 f"{GRAPH_K} eager steps (metrics {diff} or parameters)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(state, batches, 0)
+        torch.cuda.synchronize()
+        windows[name] = {"graph_equals_eager_bitwise": True, "capture_and_first_replay_s":
+                         capture_s, "graph_ms_per_step": 1e3 * (time.perf_counter() - t0)
+                         / GRAPH_K, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model, state, multi
+    out["graph_k8_bs32"] = windows
+    fresh_memory()
+    emit({"phase": "train_levers", **out, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    return {"remat_launches": n1}
+
+
+# the model variants at VinVL-base width: (name, model recipe keys)
+VARIANTS = (
+    ("align_gated_fusion", {"depth-aggregation-alignment": "gated"}),
+    ("match_transformer_post1", {"depth-aggregation-matching": "transformer",
+                                 "post-layers": 1}),
+    ("match_mean", {"depth-aggregation-matching": "mean"}),
+    ("teran2_shared", {"teran-layers": 2}),
+    ("teran2_separate_frozen", {"teran-layers": 2, "shared-transformer": False,
+                                "freeze-teran": True}),
+)
+
+
+def phase_variants() -> dict:
+    """Each model variant at VinVL-base width, bs 32, from weights of a
+    seed: one step with the kernel knobs on against the same weights with
+    them off, every dropout at 0 (the variant modules' own fixed rates
+    too), loss and grad_norm within KNOB_LOSS_RTOL / KNOB_GNORM_RTOL; then
+    three steps with the modules' fixed rates back (the recipe's dropout
+    0), finite, the first with exactly 24 / 24 / 48 / 48 K2 / K3a launches;
+    host ms a step and peak memory."""
+    import torch
+    from torch import nn
+
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_train_step
+
+    batch = synth_train_batch(32)
+    out = {}
+    for name, over in VARIANTS:
+        fresh_memory()
+        first = {}
+        for fused in (True, False):
+            cfg, model = flagship_train_model(fused, 0.0, first.get("start"), model_over=over)
+            if fused:
+                first["start"] = {n: v.detach().clone() for n, v in model.state_dict().items()}
+            rates = {m: m.p for m in model.modules() if isinstance(m, nn.Dropout)}
+            for m in rates:
+                m.p = 0.0
+            state = TrainState(cfg, model, steps_per_epoch=100)
+            step = make_train_step(model, cfg, torch.bfloat16)
+            first[fused] = {k: v.item() for k, v in step(state, batch, 0).items()}
+            if fused:
+                for m, p in rates.items():
+                    m.p = p
+                kept = (model, state, step)
+            del model, state, step
+        on, off = first[True], first[False]
+        agree = {"loss_rel_diff": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+                 "grad_norm_rel_diff": abs(on["grad_norm"] - off["grad_norm"])
+                 / abs(off["grad_norm"])}
+        if not (agree["loss_rel_diff"] <= KNOB_LOSS_RTOL
+                and agree["grad_norm_rel_diff"] <= KNOB_GNORM_RTOL):
+            raise AssertionError(f"variant {name}: knobs on vs off disagree: {first} {agree}")
+        model, state, step = kept
+        del kept
+        layers = model.oscar_model.bert.cfg.num_hidden_layers
+        metrics, launches = counted(lambda: step(state, batch, 0))
+        rows = [metrics]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows += [step(state, batch, 0) for _ in range(2)]
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / 2
+        rows = [{k: v.item() for k, v in r.items()} for r in rows]
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"variant {name}: non-finite metrics {rows}")
+        if launches != step_launches(layers, False):
+            raise AssertionError(f"variant {name}: launches {launches}, expected "
+                                 f"{step_launches(layers, False)}")
+        out[name] = {"model": over, "knob_check_dropout0": {**agree, "on": on, "off": off},
+                     "launches": launches, "host_ms_per_step": host_ms,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "metrics_last": rows[-1]}
+        del model, state, step, first
+    fresh_memory()
+    emit({"phase": "variants", "batch": 32, "card": nvidia_smi_line(), "runs": out,
+          "loss_rtol": KNOB_LOSS_RTOL, "grad_norm_rtol": KNOB_GNORM_RTOL})
+    return out
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "aladin_torch")):
@@ -1829,6 +2234,8 @@ def main() -> int:
     fused = phase_train_fused()["launches"]
     phase_train_graph()
     phase_train_cli()
+    remat = phase_train_levers()["remat_launches"]
+    phase_variants()
     # K1 bf16 runs on two paths: cli/test's scoring and streaming alignment recall
     k1_launches = {"bf16": launches["bf16"]["k1"] + streamed["k1_launches"],
                    "int8": launches["int8"]["k1"]}
@@ -1849,7 +2256,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "aladin_torch/csrc/attention_kernel.cu",
             "replaces": f"aladin_tpu/ops/pallas/attention_kernel.py:{line}",
-            "launches": fused[f"k2_{key}"], "max_abs_err": k2["max_err"][key], "ms": t["ms"],
+            "launches": fused[f"k2_{key}"], "launches_remat_step": remat[f"k2_{key}"],
+            "max_abs_err": k2["max_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16"})
     t = k3["timings"][84]
@@ -1857,6 +2265,7 @@ def main() -> int:
         "name": "residual_layernorm forward", "route": "triton",
         "source": "aladin_torch/ops/kernels/layernorm.py",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:70", "launches": fused["k3a"],
+        "launches_remat_step": remat["k3a"],
         "max_abs_err": k3["max_err"]["fwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "M10752 D768 bf16"})
@@ -1864,6 +2273,7 @@ def main() -> int:
         "name": "residual_layernorm backward", "route": "cuda",
         "source": "aladin_torch/csrc/layernorm_kernel.cu",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:193", "launches": fused["k3a_bwd"],
+        "launches_remat_step": remat["k3a_bwd"],
         "max_abs_err": k3["max_err"]["bwd"], "ms": t["backward_ms"],
         "plain_ms": t["backward_plain_ms"], "bound_ms": t["backward_bound_ms"],
         "bound_by": t["backward_bound_by"], "library_ms": t["backward_library_ms"],

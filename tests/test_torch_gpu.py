@@ -667,9 +667,10 @@ def test_attention_device_seed_equals_int_seed(cuda, dtype):
                        at.attention_forward(q, k, v, bias, 5, 0.1, True))
 
 
-def _small_train(dropout, chunk=0, seed=0, training=None):
+def _small_train(dropout, chunk=0, seed=0, training=None, **bert_knobs):
     """(model, state) at a small width the kernels take (heads of 64), both
-    kernel knobs on, weights from ``seed``; ``training``: more recipe keys."""
+    kernel knobs on, weights from ``seed``; ``training``: more recipe keys;
+    ``bert_knobs``: more BertImgConfig fields (``remat``)."""
     from aladin_torch.config import ExperimentConfig
     from aladin_torch.models.aladin import ALADIN
     from aladin_torch.models.bert_img import BertImgConfig
@@ -684,7 +685,7 @@ def _small_train(dropout, chunk=0, seed=0, training=None):
                          num_attention_heads=2, intermediate_size=256,
                          max_position_embeddings=64, img_feature_dim=40,
                          hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
-                         fused_attention=True, fused_layernorm=True)
+                         fused_attention=True, fused_layernorm=True, **bert_knobs)
     model = ALADIN(cfg, bert)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model = model.cuda().train()
@@ -746,6 +747,63 @@ def test_graphed_window_equals_eager_steps(cuda, dropout, chunk):
         assert torch.equal(p, q)
         for key, v in eager.optimizer.state[q].items():
             assert torch.equal(graphed.optimizer.state[p][key], v), key
+
+
+def test_remat_equals_no_remat_on_the_card(cuda):
+    """One eager step at bs 32, dropout 0.1, from the same weights and CUDA
+    generator state, with and without remat: metrics and params bit for bit
+    (the recompute regenerates K2's masks from the same seed tensors and
+    the plain dropouts from the restored generator). Under remat K2 and
+    K3a launch their forwards twice a layer call (forward, recompute) and
+    their backwards once."""
+    from aladin_torch.train.step import make_train_step
+
+    (batch,) = _small_batches(1, b=32)
+    counters = (at.attention_forward, at.attention_backward, lk.residual_layernorm_forward,
+                lk.residual_layernorm_backward)
+    runs = {}
+    for remat in (False, True):
+        model, state = _small_train(0.1, remat=remat)
+        step = make_train_step(model, state.cfg, torch.bfloat16)
+        torch.cuda.manual_seed(9)
+        before = [c.launches for c in counters]
+        metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+        runs[remat] = (metrics, [p.detach().clone() for p in state.trainable],
+                       [c.launches - b for c, b in zip(counters, before)])
+    (m0, p0, n0), (m1, p1, n1) = runs[False], runs[True]
+    for name in m0:
+        assert torch.equal(m0[name], m1[name]), name
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    layers = 2 * 2  # two passes of two layers
+    assert n0 == [layers, layers, 2 * layers, 2 * layers]
+    assert n1 == [2 * layers, layers, 4 * layers, 2 * layers]
+
+
+@pytest.mark.parametrize("lever", ["remat", "microbatch", "both"])
+def test_graphed_window_with_a_lever_equals_eager_steps(cuda, lever):
+    """The levers inside a CUDA graph: non-reentrant checkpoint stashes and
+    restores the CUDA generator's state inside the capture. A graph of 4
+    steps at dropout 0.1 against 4 eager steps: metrics and params bit for
+    bit."""
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    batches = _small_batches(4)
+    training = {"encoder-microbatch": 4} if lever != "remat" else None
+    remat = lever != "microbatch"
+    eager_model, eager = _small_train(0.1, training=training, remat=remat)
+    graph_model, graphed = _small_train(0.1, training=training, remat=remat)
+    step = make_train_step(eager_model, eager.cfg, torch.bfloat16)
+    torch.cuda.manual_seed(5)
+    singles = [step(eager, b, 0) for b in batches]
+    multi = make_multi_train_step(graph_model, graphed.cfg, torch.bfloat16, k=4)
+    torch.cuda.manual_seed(5)
+    window = multi(graphed, batches, 0)
+    assert multi.window is not None
+    for name in singles[0]:
+        assert torch.equal(window[name], torch.stack([m[name] for m in singles])), name
+    for p, q in zip(graphed.trainable, eager.trainable):
+        assert torch.equal(p, q)
 
 
 def test_graph_replays_draw_new_attention_seeds(cuda, monkeypatch):

@@ -139,13 +139,6 @@ def test_aladin_forward_with_carried_weights(rng, loss_type):
         _compare_outputs(model(_torch_batch(jbatch)), want)
 
 
-def test_unported_model_variants_raise():
-    for over in ({"depth-aggregation-matching": "mean"}, {"teran-layers": 2}):
-        _, d = _jax_aladin(over)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ALADIN(ExperimentConfig.from_dict(d), BertImgConfig(**SMALL))
-
-
 def test_released_pth_tar_layout_loads(rng, tmp_path):
     """A .pth.tar whose keys torch itself named in the released layout
     (img_txt_enc.oscar_model.bert.*, final_projection_net.layers.*):
