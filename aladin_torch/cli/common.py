@@ -8,6 +8,7 @@ import dataclasses
 import logging
 import os
 import tempfile
+from typing import Optional
 
 import torch
 
@@ -20,6 +21,8 @@ from aladin_torch.io.checkpoint import load_state_dict_report
 from aladin_torch.io.convert import load_oscar_checkpoint
 from aladin_torch.models.aladin import ALADIN
 from aladin_torch.models.bert_img import BertImgConfig
+from aladin_torch.parallel.distributed import barrier, is_main_process, rank_seed
+from aladin_torch.parallel.mesh import Mesh, broadcast_, create_mesh
 
 logger = logging.getLogger("vlpretrain")
 
@@ -55,7 +58,8 @@ def add_shared_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--reinitialize-scheduler", dest="reinitialize_scheduler", action="store_true")
     p.add_argument("--config", default="")
     p.add_argument("--mesh_shape", default="dp=-1",
-                   help="one device only in the port: dp=-1 or dp=1")
+                   help="dp=N under torchrun (one process a GPU); dp=-1 = every rank; "
+                        "tp > 1 is not ported")
     p.add_argument("--ndcg", action="store_true", default=False,
                    help="NDCG@25 from the relevance matrices on disk (<data_dir>/relevances "
                         "or <dataset.data>/<dataset.name>/relevances)")
@@ -182,8 +186,13 @@ def build_tokenizer(args: DataArgs) -> BertWordPieceTokenizer:
 
 
 def prepare_synthetic(args: DataArgs, n_images: int = 8) -> DataArgs:
+    """Write the synthetic corpus under ``<output_dir>/synthetic_coco_ir``
+    (the main process writes it, every rank waits for it) and point
+    ``args`` at it."""
     root = os.path.join(args.output_dir, "synthetic_coco_ir")
-    make_synthetic_dataset(root, n_images=n_images, feat_dim=args.img_feature_dim)
+    if is_main_process():
+        make_synthetic_dataset(root, n_images=n_images, feat_dim=args.img_feature_dim)
+    barrier("synthetic")
     args.data_dir = root
     args.img_feat_file = os.path.join(root, "features.tsv")
     args.add_od_labels = True
@@ -217,3 +226,33 @@ def build_ndcg_scorer(cfg: ExperimentConfig, args: DataArgs, split: str, n_queri
         if methods:
             return DCG(cfg, n_queries, split, relevance_methods=methods, rel_dir=rel_dir)
     return None
+
+
+def maybe_create_mesh(mesh_shape: str, device) -> Optional[Mesh]:
+    """--mesh_shape -> a Mesh over the process group when it spans more than
+    one rank, else None (one rank needs no mesh). A spec that asks for
+    another number of ranks than the group has raises, and so does a tp
+    axis above 1."""
+    mesh = create_mesh(mesh_shape or "dp=-1", device)
+    return mesh if mesh.size > 1 else None
+
+
+def shard_state_and_loaders(state, mesh: Mesh, cfg: ExperimentConfig, seed: int,
+                            train_loader: BatchLoader):
+    """Data-parallel placement: rank 0's parameters, buffers, aux learnables
+    and optimizer state on every rank (one broadcast each), the train
+    loader yielding this rank's rows of each global batch, and the rank
+    folded into the dropout generators (the CUDA / CPU default generators
+    and the K2 seed generator), so that no two ranks draw the same masks.
+    Returns the state."""
+    dp = mesh.axes.get("dp", mesh.size)
+    if cfg.training.bs % dp:
+        raise ValueError(f"batch size {cfg.training.bs} must be divisible by dp={dp}")
+    opt_tensors = [v for st in state.optimizer.state.values() for v in st.values()
+                   if torch.is_tensor(v)]
+    broadcast_(mesh, [*state.model.state_dict().values(), *state.aux.values(), *opt_tensors])
+    train_loader.shard(mesh.rank, dp)
+    folded = rank_seed(seed, mesh.rank)
+    torch.manual_seed(folded)
+    state.model.oscar_model.bert.seed_generator.manual_seed(folded)
+    return state

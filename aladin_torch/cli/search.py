@@ -1,6 +1,5 @@
 """Retrieval search CLI: build a persisted index, serve queries, measure the
-retrieve-and-rerank quality curve (mirrors aladin_tpu/cli/search.py on one
-device).
+retrieve-and-rerank quality curve (mirrors aladin_tpu/cli/search.py).
 
   build   checkpoint + dataset -> one encode pass -> persisted index dir
           (embeddings.npz + index_meta.json, eval/index.py)
@@ -11,7 +10,10 @@ device).
           the full-rerank ceiling
 
 Every subcommand runs on the card unless ``--device cpu`` is given. An
-index either package writes loads in the other.
+index either package writes loads in the other. ``query`` and ``curve``
+take ``--mesh_shape dp=N`` under ``torchrun``: the corpus is sharded over
+the ranks (``eval/search.py::sharded_search``) and rank 0 prints and
+writes; ``build`` encodes on one process.
 
     python -m aladin_torch.cli.search build --index_dir idx/ \\
         --load_checkpoint model_best_rsum.pth.tar --data_dir coco_ir ...
@@ -40,6 +42,7 @@ from aladin_torch.cli.common import (
     add_shared_flags,
     build_model,
     build_tokenizer,
+    maybe_create_mesh,
     prepare_synthetic,
     restore_training_settings,
     to_data_args,
@@ -49,13 +52,13 @@ from aladin_torch.data.dataset import DisentangledTensorizer, RetrievalDataset
 from aladin_torch.data.pipeline import BatchLoader, batch_from_numpy
 from aladin_torch.eval.encode import encode_data
 from aladin_torch.eval.index import IndexCompatError, SearchIndex, load_index, save_index
-from aladin_torch.eval.search import search
+from aladin_torch.eval.search import search, sharded_search
 from aladin_torch.io.checkpoint import load_checkpoint, load_state_dict_report
+from aladin_torch.parallel.distributed import initialize, is_main_process
 from aladin_torch.utils.device import resolve_device
 from aladin_torch.utils.logging import setup_logger
 
 QUERY_CHUNK = 8  # captions per query-encode batch
-ONE_DEVICE = ("", "dp=-1", "dp=1")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -89,7 +92,9 @@ def _build_parser() -> argparse.ArgumentParser:
     q.add_argument("--no_rerank", action="store_true",
                    help="matching head only (the 0.023 s/query operating point of the "
                         "reference plot)")
-    q.add_argument("--mesh_shape", default="", help="one device only in the port: dp=-1 or dp=1")
+    q.add_argument("--mesh_shape", default="",
+                   help="e.g. dp=8 under torchrun: shard the corpus over the ranks "
+                        "(sharded_search's distributed top-k merge)")
     q.add_argument("--load_checkpoint", default="",
                    help="override the checkpoint recorded in the index")
     q.add_argument("--out", default="", help="also write results JSON here")
@@ -101,7 +106,7 @@ def _build_parser() -> argparse.ArgumentParser:
     c.add_argument("--direction", default="both", choices=["both", "t2i", "i2t"])
     c.add_argument("--ks", default="1,5,10")
     c.add_argument("--shortlists", default="5,10,25,50,100")
-    c.add_argument("--mesh_shape", default="", help="one device only in the port: dp=-1 or dp=1")
+    c.add_argument("--mesh_shape", default="", help="as query's")
     c.add_argument("--out", default="", help="write the curve JSON here")
     c.add_argument("--device", default="cuda",
                    help="torch device; needs CUDA unless this is 'cpu'")
@@ -242,17 +247,29 @@ def _make_text_encoder(index: SearchIndex, device: torch.device, checkpoint_over
     return encode_texts
 
 
-def _check_one_device(mesh_shape: str) -> None:
-    if mesh_shape not in ONE_DEVICE:
-        raise NotImplementedError("a multi-device --mesh_shape is not ported yet (ROADMAP.md, "
-                                  "queue 1, item 7: multi-GPU)")
+def _maybe_mesh(mesh_shape: str, device):
+    """A mesh over the process group for a non-empty ``--mesh_shape`` that
+    spans more than one rank, else None."""
+    if not mesh_shape:
+        return None
+    initialize(device=device.type)
+    return maybe_create_mesh(mesh_shape, device)
 
 
-def _run_search(index: SearchIndex, corpora: Dict[str, Any], device, q_sets, q_lens, *,
+def _say(*args, **kw) -> None:
+    """print, on the main process only."""
+    if is_main_process():
+        print(*args, **kw)
+
+
+def _run_search(index: SearchIndex, corpora: Dict[str, Any], device, mesh, q_sets, q_lens, *,
                 direction, k, shortlist, rerank, aggregation):
     modality = "image" if direction == "t2i" else "caption"
     if modality not in corpora:  # each corpus goes to the device once per command
         corpora[modality] = index.corpus(modality, device)
+    if mesh is not None:
+        return sharded_search(mesh, corpora[modality], q_sets, q_lens, direction=direction, k=k,
+                              shortlist=shortlist, rerank=rerank, aggregation=aggregation)
     return search(corpora[modality], q_sets, q_lens, direction=direction, k=k,
                   shortlist=shortlist, rerank=rerank, aggregation=aggregation)
 
@@ -272,8 +289,8 @@ def _format_hits(index: SearchIndex, direction: str, scores_row, idx_row) -> Lis
 
 
 def _cmd_query(ns) -> List[dict]:
-    _check_one_device(ns.mesh_shape)
     device = resolve_device(ns.device)
+    mesh = _maybe_mesh(ns.mesh_shape, device)
     index = load_index(ns.index_dir)
     agg = index.meta["config"]["training"].get("alignment-mode", "MrSw")
     rerank = not ns.no_rerank
@@ -300,17 +317,17 @@ def _cmd_query(ns) -> List[dict]:
             sets, lens = index.query_buffers(modality)
             q_sets, q_lens = sets[rows], lens[rows]
             labels = [f"{modality}[{r}]" for r in rows]
-        scores, idx = _run_search(index, corpora, device, q_sets, q_lens,
+        scores, idx = _run_search(index, corpora, device, mesh, q_sets, q_lens,
                                   direction=ns.direction, k=ns.k, shortlist=ns.shortlist,
                                   rerank=rerank, aggregation=agg)
         for qi, label in enumerate(labels):
             hits = _format_hits(index, ns.direction, scores[qi], idx[qi])
             results.append({"query": label, "hits": hits})
-            print(f"query: {label}")
+            _say(f"query: {label}")
             for h in hits:
                 tail = (f"image {h['image_key']}" if ns.direction == "t2i"
                         else f"image {h['image_key']}: {h['caption']}")
-                print(f"  {h['rank']:>3}. {h['score']:+.4f}  {tail}")
+                _say(f"  {h['rank']:>3}. {h['score']:+.4f}  {tail}")
 
     if texts:
         run_and_print(batch_texts=texts)
@@ -326,7 +343,7 @@ def _cmd_query(ns) -> List[dict]:
     if not (texts or ns.query_index or ns.interactive):
         raise SystemExit("no queries: pass --text / --queries_file / --query_index / "
                          "--interactive")
-    if ns.out:
+    if ns.out and is_main_process():
         with open(ns.out, "w") as f:
             json.dump(results, f, indent=2)
     return results
@@ -353,8 +370,8 @@ def _recall_at(idx: np.ndarray, direction: str, cpi: int, ks: List[int]):
 
 
 def _cmd_curve(ns) -> Dict[str, Any]:
-    _check_one_device(ns.mesh_shape)
     device = resolve_device(ns.device)
+    mesh = _maybe_mesh(ns.mesh_shape, device)
     index = load_index(ns.index_dir)
     agg = index.meta["config"]["training"].get("alignment-mode", "MrSw")
     ks = sorted(int(k) for k in ns.ks.split(","))
@@ -371,12 +388,13 @@ def _cmd_curve(ns) -> Dict[str, Any]:
         corpus_n = index.n_images if direction == "t2i" else index.n_captions
 
         def row(name, shortlist, rerank):
-            _, idx = _run_search(index, corpora, device, q_sets, q_lens, direction=direction,
+            _, idx = _run_search(index, corpora, device, mesh, q_sets, q_lens,
+                                 direction=direction,
                                  k=k_max, shortlist=shortlist, rerank=rerank, aggregation=agg)
             r = _recall_at(idx, direction, cpi, ks)
             table["rows"].append({"direction": direction, "stage": name,
                                   "shortlist": shortlist if rerank else None, "recall": r})
-            print(f"{direction}  {name:<16} " + "  ".join(f"R@{k}={r[k]:5.1f}" for k in ks))
+            _say(f"{direction}  {name:<16} " + "  ".join(f"R@{k}={r[k]:5.1f}" for k in ks))
 
         row("matching-only", corpus_n, rerank=False)
         seen = set()
@@ -388,7 +406,7 @@ def _cmd_curve(ns) -> Dict[str, Any]:
             row(f"rerank@{s}", s, rerank=True)
         row("full-rerank", corpus_n, rerank=True)
 
-    if ns.out:
+    if ns.out and is_main_process():
         with open(ns.out, "w") as f:
             json.dump(table, f, indent=2)
         print(f"curve written: {ns.out}")
@@ -400,7 +418,8 @@ def run(argv=None):
     "seconds"}, query its results, curve its table."""
     ns = _build_parser().parse_args(argv)
     if ns.cmd == "build":
-        _check_one_device(ns.mesh_shape)
+        if maybe_create_mesh(ns.mesh_shape, resolve_device(ns.device)) is not None:
+            raise ValueError("build encodes on one process; run it without torchrun")
         return _cmd_build(ns)
     if ns.cmd == "query":
         return _cmd_query(ns)

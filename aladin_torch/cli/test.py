@@ -9,6 +9,10 @@ int8 operands). ``--int8_encoder`` runs the encoder's QKV and FFN-up
 projections as W8A8 int8 GEMMs (kernel K4-dynx on the card). ``--ndcg``
 adds the alignment head's NDCG@25 from the relevance matrices on disk
 (``cli/common.py::build_ndcg_scorer``), per fold under ``--fivefold``.
+Under ``torchrun`` with ``--mesh_shape dp=N`` every rank encodes the
+whole split (replicated, as in aladin_tpu) and the alignment head's
+caption axis is scored sharded over the ranks
+(``parallel/mesh.py::sharded_mrsw_scores``); rank 0 alone logs.
 
     python -m aladin_torch.cli.test --config aladin_torch/configs/<recipe>.json \\
         --eval_model_dir <oscar dir> --data_dir <coco_ir> --img_feat_file <features.tsv> \\
@@ -31,6 +35,7 @@ from aladin_torch.cli.common import (
     build_model,
     build_ndcg_scorer,
     build_tokenizer,
+    maybe_create_mesh,
     prepare_synthetic,
     restore_training_settings,
     to_data_args,
@@ -43,8 +48,9 @@ from aladin_torch.eval.recall import compute_recall, recall_1k_5fold
 from aladin_torch.eval.retrieval import (evaluate_alignment_head, fivefold_from_scores,
                                          ndcg_from_scores)
 from aladin_torch.io.checkpoint import load_checkpoint, load_state_dict_report
+from aladin_torch.parallel.distributed import initialize, rank_logger, shutdown
+from aladin_torch.parallel.mesh import sharded_mrsw_scores
 from aladin_torch.utils.device import resolve_device
-from aladin_torch.utils.logging import setup_logger
 
 
 def _sync(device: torch.device) -> None:
@@ -61,11 +67,7 @@ def _parse(argv) -> argparse.Namespace:
                         help="5 x 1k-fold protocol over the 5k set")
     parser.add_argument("--bucketed_encode", action="store_true",
                         help="length-sorted, length-trimmed encode batches")
-    ns = parser.parse_args(argv)
-    if ns.mesh_shape not in ("dp=-1", "dp=1"):
-        raise NotImplementedError("a multi-device --mesh_shape is not ported yet "
-                                  "(ROADMAP.md, queue 1)")
-    return ns
+    return parser.parse_args(argv)
 
 
 def run(argv=None) -> Dict[str, Any]:
@@ -77,7 +79,9 @@ def run(argv=None) -> Dict[str, Any]:
     ns = _parse(argv)
     args = to_data_args(ns)
     device = resolve_device(ns.device)
-    logger = setup_logger("vlpretrain", args.logger_name)
+    initialize(device=device.type)
+    mesh = maybe_create_mesh(args.mesh_shape, device)
+    logger = rank_logger(args.logger_name)
 
     cfg_dict, payload = None, None
     if ns.load_checkpoint:
@@ -141,10 +145,16 @@ def run(argv=None) -> Dict[str, Any]:
     if ns.ndcg:
         ndcg_scorer = build_ndcg_scorer(cfg, args, ns.test_split, len(test_ds))
         logger.info(f"ndcg scorer: {ndcg_scorer.relevance_methods if ndcg_scorer else None}")
+    score_fn = None
+    if mesh is not None:
+        def score_fn(ims, caps, il, cl):
+            return sharded_mrsw_scores(mesh, ims, caps, il, cl,
+                                       aggregation=cfg.training.alignment_mode,
+                                       compute_dtype=scoring_dtype)
     t0 = time.perf_counter()
     i2t, t2i, scores = evaluate_alignment_head(
         img_embs, cap_embs, img_lens, cap_lens, aggregation=cfg.training.alignment_mode,
-        compute_dtype=scoring_dtype, device=device)
+        compute_dtype=scoring_dtype, device=device, score_fn=score_fn)
     _sync(device)
     t1 = time.perf_counter()
     if ns.fivefold:  # NDCG per fold, at the fold's relevance rows
@@ -172,6 +182,7 @@ def run(argv=None) -> Dict[str, Any]:
 
 def main(argv=None) -> int:
     run(argv)
+    shutdown()
     return 0
 
 

@@ -6,6 +6,14 @@
         --max_seq_length 50 --max_img_seq_length 34 --val_step 7000 \\
         --logger_name runs/<exp> [--device cuda]
 
+Data parallelism: one process a GPU under ``torchrun``, each rank with
+B / N rows of every global batch and the global batch's loss
+(``train/step.py``); rank 0 logs and writes the checkpoints:
+
+    torchrun --nproc_per_node N -m aladin_torch.cli.train --mesh_shape dp=N ...
+
+``--mesh_shape dp=-1`` takes every rank; one rank runs without a mesh.
+
 ``--synthetic`` builds a tiny on-disk dataset and a small random backbone
 and runs the whole loop (``--device cpu`` runs it without a card).
 ``--steps_per_dispatch K`` runs K steps a dispatch (one CUDA graph replay on
@@ -24,6 +32,7 @@ relevance matrices on disk. Checkpoints are ``<logger_name>/checkpoint.pth.tar``
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 from typing import Any, Dict
 
@@ -37,16 +46,18 @@ from aladin_torch.cli.common import (
     build_tokenizer,
     build_train_model,
     compute_dtype_of,
+    maybe_create_mesh,
     prepare_synthetic,
     restore_training_settings,
+    shard_state_and_loaders,
     to_data_args,
 )
 from aladin_torch.config import load_config
 from aladin_torch.io.checkpoint import load_teacher_params, resume_state
+from aladin_torch.parallel.distributed import initialize, rank_logger, shutdown
 from aladin_torch.train.loop import Trainer
 from aladin_torch.train.state import TrainState
 from aladin_torch.utils.device import resolve_device
-from aladin_torch.utils.logging import setup_logger
 
 
 def _parse(argv):
@@ -60,9 +71,6 @@ def _parse(argv):
         parser.error(f"--steps_per_dispatch must be >= 1, got {ns.steps_per_dispatch}")
     if ns.profile_dir and ns.profile_steps < 1:
         parser.error(f"--profile_steps must be >= 1, got {ns.profile_steps}")
-    if ns.mesh_shape not in ("dp=-1", "dp=1"):
-        raise NotImplementedError("a multi-device --mesh_shape is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 7)")
     if not ns.config:
         parser.error("--config is required (see aladin_torch/configs/)")
     return ns
@@ -72,7 +80,8 @@ def run(argv=None) -> Dict[str, Any]:
     ns = _parse(argv)
     args = to_data_args(ns)
     device = resolve_device(ns.device)
-    logger = setup_logger("vlpretrain", args.logger_name)
+    initialize(device=device.type)
+    logger = rank_logger(args.logger_name)
     cfg = load_config(ns.config)
     # batch sizes come from the experiment config
     args.per_gpu_train_batch_size = cfg.training.bs
@@ -101,12 +110,17 @@ def run(argv=None) -> Dict[str, Any]:
         logger.info(f"teacher weights from {args.load_teacher_model}: {stats['matched']} loaded, "
                     f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")
 
+    mesh = maybe_create_mesh(args.mesh_shape, device)
+    if mesh is not None:
+        state = shard_state_and_loaders(state, mesh, cfg, args.seed, train_loader)
+        logger.info(f"mesh: {mesh.axes}, {cfg.training.bs // mesh.size} rows a rank")
+
     ndcg_scorer = None
     if args.ndcg:
         ndcg_scorer = build_ndcg_scorer(cfg, args, "minival", len(val_loader.dataset))
         logger.info(f"ndcg scorer: {ndcg_scorer.relevance_methods if ndcg_scorer else None}")
     trainer = Trainer(cfg, args, model, state, train_loader, val_loader, device,
-                      compute_dtype=compute_dtype_of(args), ndcg_scorer=ndcg_scorer)
+                      compute_dtype=compute_dtype_of(args), ndcg_scorer=ndcg_scorer, mesh=mesh)
     trainer.best_rsum = best
     trainer.fit(start_epoch)
     logger.info(f"done; best rsum {trainer.best_rsum:.2f}")
@@ -115,7 +129,9 @@ def run(argv=None) -> Dict[str, Any]:
 
 
 def main(argv=None) -> int:
-    run(argv)
+    run(argv)  # its result, the Trainer and any CUDA graph with it, is freed here
+    gc.collect()
+    shutdown()
     return 0
 
 

@@ -64,7 +64,12 @@ def trim_batch(d: Dict[str, np.ndarray], multiple: int) -> Dict[str, np.ndarray]
 
 
 class BatchLoader:
-    """Iterates fixed-size batches with shuffle and background prefetch."""
+    """Iterates fixed-size batches with shuffle and background prefetch.
+
+    ``shard(rank, ranks)`` makes it a data-parallel rank's loader: every
+    rank visits the same global batches in the same shuffled order, and
+    this one collates and copies only its rows ``[rank * B / ranks,
+    (rank + 1) * B / ranks)`` of each."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_last: bool = True, prefetch: int = 2, device="cpu", num_threads: int = 4,
@@ -82,6 +87,13 @@ class BatchLoader:
         self.num_threads = num_threads
         self.sort_by_length = sort_by_length
         self.trim_multiple = trim_multiple
+        self.rank, self.ranks = 0, 1
+
+    def shard(self, rank: int, ranks: int) -> None:
+        """Yield rank ``rank``'s rows of each global batch from now on."""
+        if self.batch_size % ranks:
+            raise ValueError(f"batch size {self.batch_size} must be divisible by dp={ranks}")
+        self.rank, self.ranks = rank, ranks
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -106,7 +118,8 @@ class BatchLoader:
             idx = order[s:s + self.batch_size]
             if len(idx) < self.batch_size:  # pad the final partial batch by wrapping
                 idx = np.concatenate([idx, order[:self.batch_size - len(idx)]])
-            yield idx
+            rows = self.batch_size // self.ranks  # this rank's rows of the global batch
+            yield idx[self.rank * rows:(self.rank + 1) * rows]
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         """Batches of one epoch, in order; at most ``num_threads + prefetch``

@@ -83,6 +83,13 @@ def compute_recall(img_embs, cap_embs, captions_per_image: int = 5,
     return _assemble(*ranks_from_score_matrix(ims @ caps.T, k))
 
 
+def compute_recall_from_scores(scores, captions_per_image: int = 5) -> Dict[str, float]:
+    """compute_recall from a precomputed (N_unique_images, 5N) score matrix
+    (a host array or a tensor; e.g. ``parallel/mesh.py::
+    sharded_matching_scores``'s), ranked on the matrix's device."""
+    return _assemble(*ranks_from_score_matrix(torch.as_tensor(scores), captions_per_image))
+
+
 def recall_1k_5fold(img_embs, cap_embs, fold: int = 5000, device="cuda") -> Dict[str, float]:
     """5 x 1k folds of the 5k test set, averaged."""
     keys = ("i2t_r1", "i2t_r5", "i2t_r10", "t2i_r1", "t2i_r5", "t2i_r10")

@@ -4,13 +4,15 @@ aladin_tpu/eval/retrieval.py).
 The (N_unique_images, N_captions) alignment matrix is computed once (the
 MrSw kernel on the card) and both directions' ranks are read from it:
 i2t = best rank among an image's 5 captions, t2i = rank of a caption's
-image. NDCG needs relevance matrices and is not ported yet: its fields are
-reported as 0, as the reference does without a scorer.
+image. NDCG@25 comes from an NDCG scorer over relevance matrices
+(``ndcg_from_scores``); its fields are 0 only when no scorer is given, as
+in the reference. ``score_fn`` replaces the scorer, as a corpus-sharded
+one does (``parallel/mesh.py::sharded_mrsw_scores``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +61,8 @@ def retrieval_metrics_from_scores(
 def evaluate_alignment_head(
         img_sets, cap_seqs, img_lens, cap_lens, aggregation: str = "MrSw",
         captions_per_image: int = 5, compute_dtype=None, device="cuda",
-        ndcg_scorer=None) -> Tuple[Dict[str, float], Dict[str, float], torch.Tensor]:
+        ndcg_scorer=None, score_fn: Optional[Callable] = None,
+) -> Tuple[Dict[str, float], Dict[str, float], torch.Tensor]:
     """Full alignment-head eval: (i2t metrics, t2i metrics, score matrix).
 
     img_sets: (5N, S_im, D) grouped buffers (duplicates dropped here),
@@ -69,7 +72,10 @@ def evaluate_alignment_head(
     ``ops.alignment.score_all_pairs`` scores in f32. ``compute_dtype``:
     torch.bfloat16 (default) or torch.int8. The caption axis is bucketed
     when that saves >= 25% of the padded word slots. ``ndcg_scorer``: a
-    DCG scorer for the NDCG fields (None: 0).
+    DCG scorer for the NDCG fields (None: 0). ``score_fn(ims, caps, il,
+    cl)`` replaces the scorer, as in aladin_tpu (a corpus-sharded one:
+    ``parallel/mesh.py::sharded_mrsw_scores``); with bucketing it scores
+    each bucket.
     """
     device = torch.device(device)
     if compute_dtype is None:
@@ -85,7 +91,12 @@ def evaluate_alignment_head(
         np.ceil(np.maximum(np.asarray(cap_lens), 4) / 16.0) * 16, caps.shape[1]).mean()
     bucket_captions = mean_bucket <= 0.75 * caps.shape[1]
 
-    if aggregation == "MrSw" and use_kernel:
+    if score_fn is not None:
+        if bucket_captions:
+            scores = mrsw_scores_bucketed(ims, caps, il, cl, scorer=score_fn)
+        else:
+            scores = score_fn(ims, caps, il, cl)
+    elif aggregation == "MrSw" and use_kernel:
         if bucket_captions:
             scores = mrsw_scores_bucketed(ims, caps, il, cl, compute_dtype=compute_dtype)
         else:

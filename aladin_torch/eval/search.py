@@ -1,5 +1,5 @@
 """Two-stage retrieval search: matching-head shortlist + alignment rerank
-(mirrors aladin_tpu/eval/search.py on one device).
+(mirrors aladin_tpu/eval/search.py).
 
   1. Stage 1 (shortlist): ``q_glob @ corpus.globals.T`` in f32 and a top-k,
      one dot product per (query, item).
@@ -19,6 +19,10 @@ with repeated rows ranks as aladin_tpu ranks it.
 Exactness: with ``shortlist >= corpus size`` the two-stage result equals
 full alignment-head ranking; at shortlist K it is the retrieve-and-rerank
 approximation whose recall floor is the matching head's R@K.
+
+``sharded_search`` spreads the corpus over the ranks of a mesh
+(``parallel/mesh.py``): each rank searches its shard and one all-gather
+brings every shard's k-best to every rank for the final merge.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from aladin_torch.ops.alignment import alignment_scores
 from aladin_torch.ops.similarity import l2norm
 from aladin_torch.ops.topk import top_k
+from aladin_torch.parallel.mesh import Mesh, all_gather_cat
 
 #: candidates a chunk of queries scores at once: at query_chunk 64 and 50
 #: words of D 768 a block gathers 2.5 GB of bf16 token sets (5 GB as f32)
@@ -99,9 +104,13 @@ def _rerank_t2i(q_sets, q_lens, cand_sets, cand_lens, aggregation):
 
 
 def _search_batch(corpus: Corpus, q_sets: torch.Tensor, q_lens: torch.Tensor, *, direction: str,
-                  k: int, shortlist: int, rerank: bool,
-                  aggregation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                  k: int, shortlist: int, rerank: bool, aggregation: str,
+                  n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores, indices) of one chunk of queries. ``n_valid``: the corpus
+    rows past it are padding, masked to -inf before any top-k."""
     sims = torch.matmul(normalize_globals(q_sets[:, 0, :]), corpus.globals.T)
+    if n_valid is not None:
+        sims[:, n_valid:] = float("-inf")
     if not rerank:
         return top_k(sims, k)
 
@@ -111,8 +120,30 @@ def _search_batch(corpus: Corpus, q_sets: torch.Tensor, q_lens: torch.Tensor, *,
     align = torch.cat([  # (Q, K); each block gathers (Q, block, S, D)
         fn(q_norm, q_lens, corpus.token_sets[blk], corpus.lengths[blk], aggregation)
         for blk in short_idx.split(RERANK_BLOCK, dim=1)], dim=1)
+    if n_valid is not None:  # a padding row is shortlisted only by a short shard
+        align = align.masked_fill(short_idx >= n_valid, float("-inf"))
     best, pos = top_k(align, k)
     return best, torch.gather(short_idx, 1, pos)
+
+
+def _chunked(corpus: Corpus, query_sets: torch.Tensor, query_lens: torch.Tensor,
+             query_chunk: Optional[int], **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_search_batch`` over chunks of the queries, the tail padded to
+    the chunk as aladin_tpu pads it; results stay on the device."""
+    n_q = query_sets.shape[0]
+    chunk = n_q if not query_chunk else min(query_chunk, n_q)
+    scores, idx = [], []
+    for lo in range(0, n_q, chunk):
+        qs = query_sets[lo:lo + chunk]
+        ql = query_lens[lo:lo + chunk]
+        pad = chunk - qs.shape[0]
+        if pad:
+            qs = F.pad(qs, (0, 0, 0, 0, 0, pad))
+            ql = F.pad(ql, (0, pad), value=4)
+        s, i = _search_batch(corpus, qs, ql, **kw)
+        scores.append(s[:chunk - pad])
+        idx.append(i[:chunk - pad])
+    return torch.cat(scores), torch.cat(idx)
 
 
 @torch.inference_mode()
@@ -148,20 +179,55 @@ def search(corpus: Corpus, query_sets, query_lens, *, direction: str, k: int = 1
         return np.zeros((0, kk), np.float32), np.zeros((0, kk), np.int32)
     shortlist = min(shortlist, corpus.size)
     k = min(k, corpus.size if not rerank else shortlist)
-    chunk = n_q if not query_chunk else min(query_chunk, n_q)
-
-    scores, idx = [], []
-    for lo in range(0, n_q, chunk):
-        qs = query_sets[lo:lo + chunk]
-        ql = query_lens[lo:lo + chunk]
-        pad = chunk - qs.shape[0]
-        if pad:  # the tail padded to the chunk, as aladin_tpu pads it
-            qs = F.pad(qs, (0, 0, 0, 0, 0, pad))
-            ql = F.pad(ql, (0, pad), value=4)
-        s, i = _search_batch(corpus, qs, ql, direction=direction, k=k, shortlist=shortlist,
-                             rerank=rerank, aggregation=aggregation)
-        scores.append(s[:chunk - pad])
-        idx.append(i[:chunk - pad])
+    scores, idx = _chunked(corpus, query_sets, query_lens, query_chunk, direction=direction,
+                           k=k, shortlist=shortlist, rerank=rerank, aggregation=aggregation)
     # one copy to the host at the end: per-chunk copies would wait for each chunk
-    return (torch.cat(scores).cpu().numpy(),
-            torch.cat(idx).to(torch.int32).cpu().numpy())
+    return scores.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+
+
+@torch.inference_mode()
+def sharded_search(mesh: Mesh, corpus: Corpus, query_sets, query_lens, *, direction: str,
+                   k: int = 10, shortlist: int = 100, rerank: bool = True,
+                   aggregation: str = "MrSw") -> Tuple[np.ndarray, np.ndarray]:
+    """Scale-out ``search``: the corpus sharded over the ranks of ``mesh``,
+    the queries on every rank; every rank returns the same result.
+
+    The corpus axis pads to a multiple of the mesh size and rank r copies
+    shard r of ``corpus`` to its device (a corpus built on another device
+    than ``search``'s normalizes in other roundings, which can reorder
+    near-ties: ``cli/search`` builds it on the rank's device). Each rank runs
+    the two-stage pipeline against its shard (stage-1 top-``shortlist``
+    within the shard, the rerank, the shard's top-``k``); one all-gather
+    concatenates the shards' k-bests in rank order and a final top-k
+    merges them. As in aladin_tpu, this is exact for the matching-only
+    stage, and for the reranked result each shard has its own
+    ``shortlist`` budget, so the result depends on the number of ranks.
+    Padded rows are masked to -inf before any shortlist. Queries go in
+    chunks of ``search``'s default 64.
+    """
+    if direction not in ("i2t", "t2i"):
+        raise ValueError(f"direction must be 'i2t' or 't2i', got {direction!r}")
+    device = mesh.device
+    n = corpus.size
+    shard_n = -(-n // mesh.size)
+    lo = mesh.rank * shard_n
+    hi = min(lo + shard_n, n)
+    pad = shard_n - max(hi - lo, 0)
+    sets, globs, lens = (x[lo:hi].to(device) for x in
+                         (corpus.token_sets, corpus.globals, corpus.lengths))
+    local = Corpus(F.pad(sets, (0, 0, 0, 0, 0, pad)), F.pad(globs, (0, 0, 0, pad)),
+                   F.pad(lens, (0, pad), value=4))
+    shortlist = min(shortlist, shard_n)
+    k_local = min(k, shortlist if rerank else shard_n)
+    query_sets = torch.as_tensor(query_sets, device=device)
+    query_lens = torch.as_tensor(query_lens, dtype=torch.int32, device=device)
+    if query_sets.shape[0] == 0:
+        kk = min(k, mesh.size * k_local)
+        return np.zeros((0, kk), np.float32), np.zeros((0, kk), np.int32)
+    s, i = _chunked(local, query_sets, query_lens, 64, direction=direction, k=k_local,
+                    shortlist=shortlist, rerank=rerank, aggregation=aggregation,
+                    n_valid=max(hi - lo, 0))
+    s_all = all_gather_cat(mesh, s, dim=1)  # (Q, size * k_local), shards in rank order
+    i_all = all_gather_cat(mesh, i + lo, dim=1)
+    best, pos = top_k(s_all, min(k, s_all.shape[1]))
+    return best.cpu().numpy(), torch.gather(i_all, 1, pos).to(torch.int32).cpu().numpy()

@@ -1,5 +1,5 @@
 """Streaming recall: exact ranks without the dense score matrix (mirrors
-aladin_tpu/eval/streaming.py on one device).
+aladin_tpu/eval/streaming.py).
 
 Every recall metric derives from ranks, and a rank is a count:
 
@@ -30,7 +30,16 @@ int8 scoring (``compute_dtype=torch.int8``) quantizes with per-call scales,
 so a ground-truth block and a sweep tile quantize differently and int8
 streaming is not exact, as in aladin_tpu.
 
-Multi-device sweeps (``mesh=``) are not ported yet.
+Mesh sweeps (``mesh=``, a ``parallel/mesh.py`` mesh): each caption block,
+rounded up to a multiple of the mesh size, is split over the ranks (the
+corpus-sharding layout of ``sharded_mrsw_scores``). Every rank holds the
+image buffers and the ground truth (harvested on every rank, as the solo
+sweep harvests it) and scores its slice with the same tile scorer (K1 for
+MrSw on the card): its t2i ranks are complete locally, and the i2t counter
+partials are summed over the ranks in int32, the only collective of a
+tile. The t2i ranks and the per-slice top-k candidates are gathered once,
+after the sweep; the top-k then merges tile by tile, the ranks' slices in
+rank order, as aladin_tpu merges it.
 """
 
 from __future__ import annotations
@@ -46,9 +55,7 @@ from aladin_torch.ops.alignment import score_all_pairs
 from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 from aladin_torch.ops.similarity import l2norm
 from aladin_torch.ops.topk import top_k
-
-_MESH_ERROR = ("multi-device streaming (mesh=) is not ported yet "
-               "(ROADMAP.md, queue 1, item 7: multi-GPU)")
+from aladin_torch.parallel.mesh import Mesh, all_gather_cat, all_reduce_sum_
 
 
 def _dev(x, device: torch.device) -> torch.Tensor:
@@ -150,26 +157,46 @@ def _alignment_tile(ims, il, caps_blk, cl_blk, aggregation: str, use_kernel: boo
 # ---------------------------------------------------------------------------
 
 
-def _sweep(tile_fn, n_cap: int, cap_block: int, n_im: int, cpi: int, block_inputs,
-           device: torch.device, topk: int = 0):
-    """Block sweep over the captions. ``tile_fn(inputs, lo, n_valid)`` maps
-    one block's device inputs to counter updates; ``block_inputs(lo, hi)``
-    returns those inputs. Results stay on the device until the end."""
+def _sweep(mesh: Mesh, tile_fn, n_cap: int, cap_block: int, n_im: int, cpi: int,
+           block_inputs, device: torch.device, topk: int = 0):
+    """Block sweep over the captions, each block (rounded up to a multiple
+    of the mesh size) split over the mesh's ranks: ``block_inputs(lo, hi)``
+    gives this rank's slice of captions ``lo .. hi`` on the device, padded
+    to the slice width, and ``tile_fn(inputs, lo, n_valid)`` its counter
+    updates. Results stay on the device until the end; every rank returns
+    the same ranks (and top-k)."""
+    width = _slice_width(mesh, cap_block)
     counts = torch.zeros((n_im, cpi), dtype=torch.int32, device=device)
-    t2i_parts = []
-    tk = None
-    for lo in range(0, n_cap, cap_block):
-        hi = min(lo + cap_block, n_cap)
-        d_i2t, t2i, tile_tk = tile_fn(block_inputs(lo, hi), lo, hi - lo)
-        counts += d_i2t
-        t2i_parts.append(t2i[:hi - lo])
+    t2i_parts, tk_parts = [], []
+    for lo in range(0, n_cap, width * mesh.size):
+        s_lo = lo + mesh.rank * width
+        n_valid = min(max(n_cap - s_lo, 0), width)
+        d_i2t, t2i, tile_tk = tile_fn(block_inputs(s_lo, s_lo + n_valid), s_lo, n_valid)
+        counts += all_reduce_sum_(mesh, d_i2t)
+        t2i_parts.append(t2i)
         if topk:
-            tk = _merge_topk(tk, tile_tk, topk)
+            tk_parts.append(tile_tk)
+    # (blocks, size * width): each block's columns, in caption order
+    t2i_ranks = all_gather_cat(mesh, torch.stack(t2i_parts), dim=1).reshape(-1)[:n_cap]
     i2t_ranks = counts.min(dim=1).values.cpu().numpy()
-    t2i_ranks = torch.cat(t2i_parts).cpu().numpy()
-    if topk:
-        return i2t_ranks, t2i_ranks, (tk[0].cpu().numpy(), tk[1].cpu().numpy())
-    return i2t_ranks, t2i_ranks, None
+    if not topk:
+        return i2t_ranks, t2i_ranks.cpu().numpy(), None
+    tk = None
+    vals = all_gather_cat(mesh, torch.stack([v for v, _ in tk_parts]), dim=2)
+    ids = all_gather_cat(mesh, torch.stack([c for _, c in tk_parts]), dim=2)
+    for t in range(len(tk_parts)):  # aladin_tpu's merge: the carry, then the slices in rank order
+        tk = _merge_topk(tk, (vals[t], ids[t]), topk)
+    return i2t_ranks, t2i_ranks.cpu().numpy(), (tk[0].cpu().numpy(), tk[1].cpu().numpy())
+
+
+def _slice_width(mesh: Mesh, cap_block: int) -> int:
+    """One rank's slice of a caption block (the whole block on one rank)."""
+    return -(-cap_block // mesh.size)
+
+
+def _one_rank(device) -> Mesh:
+    """The mesh of a sweep on one device: its collectives are the identity."""
+    return Mesh({"dp": 1}, None, 0, torch.device(device))
 
 
 def _masked(S: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -206,27 +233,29 @@ def streaming_matching_ranks(img_glob, cap_glob, captions_per_image: int = 5,
     img_glob: (N, D) unique image embeddings (callers with the 5-per-image
     row layout pass img_embs[::cpi]); cap_glob: (M, D) caption embeddings,
     a host array (blocks go to ``device`` one at a time) or a tensor.
+    ``mesh``: the blocks split over its ranks (module docstring), on
+    ``mesh.device``.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
-    device = torch.device(device)
+    mesh = mesh or _one_rank(device)
+    device = mesh.device
     cpi = captions_per_image
     ims = _dev(img_glob, device)
     n_im, n_cap = ims.shape[0], cap_glob.shape[0]
     assert n_cap == n_im * cpi, (n_cap, n_im, cpi)
     gt = matching_ground_truth(ims, cap_glob, cpi, min(4096, cap_block))
+    width = _slice_width(mesh, cap_block)
 
     def block_inputs(lo, hi):
         blk = _dev(cap_glob[lo:hi], device)
-        if hi - lo < cap_block:  # tail: padded so every tile has one shape
-            blk = F.pad(blk, (0, 0, 0, cap_block - (hi - lo)))
+        if hi - lo < width:  # tail: padded so every tile has one shape
+            blk = F.pad(blk, (0, 0, 0, width - (hi - lo)))
         return blk
 
     def tile_fn(blk, lo, n_valid):
         S = _masked(_matching_tile(ims, blk), n_valid)
         return _tile_counts(S, lo, n_valid, gt, cpi, topk)
 
-    i2t, t2i, tk = _sweep(tile_fn, n_cap, cap_block, n_im, cpi, block_inputs, device, topk)
+    i2t, t2i, tk = _sweep(mesh, tile_fn, n_cap, cap_block, n_im, cpi, block_inputs, device, topk)
     return (i2t, t2i, tk) if topk else (i2t, t2i)
 
 
@@ -242,11 +271,11 @@ def streaming_alignment_ranks(img_sets, cap_seqs, img_lens, cap_lens, aggregatio
     D), a host array or a tensor. ``use_kernel`` (default: ``device`` is
     CUDA) scores MrSw tiles with ``mrsw_scores`` (K1 on the card, its plain
     version on the CPU) in ``compute_dtype`` (bf16 by default); otherwise
-    ``score_all_pairs`` scores in f32.
+    ``score_all_pairs`` scores in f32. ``mesh``: the blocks split over its
+    ranks (module docstring), on ``mesh.device``.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
-    device = torch.device(device)
+    mesh = mesh or _one_rank(device)
+    device = mesh.device
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     if compute_dtype is None:
@@ -274,11 +303,13 @@ def streaming_alignment_ranks(img_sets, cap_seqs, img_lens, cap_lens, aggregatio
         S = tile(ims[img_idx], il[img_idx], blk, cl[torch.as_tensor(idx, device=device)])
         gt[lo:hi] = torch.diagonal(S)[:hi - lo]
 
+    width = _slice_width(mesh, cap_block)
+
     def block_inputs(lo, hi):
-        blk = torch.zeros((cap_block,) + tuple(cap_seqs.shape[1:]), dtype=torch.float32,
+        blk = torch.zeros((width,) + tuple(cap_seqs.shape[1:]), dtype=torch.float32,
                           device=device)
         blk[:hi - lo] = _dev(cap_seqs[lo:hi], device)
-        cl_blk = torch.full((cap_block,), 4, dtype=cl.dtype, device=device)
+        cl_blk = torch.full((width,), 4, dtype=cl.dtype, device=device)
         cl_blk[:hi - lo] = cl[lo:hi]
         return l2norm(blk, eps=1e-12), cl_blk
 
@@ -286,7 +317,7 @@ def streaming_alignment_ranks(img_sets, cap_seqs, img_lens, cap_lens, aggregatio
         S = _masked(tile(ims, il, *inputs), n_valid)
         return _tile_counts(S, lo, n_valid, gt, cpi)
 
-    i2t, t2i, _ = _sweep(tile_fn, n_cap, cap_block, n_im, cpi, block_inputs, device)
+    i2t, t2i, _ = _sweep(mesh, tile_fn, n_cap, cap_block, n_im, cpi, block_inputs, device)
     return i2t, t2i
 
 

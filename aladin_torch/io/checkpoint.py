@@ -14,7 +14,9 @@ files without it read 0).
   * ``save_checkpoint`` writes ``<dir>/checkpoint.pth.tar`` through a
     temporary file swapped in atomically (retrying IO failures), then copies
     it to ``model_best_rsum.pth.tar`` / ``model_best_ndcgspice.pth.tar`` on
-    a new best of either gate;
+    a new best of either gate; in a data-parallel run only the main process
+    writes (the state is the same on every rank), the others wait at the
+    Trainer's barrier and, on ``--resume``, read the same file;
   * ``resume_state`` restores model, aux, optimizer and step from such a
     file; a released reference file restores the weights only;
   * ``load_teacher_params`` is the non-strict weights-only load, with a
@@ -33,6 +35,7 @@ import torch
 from torch import nn
 
 from aladin_torch.io.convert import load_aladin_checkpoint
+from aladin_torch.parallel.distributed import is_main_process
 
 PREFIX = "img_txt_enc."
 
@@ -111,9 +114,11 @@ def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any]
     """Write ``<out_dir>/<name>.pth.tar``; copy it to
     ``model_best_rsum.pth.tar`` when ``is_best_rsum`` and to
     ``model_best_ndcgspice.pth.tar`` when ``is_best_ndcgspice``. Returns the
-    path."""
-    os.makedirs(out_dir, exist_ok=True)
+    path; a process other than the main one writes nothing."""
     path = os.path.abspath(os.path.join(out_dir, f"{name}.pth.tar"))
+    if not is_main_process():
+        return path
+    os.makedirs(out_dir, exist_ok=True)
     ckpt = {
         "epoch": int(epoch),
         "model": {PREFIX + k: v.detach().cpu() for k, v in state.model.state_dict().items()},

@@ -137,8 +137,22 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids, token_type_ids):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
-             + self.token_type_embeddings(token_type_ids))
+             + select_rows(self.token_type_embeddings.weight, token_type_ids))
         return self.dropout(self.LayerNorm(x))
+
+
+def select_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a table of a few rows (the token types), as a
+    chain of ``torch.where`` selects: the forward copies the rows exactly as
+    the embedding lookup does, and each row's gradient is a reduction over
+    the positions in a fixed order. The lookup's CUDA backward sums every
+    position into its row with atomics once there are more than 3072
+    indices, so a step at B 128 would not repeat itself bit for bit. Ids
+    past the table select row 0."""
+    out = table[0].expand(*ids.shape, table.shape[1])
+    for t in range(1, table.shape[0]):
+        out = torch.where((ids == t)[..., None], table[t], out)
+    return out
 
 
 class BertSelfAttention(nn.Module):

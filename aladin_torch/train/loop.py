@@ -17,7 +17,14 @@
   * a checkpoint after each validation, copied on a new best of either;
   * ``--profile_dir``: a ``torch.profiler`` trace of the dispatches that
     cover ``--profile_steps`` steps, from the second dispatch of the first
-    epoch this Trainer runs (the first, for an epoch of one dispatch), once.
+    epoch this Trainer runs (the first, for an epoch of one dispatch), once;
+  * with a ``mesh`` (data parallelism, as aladin_tpu's Trainer): the
+    data-parallel step, the logged metrics averaged over the ranks
+    (``all_reduce_metrics``), validation encoded on every rank and scored
+    corpus-sharded (``sharded_matching_scores`` + ``compute_recall_from_
+    scores``, the alignment head through ``sharded_mrsw_scores``); rank 0
+    alone logs, traces and writes the checkpoints, and every rank waits at a
+    barrier after each checkpoint.
 
 The validation dataset is built with is_train=True, as the reference does.
 """
@@ -31,12 +38,15 @@ import torch
 
 from aladin_torch.config import DataArgs, ExperimentConfig
 from aladin_torch.eval.encode import encode_data
-from aladin_torch.eval.recall import compute_recall
+from aladin_torch.eval.recall import compute_recall, compute_recall_from_scores
 from aladin_torch.eval.retrieval import evaluate_alignment_head
 from aladin_torch.io.checkpoint import save_checkpoint
+from aladin_torch.parallel.distributed import (all_reduce_metrics, barrier, is_main_process,
+                                               rank_logger)
+from aladin_torch.parallel.mesh import Mesh, sharded_matching_scores, sharded_mrsw_scores
 from aladin_torch.train.state import TrainState
 from aladin_torch.train.step import make_eval_step, make_multi_train_step, make_train_step
-from aladin_torch.utils.logging import AverageMeter, LogCollector, setup_logger
+from aladin_torch.utils.logging import AverageMeter, LogCollector
 from aladin_torch.utils.profiling import Trace
 
 
@@ -49,7 +59,8 @@ def crossed(gstep: int, width: int, period: int) -> bool:
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, args: DataArgs, model, state: TrainState,
                  train_loader, val_loader, device: torch.device,
-                 compute_dtype: Optional[torch.dtype] = None, ndcg_scorer=None):
+                 compute_dtype: Optional[torch.dtype] = None, ndcg_scorer=None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.args = args
         self.model = model
@@ -60,16 +71,18 @@ class Trainer:
         self.steps_per_dispatch = int(getattr(args, "steps_per_dispatch", 1))
         if self.steps_per_dispatch < 1:
             raise ValueError(f"--steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}")
-        self.train_step = make_train_step(model, cfg, compute_dtype)
-        self.multi_step = (make_multi_train_step(model, cfg, compute_dtype, self.steps_per_dispatch)
+        self.mesh = mesh
+        self.train_step = make_train_step(model, cfg, compute_dtype, mesh)
+        self.multi_step = (make_multi_train_step(model, cfg, compute_dtype,
+                                                 self.steps_per_dispatch, mesh)
                            if self.steps_per_dispatch > 1 else None)
-        self.profile_dir = getattr(args, "profile_dir", "")
+        self.profile_dir = getattr(args, "profile_dir", "") if is_main_process() else ""
         self.profile_steps = int(getattr(args, "profile_steps", 5))
         if self.profile_dir and self.profile_steps < 1:
             raise ValueError(f"--profile_steps must be >= 1, got {self.profile_steps}")
         self.profiled = False  # one trace a Trainer
         self.eval_step = make_eval_step(model, compute_dtype)
-        self.logger = setup_logger("vlpretrain", args.logger_name)
+        self.logger = rank_logger(args.logger_name)
         self.ndcg_scorer = ndcg_scorer
         self.best_rsum = -1.0
         self.best_ndcgspice = -1.0
@@ -100,7 +113,8 @@ class Trainer:
             for col in host.T.tolist():
                 for n, v in zip(names, col):
                     collector.update(n, v, n=1)
-            self.last_metrics = dict(zip(names, host[:, -1].tolist()))
+            last = dict(zip(names, host[:, -1].tolist()))
+            self.last_metrics = last if self.mesh is None else all_reduce_metrics(last)
             pending.clear()
             window_start = time.time()
             self.logger.info(f"Epoch: [{epoch}][{i}/{len(self.train_loader)}]\t{collector}\t"
@@ -168,17 +182,27 @@ class Trainer:
             return 0.0, 0.0
         img_embs, cap_embs, img_lens, cap_lens = encode_data(self.eval_step, self.val_loader,
                                                              logger=self.logger)
-        m = compute_recall(img_embs[:, 0, :], cap_embs[:, 0, :], device=self.device)
+        score_fn = None
+        if self.mesh is None:
+            m = compute_recall(img_embs[:, 0, :], cap_embs[:, 0, :], device=self.device)
+        else:
+            m = compute_recall_from_scores(sharded_matching_scores(
+                self.mesh, img_embs[::5, 0, :], cap_embs[:, 0, :]))
         self.logger.info("Matching: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f"
                          % (m["i2t_r1"], m["i2t_r5"], m["i2t_r10"],
                             m["t2i_r1"], m["t2i_r5"], m["t2i_r10"], m["rsum"]))
         rsum, ndcg_sum = m["rsum"], 0.0
         if "alignment" in self.cfg.training.loss_types:
             scoring = torch.int8 if self.args.compute_dtype == "int8" else torch.bfloat16
+            if self.mesh is not None:
+                def score_fn(ims, caps, il, cl):
+                    return sharded_mrsw_scores(self.mesh, ims, caps, il, cl,
+                                               aggregation=self.cfg.training.alignment_mode,
+                                               compute_dtype=scoring)
             i2t, t2i, _ = evaluate_alignment_head(
                 img_embs, cap_embs, img_lens, cap_lens,
                 aggregation=self.cfg.training.alignment_mode, compute_dtype=scoring,
-                device=self.device, ndcg_scorer=self.ndcg_scorer)
+                device=self.device, ndcg_scorer=self.ndcg_scorer, score_fn=score_fn)
             rsum_align = i2t["r1"] + i2t["r5"] + i2t["r10"] + t2i["r1"] + t2i["r5"] + t2i["r10"]
             ndcg_sum = i2t["ndcg_spice"] + t2i["ndcg_spice"]
             self.logger.info("Alignment: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f "
@@ -194,6 +218,9 @@ class Trainer:
         self.best_rsum = max(rsum, self.best_rsum)
         is_best_ndcg = self.ndcg_scorer is not None and ndcg_sum > self.best_ndcgspice
         self.best_ndcgspice = max(ndcg_sum, self.best_ndcgspice)
-        return save_checkpoint(self.args.logger_name, self.state, epoch + 1, self.cfg.to_dict(),
+        path = save_checkpoint(self.args.logger_name, self.state, epoch + 1, self.cfg.to_dict(),
                                self.best_rsum, is_best_rsum=is_best, opt=vars(self.args),
                                is_best_ndcgspice=is_best_ndcg)
+        if self.mesh is not None:
+            barrier("checkpoint")
+        return path

@@ -21,6 +21,21 @@ backbone layer (models/bert_img.py), and ``training.encoder-microbatch`` runs
 the whole model over micro-batches under checkpoints
 (``encode_microbatched``) while the losses see the whole batch.
 
+Data parallelism (``mesh=``, a ``parallel/mesh.py`` mesh over ``dp``
+ranks, each with B / dp rows of the global batch): as aladin_tpu's SPMD
+step, the losses are the global batch's. Each rank runs the model on its
+rows; the global embeddings and the caption token sets are gathered with
+a gradient; each rank computes its own row block of the alignment matrix
+(its images against every caption), so the B x B x R x W work is split
+over the ranks, and the blocks are gathered with a gradient. Every rank
+then reduces the same global loss from the same B x B matrices. A
+gather's backward sums the ranks' gradients, so each rank's parameter
+gradients are dp times its share of the loss's; one all-reduce of a flat
+buffer of every gradient, divided by dp, gives the loss's gradient on
+every rank, before ``grad_norm``, the clip and Adam. There is no
+``DistributedDataParallel``: its hooks are not part of the step that a CUDA
+graph captures, and this all-reduce is.
+
 ``make_multi_train_step`` runs a window of K steps as one dispatch, the
 counterpart of aladin_tpu's jitted ``lax.scan``: on the card one CUDA graph
 that captured K consecutive steps over K static batch buffers, replayed once
@@ -42,6 +57,8 @@ from torch.utils.checkpoint import checkpoint
 from aladin_torch.config import ExperimentConfig
 from aladin_torch.models.aladin import ALADIN, AladinOutputs, Batch
 from aladin_torch.ops import losses as L
+from aladin_torch.ops.alignment import alignment_scores, alignment_scores_chunked
+from aladin_torch.parallel.mesh import Mesh, all_gather_cat, all_reduce_sum_, gather_rows
 from aladin_torch.train.state import TrainState, global_norm
 
 
@@ -104,16 +121,36 @@ def _replay_generator(gen: torch.Generator):
 
 
 def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
-                 compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                 compute_dtype: Optional[torch.dtype] = None,
+                 mesh: Optional[Mesh] = None) -> Callable:
     """(aux params, batch, epoch, distill_gate=None) -> (total loss,
     {name_loss: term, loss}). The forward runs under autocast to
     ``compute_dtype``; the losses take its f32 outputs and stay in f32.
     ``distill_gate``: a device scalar (1 or 0) that replaces the host's
     ``epoch >= activate-distillation-after``, so a CUDA graph reads the gate
-    of the epoch it is replayed in."""
+    of the epoch it is replayed in. ``mesh``: ``batch`` holds this rank's
+    rows, and the loss is the global batch's (module docstring), the same
+    on every rank."""
     tc = cfg.training
     types = tc.loss_types
     mb = tc.encoder_microbatch
+
+    def gather(x):
+        return x if mesh is None else gather_rows(mesh, x)
+
+    def alignment_matrix(out: AladinOutputs) -> torch.Tensor:
+        """This rank's images against every caption, the blocks stacked."""
+        caps, cap_len = gather(out.cap_seq), out.cap_len
+        if mesh is not None:
+            cap_len = all_gather_cat(mesh, cap_len)
+        if tc.alignment_chunk > 0:
+            block = alignment_scores_chunked(out.img_set, caps, out.img_len, cap_len,
+                                             tc.alignment_mode, tc.alignment_chunk,
+                                             normalized=True)
+        else:
+            block = alignment_scores(out.img_set, caps, out.img_len, cap_len, tc.alignment_mode,
+                                     normalized=True)
+        return gather(block)
 
     def loss_fn(aux: Dict[str, torch.Tensor], batch: Batch, epoch: int,
                 distill_gate: Optional[torch.Tensor] = None):
@@ -122,18 +159,17 @@ def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
                 out = encode_microbatched(model, batch, mb)
             else:
                 out = model(batch)
+        img_global, cap_global = gather(out.img_global), gather(out.cap_global)
         terms: Dict[str, torch.Tensor] = {}
-        matching_loss, matching_mat = L.matching_loss(out.img_global, out.cap_global, tc.margin,
+        matching_loss, matching_mat = L.matching_loss(img_global, cap_global, tc.margin,
                                                       tc.measure, tc.max_violation)
         if "matching" in types:
             terms["matching"] = matching_loss
         teacher = None
         if "alignment" in types or "distillation" in types:
-            alignment_loss, teacher = L.alignment_contrastive_loss(
-                out.img_set, out.cap_seq, out.img_len, out.cap_len, tc.margin, tc.max_violation,
-                tc.alignment_mode, normalized=True, chunk=tc.alignment_chunk)
+            teacher = alignment_matrix(out)
             if "alignment" in types:
-                terms["alignment"] = alignment_loss
+                terms["alignment"] = L.contrastive_hinge(teacher, tc.margin, tc.max_violation)
         if "selfaggregation" in types:
             terms["selfaggregation"] = matching_loss
         if "distillation" in types:
@@ -141,9 +177,10 @@ def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
                 teacher.detach(), matching_mat, tc.distillation_mode, wb=aux.get("distill_wb"),
                 margin=0.2)
         if "entropy" in types:
-            terms["entropy"] = L.entropy_uniformity_loss(out.img_global, out.cap_global)
+            terms["entropy"] = L.entropy_uniformity_loss(img_global, cap_global)
         if "regularizehidden" in types:
-            terms["regularizehidden"] = out.l1_reg
+            terms["regularizehidden"] = (out.l1_reg if mesh is None
+                                         else gather(out.l1_reg[None]).mean())
 
         gates = {k: 1.0 for k in terms}
         if "distillation" in terms and len(terms) > 1:
@@ -164,38 +201,54 @@ def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
 
 
 def _update(model: ALADIN, loss_fn: Callable, state: TrainState, batch: Batch, epoch: int,
-            lr: Optional[torch.Tensor] = None,
-            distill_gate: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+            lr: Optional[torch.Tensor] = None, distill_gate: Optional[torch.Tensor] = None,
+            mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """The body of one step (see ``make_train_step``); ``lr`` and
     ``distill_gate``: device scalars a CUDA graph reads instead of the
-    host's schedule value and epoch."""
+    host's schedule value and epoch; ``mesh``: the gradients are averaged
+    over its ranks first."""
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
     for p in state.frozen:
         p.grad = None
     total, metrics = loss_fn(state.aux, batch, epoch, distill_gate)
     total.backward()
+    if mesh is not None:
+        average_gradients(mesh, [p.grad for p in state.parameters() if p.grad is not None])
     metrics["grad_norm"] = global_norm([p.grad for p in state.parameters() if p.grad is not None])
     state.apply_gradients(lr)
     return {k: v.detach() for k, v in metrics.items()}
 
 
+def average_gradients(mesh: Mesh, grads: List[torch.Tensor]) -> None:
+    """Replace each gradient by its mean over the mesh's ranks: one
+    all-reduce of one flat buffer, in place."""
+    if not grads:
+        return
+    flat = all_reduce_sum_(mesh, torch.cat([g.reshape(-1) for g in grads]))
+    flat.div_(mesh.size)
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
 def make_train_step(model: ALADIN, cfg: ExperimentConfig,
-                    compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """(state, batch, epoch) -> metrics: one update of ``state`` in place;
     metrics are detached device scalars, ``grad_norm`` (over every
-    gradient, before the clip) included."""
-    loss_fn = make_loss_fn(model, cfg, compute_dtype)
+    gradient, before the clip) included. ``mesh``: the data-parallel step
+    over this rank's rows of the global batch (module docstring)."""
+    loss_fn = make_loss_fn(model, cfg, compute_dtype, mesh)
 
     def train_step(state: TrainState, batch: Batch, epoch: int) -> Dict[str, torch.Tensor]:
-        return _update(model, loss_fn, state, batch, epoch)
+        return _update(model, loss_fn, state, batch, epoch, mesh=mesh)
 
     return train_step
 
 
 def make_multi_train_step(model: ALADIN, cfg: ExperimentConfig,
                           compute_dtype: Optional[torch.dtype] = None,
-                          k: int = 2) -> Callable:
+                          k: int = 2, mesh: Optional[Mesh] = None) -> Callable:
     """(state, batches, epoch) -> metrics stacked (len(batches),): a window
     of up to ``k`` steps as one dispatch, equal to as many single steps
     (``make_train_step``) bit for bit.
@@ -206,11 +259,12 @@ def make_multi_train_step(model: ALADIN, cfg: ExperimentConfig,
     static buffers on the current stream, so they are ordered after the
     loader's copies, and the metrics come back as a copy of the graph's
     (k,) slots. A shorter window (an epoch's remainder) and every window on
-    the CPU run as single steps, one after another."""
+    the CPU run as single steps, one after another. With ``mesh`` the
+    graph captures the data-parallel step's collectives too."""
     if k < 1:
         raise ValueError(f"steps per dispatch must be >= 1, got {k}")
-    single = make_train_step(model, cfg, compute_dtype)
-    loss_fn = make_loss_fn(model, cfg, compute_dtype)
+    single = make_train_step(model, cfg, compute_dtype, mesh)
+    loss_fn = make_loss_fn(model, cfg, compute_dtype, mesh)
 
     def multi_step(state: TrainState, batches: List[Batch], epoch: int) -> Dict[str, torch.Tensor]:
         if not 1 <= len(batches) <= k:
@@ -219,7 +273,7 @@ def make_multi_train_step(model: ALADIN, cfg: ExperimentConfig,
             rows = [single(state, b, epoch) for b in batches]
             return {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
         if multi_step.window is None:
-            multi_step.window = CapturedWindow(model, cfg, loss_fn, state, batches)
+            multi_step.window = CapturedWindow(model, cfg, loss_fn, state, batches, mesh)
         return multi_step.window.replay(state, batches, epoch)
 
     multi_step.window = None
@@ -248,10 +302,15 @@ class CapturedWindow:
     The memory levers capture too: non-reentrant checkpoint's stash and
     restore of the CUDA generator's state for the recompute happen inside
     the capture, so a window with remat or micro-batches equals its eager
-    steps bit for bit (``tests/test_torch_gpu.py``, torch 2.11 + CUDA 12.8)."""
+    steps bit for bit (``tests/test_torch_gpu.py``, torch 2.11 + CUDA 12.8).
+
+    With ``mesh`` the data-parallel step's NCCL collectives (the gathers,
+    their backward all-reduces and the gradient all-reduce) are issued on
+    the capture stream and captured with the window; a capture that NCCL
+    refuses raises, it never falls back to eager steps."""
 
     def __init__(self, model: ALADIN, cfg: ExperimentConfig, loss_fn: Callable,
-                 state: TrainState, batches: List[Batch]):
+                 state: TrainState, batches: List[Batch], mesh: Optional[Mesh] = None):
         if not state.capturable:
             raise ValueError("a CUDA graph of the train step needs the capturable optimizer "
                              "(TrainState on the card)")
@@ -268,19 +327,26 @@ class CapturedWindow:
         saved = self._save(state, device)
         self.stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(self.stream):
-            _update(model, loss_fn, state, self.inputs[0], 0, self.lrs[0], self.gate)
+            _update(model, loss_fn, state, self.inputs[0], 0, self.lrs[0], self.gate, mesh)
         torch.cuda.current_stream(device).wait_stream(self.stream)
         self._restore(state, saved, device)
 
         self.graph = torch.cuda.CUDAGraph()
         state.optimizer.zero_grad(set_to_none=True)  # the captured steps' grads live in the pool
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            rows = [_update(model, loss_fn, state, self.inputs[i], 0, self.lrs[i], self.gate)
-                    for i in range(self.n)]
-            self.names = list(rows[0])
-            # the window's metrics, stacked as lax.scan stacks them
-            self.metrics = torch.stack([torch.stack([r[k].float() for r in rows])
-                                        for k in self.names])
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                rows = [_update(model, loss_fn, state, self.inputs[i], 0, self.lrs[i], self.gate,
+                                mesh) for i in range(self.n)]
+                self.names = list(rows[0])
+                # the window's metrics, stacked as lax.scan stacks them
+                self.metrics = torch.stack([torch.stack([r[k].float() for r in rows])
+                                            for k in self.names])
+        except RuntimeError as e:
+            if mesh is None:
+                raise
+            raise RuntimeError(f"the data-parallel train window could not be captured as one "
+                               f"CUDA graph with its NCCL collectives ({e}); run with "
+                               f"--steps_per_dispatch 1") from e
         state.step = step
 
     def _fill(self, state: TrainState, batches: List[Batch], epoch: int) -> None:

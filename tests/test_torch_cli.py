@@ -153,10 +153,11 @@ def test_cli_needs_cuda_unless_cpu_asked(checkpoint):
                         "--output_dir", os.path.join(work, "nocuda")])
 
 
-@pytest.mark.parametrize("flags", [["--mesh_shape", "dp=2"],
-                                   ["query", "--mesh_shape", "dp=2"]])
+@pytest.mark.parametrize("flags", [["--mesh_shape", "dp=1,tp=2"],
+                                   ["query", "--mesh_shape", "dp=1,tp=2"]])
 def test_cli_unported_flags_raise(flags):
-    """cli/test's unported flags, and cli/search query on a multi-device mesh."""
+    """cli/test and cli/search query on a mesh with a tp axis: tensor
+    parallelism is not ported (ROADMAP.md item 7b)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if flags[0] == "query":
             torch_search.main([*flags, "--index_dir", "unused", "--query_index", "0",
@@ -196,4 +197,5 @@ def test_port_imports_no_jax():
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 20
     assert {"aladin_torch.eval.dcg", "aladin_torch.eval.rouge", "aladin_torch.eval.relevance",
-            "aladin_torch.models.attention_aggregation"} <= names
+            "aladin_torch.models.attention_aggregation", "aladin_torch.parallel",
+            "aladin_torch.parallel.distributed", "aladin_torch.parallel.mesh"} <= names

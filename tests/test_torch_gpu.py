@@ -946,3 +946,105 @@ def test_graphed_state_resumes_on_the_card_and_on_the_cpu(cuda, tmp_path):
     cpu_batch = Batch(**{f: getattr(batches[2], f).cpu() for f in Batch.__dataclass_fields__})
     metrics = make_train_step(cpu_model, cpu.cfg)(cpu, cpu_batch, 1)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL process group on this card and its mesh (the
+    single-card form of a data-parallel run; the two-rank parity runs on
+    gloo in tests/test_torch_parallel.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import socket
+
+    import torch.distributed as dist
+
+    from aladin_torch.parallel.distributed import initialize, shutdown
+    from aladin_torch.parallel.mesh import create_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield create_mesh("dp=1")
+    shutdown()
+
+
+def test_sharded_scorer_on_a_one_rank_nccl_group(cuda, nccl_mesh):
+    """sharded_mrsw_scores (no small-corpus fallback) launches K1 once a call
+    and equals mrsw_scores bit for bit in bf16 (K1's scores do not depend
+    on the corpus shape) and within 1e-5 relative in int8 (its scales are
+    the shard's); sharded_matching_scores equals the f32 product bit for bit."""
+    from aladin_torch.parallel.mesh import sharded_matching_scores, sharded_mrsw_scores
+
+    args = _corpus(cuda, 37, 301, 34, 50, 768)
+    for dt in (torch.bfloat16, torch.int8):
+        before = ak.mrsw_scores.launches
+        got = sharded_mrsw_scores(nccl_mesh, *args, compute_dtype=dt, small_corpus_fallback=False)
+        assert ak.mrsw_scores.launches == before + 1
+        want = ak.mrsw_scores(*args, compute_dtype=dt)
+        if dt == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    ims, caps = args[0][:, 0], args[1][:, 0]
+    assert torch.equal(sharded_matching_scores(nccl_mesh, ims, caps), ims @ caps.T)
+
+
+def test_dp_step_on_a_one_rank_nccl_group_equals_the_plain_step(cuda, nccl_mesh):
+    """The data-parallel step (gathers, their backward all-reduces, the flat
+    gradient all-reduce) on one rank equals the plain step bit for bit, knobs
+    on, dropout 0, over 3 steps."""
+    from aladin_torch.train.step import make_train_step
+
+    batches = _small_batches(3)
+    plain_model, plain = _small_train(0.0, 0)
+    dp_model, dp = _small_train(0.0, 0)
+    step = make_train_step(plain_model, plain.cfg, torch.bfloat16)
+    dp_step = make_train_step(dp_model, dp.cfg, torch.bfloat16, nccl_mesh)
+    for b in batches:
+        want, got = step(plain, b, 0), dp_step(dp, b, 0)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
+    for p, q in zip(dp.trainable, plain.trainable):
+        assert torch.equal(p, q)
+
+
+def test_dp_graphed_window_equals_eager_dp_steps(cuda, nccl_mesh):
+    """A CUDA graph of 4 data-parallel steps, with the NCCL collectives
+    captured inside it, replayed twice, against 8 eager data-parallel steps:
+    metrics, parameters and Adam moments bit for bit."""
+    from aladin_torch.train.step import make_multi_train_step, make_train_step
+
+    batches = _small_batches(8)
+    eager_model, eager = _small_train(0.0, 0)
+    graph_model, graphed = _small_train(0.0, 0)
+    step = make_train_step(eager_model, eager.cfg, torch.bfloat16, nccl_mesh)
+    singles = [step(eager, b, 0) for b in batches]
+    multi = make_multi_train_step(graph_model, graphed.cfg, torch.bfloat16, k=4, mesh=nccl_mesh)
+    windows = [multi(graphed, batches[:4], 0), multi(graphed, batches[4:], 0)]
+    for name in singles[0]:
+        got = torch.cat([w[name] for w in windows])
+        assert torch.equal(got, torch.stack([m[name] for m in singles])), name
+    for p, q in zip(graphed.trainable, eager.trainable):
+        assert torch.equal(p, q)
+        for key, v in eager.optimizer.state[q].items():
+            assert torch.equal(graphed.optimizer.state[p][key], v), key
+
+
+def test_token_type_gradient_repeats_itself_past_3072_indices(cuda):
+    """The token-type rows' gradient is a fixed-order reduction: two
+    backwards over 128 x 50 ids give the same bits, and the forward equals
+    the embedding lookup's."""
+    from aladin_torch.models.bert_img import select_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randn(2, 768, generator=gen, device="cuda", requires_grad=True)
+    ids = torch.randint(0, 2, (128, 50), generator=gen, device="cuda")
+    g = torch.randn(128, 50, 768, generator=gen, device="cuda")
+    out = select_rows(table, ids)
+    assert torch.equal(out, torch.nn.functional.embedding(ids, table))
+    first, = torch.autograd.grad(out, table, g)
+    second, = torch.autograd.grad(select_rows(table, ids), table, g)
+    assert torch.equal(first, second)

@@ -19,6 +19,7 @@ from aladin_torch.eval import streaming as tst
 from aladin_torch.ops.alignment import AGGREGATIONS, score_all_pairs
 from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 from aladin_torch.ops.similarity import l2norm
+from aladin_torch.parallel.mesh import create_mesh
 from aladin_tpu.eval import streaming as jst
 
 N, CPI, D = 24, 5, 32
@@ -198,8 +199,11 @@ def test_compute_recall_auto_engages_streaming(globs, monkeypatch):
 
 @pytest.mark.parametrize("fn", ["matching", "alignment"])
 def test_mesh_raises(globs, sets, fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh with a tp axis raises: tensor parallelism is not ported
+    (ROADMAP.md item 7b); the mesh sweeps are tests/test_torch_parallel.py's."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 7b"):
         if fn == "matching":
-            tst.streaming_matching_ranks(*globs, CPI, mesh=object(), device="cpu")
+            tst.streaming_matching_ranks(*globs, CPI, mesh=create_mesh("dp=1,tp=2"),
+                                         device="cpu")
         else:
-            tst.streaming_alignment_ranks(*sets, mesh=object(), device="cpu")
+            tst.streaming_alignment_ranks(*sets, mesh=create_mesh("dp=1,tp=2"), device="cpu")

@@ -221,8 +221,9 @@ def test_train_cli_runs_saves_and_resumes(tmp_path):
     assert load_checkpoint(again["checkpoint"])[0]["epoch"] == 2
 
 
-@pytest.mark.parametrize("flags", [["--mesh_shape", "dp=2"]])
+@pytest.mark.parametrize("flags", [["--mesh_shape", "dp=1,tp=2"]])
 def test_train_cli_unported_flags_raise(flags, tmp_path):
+    """A tp axis: tensor parallelism is not ported (ROADMAP.md item 7b)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_train_cli.main(CLI + ["--output_dir", str(tmp_path), *flags])
 
