@@ -80,8 +80,30 @@ def add_shared_flags(p: argparse.ArgumentParser) -> None:
                    help="cli/train: K train steps a dispatch, one CUDA graph of K steps on "
                         "the card (the same result as K single steps); log/val cadences fire "
                         "at window boundaries")
+    add_device_flag(p)
+
+
+def add_hidden_act_flag(p: argparse.ArgumentParser) -> None:
+    """--hidden_act for drivers that build a BertImgConfig directly (the
+    OSCAR task drivers; the flagship trainer reads model.hidden-act from its
+    recipe instead)."""
+    p.add_argument("--hidden_act", default="gelu", choices=["gelu", "gelu_tanh"],
+                   help="backbone FFN activation; gelu_tanh = the tanh approximation (not "
+                        "bit-compatible with erf-trained checkpoints)")
+
+
+def add_device_flag(p: argparse.ArgumentParser) -> None:
+    """--device, with CUDA as the default."""
     p.add_argument("--device", default="cuda",
                    help="torch device; entry points need CUDA unless this is 'cpu'")
+
+
+def task_tokenizer(eval_model_dir: str) -> BertWordPieceTokenizer:
+    """The OSCAR task drivers' tokenizer: the vocab of ``eval_model_dir``
+    when given, else the synthetic one."""
+    if eval_model_dir:
+        return BertWordPieceTokenizer.from_pretrained(eval_model_dir)
+    return build_tokenizer(DataArgs())
 
 
 def to_data_args(ns: argparse.Namespace) -> DataArgs:

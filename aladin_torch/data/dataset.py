@@ -130,6 +130,45 @@ class DisentangledTensorizer:
         i_ids, i_mask, i_seg, i_feats, img_len = self.image_stream(od_labels, feats)
         return Example(t_ids, t_mask, t_seg, cap_len, i_ids, i_mask, i_seg, i_feats, img_len)
 
+    def tensorize_joint(self, caption: str, od_labels: Optional[str], feats: np.ndarray):
+        """OSCAR-style JOINT stream: [CLS] caption [SEP] od-labels [SEP] +
+        regions, 'CLR' 1-D mask (ref:alad/dataset.py:133-201) - the input of
+        the entangled pair classifier / teacher path.
+
+        Returns (ids, mask, segment_ids, feats, seq_a_len, img_len) with
+        static shapes.
+        """
+        body_a = self._encode_trunc(caption, self.max_seq_len - 2)
+        ids = [self.cls_id] + body_a + [self.sep_id]
+        seg = [0] * len(ids)
+        seq_a_len = len(ids)
+        room = self.max_seq_len - len(ids) - 1
+        if od_labels and room > 0:
+            # room<=0 (caption fills the window) drops the b-segment whole —
+            # appending even the bare [SEP] would overflow the static width
+            body_b = self._encode_trunc(od_labels, room)
+            ids += body_b + [self.sep_id]
+            seg += [1] * (len(body_b) + 1)
+        seq_len = len(ids)
+        ids = ids + [self.pad_id] * (self.max_seq_len - seq_len)
+        seg += [0] * (self.max_seq_len - seq_len)
+
+        img_len = min(feats.shape[0], self.max_img_seq_len)
+        out_feats = np.zeros((self.max_img_seq_len, self.img_feature_dim), np.float32)
+        out_feats[:img_len] = feats[:img_len, : self.img_feature_dim]
+        mask = (
+            [1] * seq_len + [0] * (self.max_seq_len - seq_len)
+            + [1] * img_len + [0] * (self.max_img_seq_len - img_len)
+        )
+        return (
+            np.asarray(ids, np.int32),
+            np.asarray(mask, np.int32),
+            np.asarray(seg, np.int32),
+            out_feats,
+            seq_a_len,
+            img_len,
+        )
+
 
 def _load_captions_raw(path: str):
     if path.endswith(".json"):

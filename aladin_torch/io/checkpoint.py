@@ -20,7 +20,9 @@ files without it read 0).
   * ``resume_state`` restores model, aux, optimizer and step from such a
     file; a released reference file restores the weights only;
   * ``load_teacher_params`` is the non-strict weights-only load, with a
-    report of what matched.
+    report of what matched;
+  * ``save_task_checkpoint`` writes the OSCAR task drivers' files
+    ({"model", "iteration"}, cli/pretrain.py).
 """
 
 from __future__ import annotations
@@ -105,6 +107,12 @@ def _write(obj, path: str, retries: int) -> None:
                 raise
             time.sleep(min(2 ** attempt, 30))
     os.replace(tmp, path)
+
+
+def save_task_checkpoint(path: str, model: nn.Module, iteration: int) -> None:
+    """An OSCAR task driver's checkpoint: {"model": the state dict on the
+    CPU, "iteration": n} at ``path``, swapped in atomically."""
+    _write({"model": _cpu(model.state_dict()), "iteration": int(iteration)}, path, retries=3)
 
 
 def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any],

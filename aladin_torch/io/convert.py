@@ -17,7 +17,9 @@ The port's module names are the reference torch names, so:
     depth_transformer.`` in the TE layout), and a
     train state's {"model", "aux"} tree becomes the port's named parameters
     (``params_from_flax``). A gradient tree has the same structure, so the
-    same maps name its entries.
+    same maps name its entries. The OSCAR task models' trees (pretraining,
+    classification, multiple choice) map through
+    ``task_state_dict_from_flax``.
 
 Orbax checkpoint directories are a JAX format and are not read here.
 """
@@ -128,6 +130,27 @@ def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "feature_fusion" in tree:
         _dense(sd, "feature_fusion.alphas.0", tree["feature_fusion"]["fc1"])
         _dense(sd, "feature_fusion.alphas.3", tree["feature_fusion"]["fc2"])
+    return sd
+
+
+def task_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """aladin_tpu's parameter tree of an OSCAR task model (numpy leaves) ->
+    the port's state dict: ``BertImgForPreTraining`` (the MLM head
+    ``cls/{transform_dense, transform_layernorm, decoder_bias}`` ->
+    ``cls.predictions.{transform.dense, transform.LayerNorm, bias}``,
+    ``seq_relationship`` -> ``cls.seq_relationship``),
+    ``ImageBertClassifier`` (``classifier``) and both multiple-choice heads
+    (``cls`` or ``cls_fc1`` / ``cls_fc2``, the same names in both)."""
+    sd = bert_state_dict(tree["bert"], "bert.")
+    cls = tree.get("cls", {})
+    if "transform_dense" in cls:
+        _dense(sd, "cls.predictions.transform.dense", cls["transform_dense"])
+        _layernorm(sd, "cls.predictions.transform.LayerNorm", cls["transform_layernorm"])
+        sd["cls.predictions.bias"] = _t(cls["decoder_bias"])
+        _dense(sd, "cls.seq_relationship", tree["seq_relationship"])
+    for name in ("classifier", "cls_fc1", "cls_fc2") + (("cls",) if "kernel" in cls else ()):
+        if name in tree:
+            _dense(sd, name, tree[name])
     return sd
 
 

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from aladin_torch.config import ExperimentConfig
-from aladin_torch.models.bert_img import BertImgConfig, BertImgModel
+from aladin_torch.models.bert_img import BertImgConfig, BertImgModel, init_weights
 from aladin_torch.models.layers import DepthAggregator, FeatureFusion, TorchTransformerEncoder
 from aladin_torch.ops.masking import padding_mask
 from aladin_torch.ops.similarity import l2norm
@@ -111,15 +111,7 @@ class ALADIN(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random weights from ``generator``: normal(0, initializer_range)
         matrices and embeddings, zero biases, unit LayerNorm scales."""
-        std = self.oscar_model.bert.cfg.initializer_range
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if p.ndim >= 2:
-                    p.copy_(torch.randn(p.shape, generator=generator) * std)
-                elif ("LayerNorm" in name or "norm" in name) and name.endswith("weight"):
-                    p.fill_(1.0)
-                else:
-                    p.zero_()
+        init_weights(self, generator, self.oscar_model.bert.cfg.initializer_range)
 
     def forward(self, batch: Batch) -> AladinOutputs:
         mc = self.cfg.model

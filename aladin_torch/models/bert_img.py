@@ -117,6 +117,20 @@ class BertImgConfig:
         return dataclasses.asdict(self)
 
 
+def init_weights(module: nn.Module, generator: torch.Generator, std: float) -> None:
+    """Random weights from ``generator`` in ``named_parameters`` order:
+    normal(0, std) matrices and embeddings, zero biases, unit LayerNorm
+    scales."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.ndim >= 2:
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
+            elif ("LayerNorm" in name or "norm" in name) and name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
 def ffn_act(x: torch.Tensor, name: str) -> torch.Tensor:
     if name == "gelu":
         return F.gelu(x)
@@ -351,3 +365,22 @@ class BertImgModel(nn.Module):
         all_hidden = torch.stack(hidden) if output_hidden_states else None
         all_attn = torch.stack(attentions) if output_attentions else None
         return x, pooled, all_hidden, all_attn
+
+
+class ImageBertClassifier(nn.Module):
+    """OSCAR pair classifier head (mirrors aladin_tpu's): the pooled CLS ->
+    dropout -> Linear(num_labels), named ``classifier`` as in OSCAR's
+    checkpoints (ref:oscar/modeling/modeling_bert.py:290-354)."""
+
+    def __init__(self, cfg: BertImgConfig):
+        super().__init__()
+        self.bert = BertImgModel(cfg)
+        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None, img_feats=None,
+                output_attentions: bool = False):
+        """(logits, sequence output, hidden states or None, attentions or None)."""
+        seq, pooled, hidden, attn = self.bert(input_ids, attention_mask, token_type_ids,
+                                              img_feats, output_attentions)
+        return self.classifier(self.dropout(pooled)), seq, hidden, attn

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from aladin_torch.config import ExperimentConfig
-from aladin_torch.train.schedule import make_lr_schedule
+from aladin_torch.train.schedule import clip_by_global_norm_, make_lr_schedule
 
 # top-level ALADIN modules (the port's, i.e. the reference torch names)
 FROZEN_WITH_TERAN = (
@@ -113,10 +113,7 @@ class TrainState:
         grads = [p.grad for p in self.trainable if p.grad is not None]
         clip = self.cfg.training.grad_clip
         if clip > 0 and grads:
-            norm = global_norm(grads)
-            # optax.clip_by_global_norm: unchanged below the limit, else scaled to it
-            scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
-            torch._foreach_mul_(grads, scale)
+            clip_by_global_norm_(grads, clip)
         for group in self.optimizer.param_groups:
             if lr is not None:
                 group["lr"].copy_(lr)
@@ -155,8 +152,3 @@ class TrainState:
             if "step" in st:
                 dev = p.device if self.capturable else "cpu"
                 st["step"] = st["step"].detach().to(device=dev, dtype=torch.float32)
-
-
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over a list of tensors, as an f32 device scalar."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))

@@ -59,10 +59,12 @@ from aladin_torch.models.aladin import ALADIN, AladinOutputs, Batch
 from aladin_torch.ops import losses as L
 from aladin_torch.ops.alignment import alignment_scores, alignment_scores_chunked
 from aladin_torch.parallel.mesh import Mesh, all_gather_cat, all_reduce_sum_, gather_rows
-from aladin_torch.train.state import TrainState, global_norm
+from aladin_torch.train.schedule import global_norm
+from aladin_torch.train.state import TrainState
 
 
-def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
+def compute_autocast(device: torch.device, dtype: Optional[torch.dtype]):
+    """autocast to ``dtype`` on ``device``'s type; nothing for None or f32."""
     if dtype is None or dtype == torch.float32:
         return contextlib.nullcontext()
     return torch.autocast(device.type, dtype=dtype)
@@ -154,7 +156,7 @@ def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
 
     def loss_fn(aux: Dict[str, torch.Tensor], batch: Batch, epoch: int,
                 distill_gate: Optional[torch.Tensor] = None):
-        with _autocast(batch.txt_ids.device, compute_dtype):
+        with compute_autocast(batch.txt_ids.device, compute_dtype):
             if mb and batch.txt_ids.shape[0] > mb:
                 out = encode_microbatched(model, batch, mb)
             else:
@@ -403,7 +405,7 @@ def make_eval_step(model: ALADIN, compute_dtype: Optional[torch.dtype] = None) -
 
     def eval_step(batch: Batch):
         model.eval()
-        with torch.inference_mode(), _autocast(batch.txt_ids.device, compute_dtype):
+        with torch.inference_mode(), compute_autocast(batch.txt_ids.device, compute_dtype):
             return model(batch)
 
     return eval_step

@@ -8,8 +8,10 @@ loss meter} and validation scalars {matching/r*, alignment/r*, rsum}
 (ref:alad/train.py:441-446,483-528). Scalar names are kept identical so
 dashboards transfer.
 
-A copy of aladin_tpu/utils/logging.py without the TensorBoard writer: the
-port's Trainer writes its meters and validation recalls to the log only.
+A copy of aladin_tpu/utils/logging.py. ``make_tb_writer`` imports
+TensorBoard's writer lazily and is a no-op without it; the OSCAR task
+drivers use it (utils/metric_logger.py), while the port's Trainer writes its
+meters and validation recalls to the log only.
 """
 
 from __future__ import annotations
@@ -80,3 +82,24 @@ class LogCollector:
 
     def __str__(self):
         return "  ".join(f"{k} {v}" for k, v in self.meters.items())
+
+
+class NoOpWriter:
+    def add_scalar(self, *a, **kw):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def make_tb_writer(log_dir: str):
+    """TensorBoard writer, no-op if torch's tensorboard is unavailable."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=log_dir)
+    except ImportError:
+        return NoOpWriter()

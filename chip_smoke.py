@@ -158,9 +158,31 @@ Phases, each printing one JSON line:
               same weights without them at dropout 0 (train_fused's
               tolerances), then steps that must be finite with 24 / 24 / 48
               / 48 K2 / K3a launches; host ms a step and peak memory.
+  18. pretrain - OSCAR+ pretraining at VinVL-base width with a vocab of
+              30522 (a generated vocab.txt): (a) aladin_torch.cli.pretrain,
+              f32 with the kernel knobs off as aladin_tpu's CLI runs, bs 32 x
+              (35 text + 50 regions), 20 iterations over a synthetic corpus
+              of 128 images, warmup 4, checkpoints at 10 and 20: finite
+              losses, the logged lr on WarmupLinearSchedule, both checkpoints
+              loading back with no missing or unexpected key, host and card
+              ms a step, peak memory; (b) from the trained state at dropout 0,
+              one bf16 step with fused_attention and fused_layernorm against
+              one without: loss and grad_norm within KNOB_LOSS_RTOL /
+              KNOB_GNORM_RTOL, every gradient within KNOB_GNORM_RTOL (relative
+              L2), every parameter within what one AdamW step allows; then a
+              step at dropout 0.1 with exactly 12 / 12 / 24 / 24 K2 / K3a
+              launches; host and card ms a step of both.
+  19. classify - aladin_torch.cli.classify --task vqa and --task nlvr at
+              VinVL-base width over make_synthetic_task_data (2054-d
+              regions, 128 examples a split), bs 32 x (128 text + 50
+              regions), f32 (plain attention: S 178 is past K2's regime),
+              one epoch, --do_test: finite losses, a validation score in
+              [0, 1], one prediction a test example; host and card ms a
+              step (nlvr: 2 x 32 streams), peak memory.
 
 Then the total seconds, the kernels line ({"kernels": [...]}; K2 and K3a
-also with their launches in one remat step), the card's name and power limit
+also with their launches in one remat step and in one pretraining step),
+the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
 phase raises, so the script exits nonzero without that last line. It also
 refuses to run without a CUDA device or outside the repository.
@@ -2402,6 +2424,200 @@ def phase_variants() -> dict:
     return out
 
 
+# the words of the synthetic pretraining and task corpora; with SYNTH_VOCAB
+# and fillers they make a vocab of BERT-base size
+TASK_WORDS = ["in", "coco", "flickr30k", "what", "is", "picture", "object", "appears", "here",
+              "left", "image", "contains", "yes", "no"]
+BERT_BASE_VOCAB = 30522
+PRETRAIN_LR = 5e-5
+PRETRAIN_ITERS, PRETRAIN_WARMUP, PRETRAIN_CKPT = 20, 4, 10
+
+
+def write_vocab_dir(path: str) -> None:
+    """A model directory holding a vocab.txt of 30522 entries (what
+    BertWordPieceTokenizer.from_pretrained reads): the synthetic corpora's
+    tokens, then fillers."""
+    words = list(SYNTH_VOCAB) + TASK_WORDS
+    words += [f"[unused{i}]" for i in range(BERT_BASE_VOCAB - len(words))]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+
+
+def step_times(step, batch, n: int = 5) -> dict:
+    """Host ms a step (after one warm-up step, each closed by a synchronize),
+    and the profiler's card ms and busy share of the same step."""
+    import torch
+
+    step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(*batch)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+    prof = device_profile(lambda: step(*batch), 3, top=6)
+    return {"host_ms_per_step": host_ms, "card_ms_per_step": prof["device_ms"],
+            "device_busy_share": prof["device_ms"] / host_ms, "top": prof["top"]}
+
+
+def phase_pretrain(tmp: str, vocab_dir: str) -> dict:
+    """OSCAR+ pretraining at VinVL-base width: (a) cli/pretrain over a
+    synthetic corpus (knobs off, f32, as aladin_tpu's CLI), its losses, lr
+    and checkpoints; (b) one step from one state at dropout 0 with K2 and
+    K3a on against off (bf16 autocast), and the launches of a step at
+    dropout 0.1."""
+    import torch
+
+    from aladin_torch.cli import pretrain as pretrain_cli
+    from aladin_torch.tasks.pretrain_data import make_synthetic_pretrain_corpus
+    from aladin_torch.tasks.pretraining import BertImgForPreTraining, make_pretrain_step
+    from aladin_torch.train.schedule import global_norm, warmup_linear_schedule
+
+    root, run_dir = os.path.join(tmp, "pretrain_corpus"), os.path.join(tmp, "pretrain_run")
+    make_synthetic_pretrain_corpus(root, ("coco", "flickr30k"), n_images_per_dataset=64,
+                                   feat_dim=2054)
+    fresh_memory()
+    t0 = time.perf_counter()
+    (res, cli_launches) = counted(lambda: pretrain_cli.run([
+        "--pretrain_root", root, "--eval_model_dir", vocab_dir, "--output_dir", run_dir,
+        "--train_batch_size", "32", "--max_iters", str(PRETRAIN_ITERS),
+        "--warmup_steps", str(PRETRAIN_WARMUP), "--ckpt_period", str(PRETRAIN_CKPT),
+        "--log_step", "5", "--device", "cuda"]))
+    cli_seconds = time.perf_counter() - t0
+    cfg = res["model"].bert.cfg
+    if (cfg.num_hidden_layers, cfg.hidden_size, cfg.img_feature_dim, cfg.vocab_size) != (
+            12, 768, 2054, BERT_BASE_VOCAB):
+        raise AssertionError(f"pretrain: not VinVL-base width: {cfg}")
+    steps = [m for r in res["log"] for m in r["steps"]]
+    if len(steps) != PRETRAIN_ITERS or not all(math.isfinite(v) for m in steps
+                                                for v in m.values()):
+        raise AssertionError(f"pretrain: {len(steps)} steps, losses {steps}")
+    sched = warmup_linear_schedule(PRETRAIN_LR, PRETRAIN_WARMUP, PRETRAIN_ITERS)
+    lrs = [(r["iter"], r["lr"]) for r in res["log"]]
+    if any(lr != sched(it - 1) for it, lr in lrs):
+        raise AssertionError(f"pretrain: logged lr {lrs} off the schedule")
+    names = [os.path.basename(p) for p in res["checkpoints"]]
+    if names != ["ckpt_0000010.pth.tar", "ckpt_0000020.pth.tar"]:
+        raise AssertionError(f"pretrain: checkpoints {names}")
+    for path in res["checkpoints"]:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        keys = BertImgForPreTraining(cfg).load_state_dict(ckpt["model"], strict=True)
+        if keys.missing_keys or keys.unexpected_keys:
+            raise AssertionError(f"pretrain: {path}: {keys}")
+    peak_cli = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the CLI's own ms/it: collation on the host included
+    cli_log = [{k: v for k, v in r.items() if k != "steps"} for r in res["log"]]
+    cli_times = step_times(res["step"], res["batch"])
+    start = {k: v.detach().clone() for k, v in res["model"].state_dict().items()}
+    batch = res["batch"]
+    del res
+    fresh_memory()
+
+    def build(fused: bool, dropout: float):
+        """(model, step fn) from ``start``: AdamW at lr 5e-5 with no
+        warmup, bf16 autocast, both kernel knobs set to ``fused``."""
+        c = dataclasses.replace(cfg, fused_attention=fused, fused_layernorm=fused,
+                                hidden_dropout_prob=dropout,
+                                attention_probs_dropout_prob=dropout)
+        m = BertImgForPreTraining(c)
+        m.load_state_dict(start)
+        m.to(batch[0].device)
+        opt, _ = pretrain_cli.make_optimizer(m, PRETRAIN_LR, 0, PRETRAIN_ITERS)
+        return m, make_pretrain_step(m, opt, torch.bfloat16)
+
+    first, moved, grads = {}, {}, {}
+    for fused in (True, False):
+        m, step = build(fused, 0.0)
+        first[fused] = {k: v.item() for k, v in step(*batch).items()}
+        first[fused]["grad_norm"] = global_norm([p.grad for p in m.parameters()]).item()
+        moved[fused] = {k: v.detach().clone() for k, v in m.named_parameters()}
+        grads[fused] = [p.grad.clone() for p in m.parameters()]
+        if fused:
+            on_times = step_times(step, batch)
+        else:
+            off_times = step_times(step, batch)
+        del m, step
+    on, off = first[True], first[False]
+    agree = {"loss_rel_diff": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+             "grad_norm_rel_diff": abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"],
+             # every parameter's gradient: |g_on - g_off| / |g_off| over all of them
+             "grad_rel_l2_diff": global_norm([a - b for a, b in zip(grads[True], grads[False])]
+                                             ).item() / off["grad_norm"],
+             # one AdamW step from one state moves a parameter by at most
+             # lr (1 + weight decay * |p|) on either side
+             "param_max_abs_diff": max(float((moved[True][k] - moved[False][k]).abs().max())
+                                       for k in moved[True])}
+    param_bound = 2 * PRETRAIN_LR * (1 + 0.01 * max(float(v.abs().max())
+                                                     for v in start.values())) * 1.001
+    if not (agree["loss_rel_diff"] <= KNOB_LOSS_RTOL
+            and agree["grad_norm_rel_diff"] <= KNOB_GNORM_RTOL
+            and agree["grad_rel_l2_diff"] <= KNOB_GNORM_RTOL
+            and agree["param_max_abs_diff"] <= param_bound):
+        raise AssertionError(f"pretrain: knobs on vs off disagree: {first} {agree}")
+    del moved, grads
+    fresh_memory()
+    m, step = build(True, 0.1)
+    metrics, launches = counted(lambda: step(*batch))
+    want = step_launches(cfg.num_hidden_layers, False, passes=1)
+    if launches != want or not all(math.isfinite(v.item()) for v in metrics.values()):
+        raise AssertionError(f"pretrain: launches {launches}, expected {want}; {metrics}")
+    emit({"phase": "pretrain", "card": nvidia_smi_line(), "batch": 32,
+          "seq": "35 text + 50 regions", "iters": PRETRAIN_ITERS, "cli_seconds": cli_seconds,
+          "cli_log": cli_log, "losses_first_last": [steps[0], steps[-1]], "lr": lrs,
+          "checkpoints": names, "cli_kernel_launches": cli_launches,
+          "f32_knobs_off": {**cli_times, "peak_mem_gb": peak_cli},
+          "knob_check_dropout0": {"on": on, "off": off, **agree, "param_bound": param_bound,
+                                  "loss_rtol": KNOB_LOSS_RTOL,
+                                  "grad_norm_rtol": KNOB_GNORM_RTOL},
+          "bf16_knobs_on": on_times, "bf16_knobs_off": off_times,
+          "launches_dropout0.1": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    del m, step
+    fresh_memory()
+    return {"launches": launches}
+
+
+def phase_classify(tmp: str, vocab_dir: str) -> dict:
+    """cli/classify --task vqa and --task nlvr at VinVL-base width over
+    make_synthetic_task_data (2054-d regions, 128 examples a split), bs 32,
+    one epoch, --do_test: finite losses, a validation score in [0, 1], one
+    prediction a test example; host and card ms a step, peak memory."""
+    import torch
+
+    from aladin_torch.cli import classify as classify_cli
+    from aladin_torch.tasks.task_inputs import make_synthetic_task_data
+
+    data = os.path.join(tmp, "task_data")
+    make_synthetic_task_data(data, n_images=64, feat_dim=2054, n_examples=128)
+    out = {}
+    for task in ("vqa", "nlvr"):
+        fresh_memory()
+        t0 = time.perf_counter()
+        res = classify_cli.run(["--task", task, "--data_dir", data, "--eval_model_dir",
+                                vocab_dir, "--output_dir", os.path.join(tmp, f"classify_{task}"),
+                                "--train_batch_size", "32", "--epochs", "1", "--do_test",
+                                "--log_step", "1", "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        with open(res["test_results"]) as f:
+            n_pred = len(json.load(f))
+        ok = (len(res["losses"]) == 4 and all(math.isfinite(v) for v in res["losses"])
+              and all(0.0 <= s <= 1.0 for s in res["val_scores"]) and n_pred == 128)
+        if not ok:
+            raise AssertionError(f"classify {task}: losses {res['losses']}, val "
+                                 f"{res['val_scores']}, {n_pred} predictions")
+        streams = 2 * 32 if task == "nlvr" else 32
+        out[task] = {"seconds": seconds, "losses": res["losses"], "val_score": res["val_scores"],
+                     "test_predictions": n_pred, "streams_a_batch": streams,
+                     "seq": "128 text + 50 regions",
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     **step_times(res["step"], res["batch"])}
+        del res
+    fresh_memory()
+    emit({"phase": "classify", "card": nvidia_smi_line(), "batch": 32, "runs": out})
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "aladin_torch")):
         print("chip_smoke.py must run from a checkout of the repository (aladin_torch/ "
@@ -2435,6 +2651,11 @@ def main() -> int:
     phase_train_cli()
     remat = phase_train_levers()["remat_launches"]
     phase_variants()
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_dir = os.path.join(tmp, "vocab")
+        write_vocab_dir(vocab_dir)
+        pretrain = phase_pretrain(tmp, vocab_dir)["launches"]
+        phase_classify(tmp, vocab_dir)
     # K1 runs on three paths: cli/test's scoring, streaming alignment recall,
     # and the sharded scorer and mesh sweep of the parallel phase
     k1_launches = {"bf16": launches["bf16"]["k1"] + streamed["k1_launches"]
@@ -2459,6 +2680,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "aladin_torch/csrc/attention_kernel.cu",
             "replaces": f"aladin_tpu/ops/pallas/attention_kernel.py:{line}",
             "launches": fused[f"k2_{key}"], "launches_remat_step": remat[f"k2_{key}"],
+            "launches_pretrain_step": pretrain[f"k2_{key}"],
             "max_abs_err": k2["max_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16"})
@@ -2467,7 +2689,7 @@ def main() -> int:
         "name": "residual_layernorm forward", "route": "triton",
         "source": "aladin_torch/ops/kernels/layernorm.py",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:70", "launches": fused["k3a"],
-        "launches_remat_step": remat["k3a"],
+        "launches_remat_step": remat["k3a"], "launches_pretrain_step": pretrain["k3a"],
         "max_abs_err": k3["max_err"]["fwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "M10752 D768 bf16"})
@@ -2475,7 +2697,7 @@ def main() -> int:
         "name": "residual_layernorm backward", "route": "cuda",
         "source": "aladin_torch/csrc/layernorm_kernel.cu",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:193", "launches": fused["k3a_bwd"],
-        "launches_remat_step": remat["k3a_bwd"],
+        "launches_remat_step": remat["k3a_bwd"], "launches_pretrain_step": pretrain["k3a_bwd"],
         "max_abs_err": k3["max_err"]["bwd"], "ms": t["backward_ms"],
         "plain_ms": t["backward_plain_ms"], "bound_ms": t["backward_bound_ms"],
         "bound_by": t["backward_bound_by"], "library_ms": t["backward_library_ms"],

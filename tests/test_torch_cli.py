@@ -181,14 +181,15 @@ names = [m.name for m in pkgutil.walk_packages(aladin_torch.__path__, "aladin_to
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert not any(m.split(".")[0] in {"jax", "flax", "aladin_tpu"} for m in sys.modules)
+assert not any(m.split(".")[0] in {"jax", "flax", "aladin_tpu", "nltk"} for m in sys.modules)
 print(" ".join(names))
 """
 
 
 def test_port_imports_no_jax():
     """Every aladin_torch module (and chip_smoke) imports with jax, flax,
-    optax, orbax and aladin_tpu blocked."""
+    optax, orbax and aladin_tpu blocked, and without importing nltk (METEOR
+    imports it at its first use)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", BLOCKER], cwd=root, env=env,
@@ -198,4 +199,11 @@ def test_port_imports_no_jax():
     assert len(names) >= 20
     assert {"aladin_torch.eval.dcg", "aladin_torch.eval.rouge", "aladin_torch.eval.relevance",
             "aladin_torch.models.attention_aggregation", "aladin_torch.parallel",
-            "aladin_torch.parallel.distributed", "aladin_torch.parallel.mesh"} <= names
+            "aladin_torch.parallel.distributed", "aladin_torch.parallel.mesh",
+            "aladin_torch.cli.pretrain", "aladin_torch.cli.classify",
+            "aladin_torch.tasks.pretraining", "aladin_torch.tasks.pretrain_data",
+            "aladin_torch.tasks.classification", "aladin_torch.tasks.task_inputs",
+            "aladin_torch.tasks.captioning", "aladin_torch.eval.cider",
+            "aladin_torch.eval.meteor", "aladin_torch.eval.spice",
+            "aladin_torch.eval.caption_metrics", "aladin_torch.eval.nocaps",
+            "aladin_torch.utils.metric_logger"} <= names

@@ -1048,3 +1048,84 @@ def test_token_type_gradient_repeats_itself_past_3072_indices(cuda):
     first, = torch.autograd.grad(out, table, g)
     second, = torch.autograd.grad(select_rows(table, ids), table, g)
     assert torch.equal(first, second)
+
+
+def _pretrain_pair(dropout):
+    """A 4-layer, width-256 pretraining model (heads of 64, the K2 width)
+    on the card with both kernel knobs, its bf16 AdamW step, and a batch of
+    8 x (35 text + 50 regions): the pretraining stream's S 85."""
+    import dataclasses
+
+    from aladin_torch.cli.pretrain import make_optimizer
+    from aladin_torch.models.bert_img import BertImgConfig, init_weights
+    from aladin_torch.tasks.pretraining import BertImgForPreTraining, make_pretrain_step
+
+    cfg = BertImgConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=4,
+                        num_attention_heads=4, intermediate_size=1024, img_feature_dim=2054,
+                        hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
+    models, start = [], None
+    for fused in (True, False):
+        m = BertImgForPreTraining(dataclasses.replace(cfg, fused_attention=fused,
+                                                      fused_layernorm=fused))
+        if start is None:
+            init_weights(m, torch.Generator().manual_seed(0), 0.02)
+            start = m.state_dict()
+        m.load_state_dict(start)
+        m.cuda()
+        opt, _ = make_optimizer(m, 1e-4, 0, 10)
+        models.append((m, make_pretrain_step(m, opt, torch.bfloat16)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(5, 1000, (8, 35), generator=gen, device="cuda")
+    mask = torch.ones(8, 85, dtype=torch.int32, device="cuda")
+    mask[:4, 20:35] = 0
+    seg = torch.zeros_like(ids)
+    feats = torch.randn(8, 50, 2054, generator=gen, device="cuda")
+    lm = torch.where(torch.rand(8, 85, generator=gen, device="cuda") < 0.15,
+                     torch.randint(0, 1000, (8, 85), generator=gen, device="cuda"), -1)
+    lm[:, 35:] = -1
+    nxt = torch.randint(0, 2, (8,), generator=gen, device="cuda")
+    return models, (ids, mask, seg, feats, lm, nxt)
+
+
+def test_pretrain_step_with_the_kernels_matches_the_plain_step(cuda):
+    """One pretraining step at dropout 0 with K2 and K3a against the plain
+    step from the same weights: loss within 1e-2 and the gradient norm within
+    5e-2 (chip_smoke.py's knob tolerances: the fused residual stream stays in
+    bf16); one K2 forward and backward and two K3a forwards and backwards a
+    layer."""
+    from aladin_torch.train.schedule import global_norm
+
+    ((on, step_on), (off, step_off)), batch = _pretrain_pair(0.0)
+    counters = (at.attention_forward, at.attention_backward, lk.residual_layernorm_forward,
+                lk.residual_layernorm_backward)
+    for c in counters:
+        c.launches = 0
+    got = step_on(*batch)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [4, 4, 8, 8]
+    want = step_off(*batch)
+    assert [c.launches for c in counters] == [4, 4, 8, 8]
+    assert abs(got["loss"].item() - want["loss"].item()) <= 1e-2 * abs(want["loss"].item())
+    g_on = global_norm([p.grad for p in on.parameters()]).item()
+    g_off = global_norm([p.grad for p in off.parameters()]).item()
+    assert abs(g_on - g_off) <= 5e-2 * g_off
+
+
+def test_task_clis_run_on_the_card(cuda, tmp_path):
+    """cli/pretrain and cli/classify (nlvr: 2 x B streams) --synthetic with
+    the default --device cuda: finite losses, the model on the card."""
+    import math
+
+    from aladin_torch.cli import classify as classify_cli
+    from aladin_torch.cli import pretrain as pretrain_cli
+
+    dims = ["--max_seq_length", "24", "--max_img_seq_length", "8", "--img_feature_dim", "16",
+            "--synthetic"]
+    res = pretrain_cli.run(["--output_dir", str(tmp_path / "pt"), "--max_iters", "3",
+                            "--train_batch_size", "4", *dims])
+    assert next(res["model"].parameters()).is_cuda
+    assert all(math.isfinite(v) for r in res["log"] for s in r["steps"] for v in s.values())
+    res = classify_cli.run(["--task", "nlvr", "--output_dir", str(tmp_path / "cl"), "--epochs",
+                            "1", "--train_batch_size", "8", "--do_test", *dims])
+    assert next(res["model"].parameters()).is_cuda
+    assert all(math.isfinite(v) for v in res["losses"]) and len(res["losses"]) == 4

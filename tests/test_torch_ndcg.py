@@ -11,6 +11,7 @@ matrices: within 1e-6.
 
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -107,7 +108,22 @@ def test_scorer_with_one_method_reports_zero_for_the_other(rng, tmp_path):
         assert m["ndcg_rougel"] == 0.0 and m["ndcg_spice"] > 0
 
 
-def test_rouge_relevances_match(tmp_path):
+def _stub_spice(tmp_path, monkeypatch):
+    """Both packages' spice modules on tests/test_spice_protocol.py's stub
+    interpreter and a placeholder jar."""
+    from aladin_tpu.eval import spice as jax_spice
+    from aladin_torch.eval import spice
+    from tests.test_spice_protocol import STUB
+
+    (tmp_path / "fake_jvm.py").write_text(STUB)
+    (tmp_path / "fake.jar").write_text("not a real jar")
+    for mod in (spice, jax_spice):
+        monkeypatch.setattr(mod, "JAVA", [sys.executable, str(tmp_path / "fake_jvm.py")])
+        monkeypatch.setattr(mod, "SPICE_JAR", str(tmp_path / "fake.jar"))
+
+
+def test_rouge_relevances_match(tmp_path, monkeypatch):
+    """rougeL, meteor and spice relevances equal aladin_tpu's."""
     queries = [["a dog on the grass"], ["A cat sleeps", "the cat on a sofa"],
                ["two people ride bikes"]]
     images = [["a dog runs on grass", "the brown dog"], ["a cat on a sofa", "cat sleeping"],
@@ -121,8 +137,15 @@ def test_rouge_relevances_match(tmp_path):
     raw = np.fromfile(str(tmp_path / "ours.npy"), dtype=np.float32)  # no .npy header
     np.testing.assert_array_equal(raw.reshape(3, 4), np.asarray(want))
     for method in ("meteor", "spice"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            relevance.compute_relevances(queries, images, str(tmp_path / "x.npy"), method)
+        if method == "spice":  # the jar's protocol against a stub interpreter
+            _stub_spice(tmp_path, monkeypatch)
+        got = relevance.compute_relevances(queries, images, str(tmp_path / f"{method}.npy"),
+                                           method, num_workers=1)
+        want = jax_relevance.compute_relevances(queries, images,
+                                                str(tmp_path / f"{method}_ref.npy"), method,
+                                                num_workers=1)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        assert got[0, 0] > got[0, 3]
 
 
 @pytest.mark.parametrize("flags", [["--ndcg"], ["--ndcg", "--fivefold"]],

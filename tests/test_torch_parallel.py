@@ -2,9 +2,10 @@
 process group (parallel/distributed.py), the corpus-sharded scorers
 (parallel/mesh.py), compute_recall_from_scores, sharded_search, the
 streaming mesh sweeps, the data-parallel train step, cli/train with
---mesh_shape dp=2 and its checkpoint, against aladin_tpu on
-``create_mesh("dp=2")`` (2 of conftest.py's 8 virtual CPU devices) and
-against the port's single-process results.
+--mesh_shape dp=2 and its checkpoint, the OSCAR task steps, cli/pretrain
+and cli/classify at dp=2, against aladin_tpu on ``create_mesh("dp=2")`` (2
+of conftest.py's 8 virtual CPU devices) and against the port's
+single-process results.
 
 One cluster serves the module. A module-scoped fixture writes the inputs
 (seeded numpy; the train model's weights converted from aladin_tpu's Flax
@@ -23,6 +24,8 @@ Tolerances:
   * the train step (dropout 0): tests/test_torch_train.py's step
     tolerances - metrics rtol 1e-4, params atol 1e-6 where the gradient is
     live and within lr elsewhere;
+  * the OSCAR task steps at dp=2 (pretraining, the kl classifier): the
+    losses rtol 1e-5, the parameters as the train step's;
   * cli/train dp=2 against dp=1, dropout 0 (an OSCAR directory whose
     config sets the backbone's dropouts to 0 and a recipe with dropout 0),
     lr 1e-3 and ``--compute_dtype float32``: best rsum within 2.6 and the
@@ -87,6 +90,62 @@ def search_queries(direction, ims, caps, il, cl):
     """(query sets, query lengths) of a direction: captions for t2i, images
     for i2t."""
     return (caps[:N_QUERIES], cl[:N_QUERIES]) if direction == "t2i" else (ims, il)
+
+
+TASK_CFG = dict(vocab_size=40, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                intermediate_size=64, max_position_embeddings=64, img_feature_dim=12,
+                num_labels=5, **NO_DROPOUT)
+TASK_STEPS = {"pretrain": 2, "classify_kl": 2}
+TASK_B = 8
+
+
+def task_batch():
+    """A global batch of 8 for the OSCAR task steps: (ids, mask, seg,
+    feats, MLM labels, relation labels, soft VQA targets), seeded numpy."""
+    rng = np.random.RandomState(11)
+    l, r = 10, 4
+    ids = rng.randint(5, 40, (TASK_B, l)).astype(np.int32)
+    mask = np.concatenate([np.arange(l) < rng.randint(4, l + 1, (TASK_B, 1)),
+                           np.arange(r) < rng.randint(1, r + 1, (TASK_B, 1))], 1).astype(np.int32)
+    seg = (rng.rand(TASK_B, l) < 0.3).astype(np.int32)
+    feats = rng.randn(TASK_B, r, 12).astype(np.float32)
+    lm = np.where(rng.rand(TASK_B, l + r) < 0.25, rng.randint(0, 40, (TASK_B, l + r)), -1)
+    lm[:, l:] = -1
+    soft = (rng.rand(TASK_B, 5) * (rng.rand(TASK_B, 5) < 0.4)).astype(np.float32)
+    return (ids, mask, seg, feats, lm.astype(np.int32), rng.randint(0, 2, TASK_B).astype(
+        np.int32), soft)
+
+
+def run_task_steps(task: str, rank: int = 0, mesh_shape: str = ""):
+    """The OSCAR task step (``task``: pretraining, or the VQA classifier
+    with the kl loss) for TASK_STEPS steps at dropout 0, lr 1e-3, on this
+    rank's rows of ``task_batch()``: (losses, params, gradients of each
+    step). With ``mesh_shape`` the model starts from weights of the rank's
+    own seed and ``cli/pretrain.py::data_parallel`` gives it rank 0's and
+    its rows; without, one process runs the whole batch from rank 0's."""
+    from aladin_torch.cli.pretrain import data_parallel, make_optimizer
+    from aladin_torch.models.bert_img import BertImgConfig, ImageBertClassifier, init_weights
+    from aladin_torch.tasks.classification import make_classifier_train_step
+    from aladin_torch.tasks.pretraining import BertImgForPreTraining, make_pretrain_step
+
+    cfg = BertImgConfig(**TASK_CFG)
+    model = BertImgForPreTraining(cfg) if task == "pretrain" else ImageBertClassifier(cfg)
+    init_weights(model, torch.Generator().manual_seed(3 + rank), 0.02)
+    mesh, rows = None, slice(0, TASK_B)
+    if mesh_shape:
+        mesh, rows = data_parallel(model, mesh_shape, TASK_B, 0, "cpu")
+    opt, _ = make_optimizer(model, 1e-3, 0, 10)
+    ids, mask, seg, feats, lm, nxt, soft = (torch.from_numpy(a[rows]) for a in task_batch())
+    if task == "pretrain":
+        step, args = make_pretrain_step(model, opt, mesh=mesh), (ids, mask, seg, feats, lm, nxt)
+    else:
+        step = make_classifier_train_step(model, opt, "kl", mesh=mesh)
+        args = (ids, mask, seg, feats, soft)
+    losses, grads = [], []
+    for _ in range(TASK_STEPS[task]):
+        losses.append(step(*args)["loss"].item())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    return losses, {n: p.detach().clone() for n, p in model.named_parameters()}, grads
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +257,32 @@ def _worker(rank: int, port: str, work: str) -> None:  # noqa: C901 - one rank's
     after = torch.cat([p.detach().reshape(-1) for p in state.trainable])
     out["dropout_params_after_3"] = after.numpy()
     out["dropout_params_moved"] = bool((after != before).any())
+
+    # 5b. the OSCAR task steps and cli/pretrain / cli/classify at dp=2 (TensorBoard's
+    # writer unimportable: rank 0 takes the no-op writer and imports no TensorFlow)
+    sys.modules["torch.utils.tensorboard"] = None
+    for task in TASK_STEPS:
+        losses, params, _ = run_task_steps(task, rank, "dp=2")
+        out[f"{task}_losses"] = np.asarray(losses)
+        out.update({f"{task}_param.{k}": v.numpy() for k, v in params.items()})
+    from aladin_torch.cli import classify as classify_cli
+    from aladin_torch.cli import pretrain as pretrain_cli
+
+    dims = ["--max_seq_length", "24", "--max_img_seq_length", "8", "--img_feature_dim", "16",
+            "--synthetic", "--device", "cpu", "--mesh_shape", "dp=2"]
+    res = pretrain_cli.run(["--output_dir", os.path.join(work, "pretrain_dp2"), "--max_iters",
+                            "2", "--log_step", "1", "--train_batch_size", "4", *dims])
+    out["pretrain_cli_losses"] = np.asarray([r["loss"] for r in res["log"]])
+    out["pretrain_cli_params"] = torch.cat([p.detach().reshape(-1)
+                                            for p in res["model"].parameters()]).numpy()
+    out["pretrain_cli_ckpt"] = res["checkpoints"][-1]
+    res = classify_cli.run(["--task", "vqa", "--loss_type", "kl", "--epochs", "1", "--do_test",
+                            "--train_batch_size", "8", "--output_dir",
+                            os.path.join(work, "classify_dp2"), *dims])
+    out["classify_cli_losses"] = np.asarray(res["losses"])
+    out["classify_cli_params"] = torch.cat([p.detach().reshape(-1)
+                                            for p in res["model"].parameters()]).numpy()
+    out["classify_cli_results"] = res["test_results"]
 
     # 6. cli/train at dp=2; rank 0 alone writes the checkpoint; --resume on both ranks
     writes = []
@@ -558,6 +643,54 @@ def test_dp_step_matches_single_process_and_jax(cluster, jax_mesh):
         jax.random.PRNGKey(1))
     jax_p = params_from_flax(jax.tree.map(np.asarray, new_state.params))
     _assert_step_close(metrics, params, {k: float(v) for k, v in jm.items()}, jax_p, grads)
+
+
+@pytest.mark.parametrize("task", sorted(TASK_STEPS))
+def test_dp_task_steps_match_one_process(cluster, task):
+    """OSCAR+ pretraining (its MLM denominator the global masked count) and
+    the VQA classifier with the kl loss (over the global B), 2 steps at
+    dp=2 from rank 0's broadcast weights against one process on the whole
+    batch: the losses within 1e-5 relative, the parameters within 1e-6
+    where each step's gradient is live and within 2 lr elsewhere (Adam turns
+    rounding noise of a near-zero gradient into an update of up to lr);
+    equal on both ranks."""
+    r0, r1 = cluster.ranks()
+    want_l, want_p, grads = run_task_steps(task)
+    for k in r0:
+        if k.startswith(task + "_"):
+            np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    np.testing.assert_allclose(r0[f"{task}_losses"], want_l, rtol=1e-5)
+    scale = max(float(g.abs().max()) for gs in grads for g in gs.values())
+    for name, w in want_p.items():
+        got = r0[f"{task}_param.{name}"]
+        live = np.all([np.abs(gs[name].numpy()) > 1e-4 * scale for gs in grads], axis=0)
+        np.testing.assert_allclose(got[live], w.numpy()[live], atol=1e-6, err_msg=name)
+        assert np.all(np.abs(got - w.numpy()) <= 2 * LR * 1.001), name
+
+
+def test_task_clis_run_at_dp2(cluster):
+    """cli/pretrain and cli/classify --mesh_shape dp=2 --synthetic: finite
+    losses and equal parameters on both ranks; rank 0 wrote the checkpoint
+    (it loads strictly) and the test predictions."""
+    from aladin_torch.models.bert_img import BertImgConfig
+    from aladin_torch.tasks.pretraining import BertImgForPreTraining
+
+    r0, r1 = cluster.ranks()
+    for cli in ("pretrain", "classify"):
+        assert np.all(np.isfinite(r0[f"{cli}_cli_losses"]))
+        np.testing.assert_array_equal(r0[f"{cli}_cli_losses"], r1[f"{cli}_cli_losses"])
+        np.testing.assert_array_equal(r0[f"{cli}_cli_params"], r1[f"{cli}_cli_params"])
+    ckpt = torch.load(str(r0["pretrain_cli_ckpt"]), map_location="cpu", weights_only=True)
+    vocab = ckpt["model"]["bert.embeddings.word_embeddings.weight"].shape[0]
+    model = BertImgForPreTraining(BertImgConfig(vocab_size=vocab, hidden_size=64,
+                                                num_hidden_layers=2, num_attention_heads=4,
+                                                intermediate_size=128,
+                                                max_position_embeddings=128, img_feature_dim=16))
+    model.load_state_dict(ckpt["model"], strict=True)
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
+    np.testing.assert_array_equal(flat, r0["pretrain_cli_params"])
+    with open(str(r0["classify_cli_results"])) as f:
+        assert len(json.load(f)) == 32
 
 
 def test_dp_params_equal_across_ranks_after_three_steps(cluster):

@@ -51,7 +51,7 @@ from aladin_torch.io.checkpoint import (
 from aladin_torch.io.convert import aux_from_flax, params_from_flax, state_dict_from_flax
 from aladin_torch.models.aladin import ALADIN, Batch
 from aladin_torch.models.bert_img import BertImgConfig
-from aladin_torch.train.schedule import make_adamw, make_lr_schedule, warmup_linear_schedule
+from aladin_torch.train.schedule import make_lr_schedule
 from aladin_torch.train.loop import crossed
 from aladin_torch.train.state import TrainState
 from aladin_torch.train.step import make_loss_fn, make_multi_train_step, make_train_step
@@ -379,13 +379,6 @@ def test_full_resume_from_a_file_without_the_offset_reads_zero(tmp_path):
         np.random.RandomState(0))), 0)
     assert state.optimizer.param_groups[0]["lr"] == pytest.approx(state.schedule(EITERS))
     assert state.schedule(EITERS) == pytest.approx(LR * 0.01)
-
-
-def test_unported_training_levers_raise():
-    """AdamW and the warmup-linear schedule (ROADMAP queue 1, item 9)."""
-    for fn in (make_adamw, warmup_linear_schedule):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
 
 
 def test_orbax_directories_are_refused(tmp_path):
