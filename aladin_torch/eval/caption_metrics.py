@@ -5,8 +5,9 @@ Equivalent capability to ref:oscar/utils/caption_evaluate.py
 (evaluate_on_coco_caption): score generated captions against the COCO
 ground-truth sets and report the standard metric dict. BLEU, METEOR
 (eval/meteor.py, nltk-algorithm-faithful native port), ROUGE-L and CIDEr-D
-run natively; SPICE shells out to Java (eval/spice.py) and is skipped with
-a note when the jars are absent.
+run natively; METEOR's stemmer is nltk's, and METEOR is skipped with a note
+(``METEOR_skipped``) where nltk is not installed; SPICE shells out to Java
+(eval/spice.py) and is skipped with a note when the jars are absent.
 """
 
 from __future__ import annotations
@@ -72,11 +73,12 @@ def evaluate_captions(
     bleu = bleu_score(hyps, refs)
     rouge_mean, _ = Rouge().compute_score(ground_truth, predictions)
     cider_mean, _ = CiderD().compute_score(ground_truth, predictions)
-    meteor_mean, _ = Meteor().compute_score(ground_truth, predictions)
-    out = {
-        "Bleu_1": bleu[0], "Bleu_2": bleu[1], "Bleu_3": bleu[2], "Bleu_4": bleu[3],
-        "METEOR": meteor_mean, "ROUGE_L": rouge_mean, "CIDEr": cider_mean,
-    }
+    out = {"Bleu_1": bleu[0], "Bleu_2": bleu[1], "Bleu_3": bleu[2], "Bleu_4": bleu[3]}
+    try:
+        out["METEOR"], _ = Meteor().compute_score(ground_truth, predictions)
+    except ImportError as e:  # nltk absent: noted, as SPICE without its jars
+        out["METEOR_skipped"] = str(e)
+    out.update({"ROUGE_L": rouge_mean, "CIDEr": cider_mean})
     if include_spice:
         try:
             from aladin_torch.eval.spice import Spice

@@ -18,8 +18,10 @@ The port's module names are the reference torch names, so:
     train state's {"model", "aux"} tree becomes the port's named parameters
     (``params_from_flax``). A gradient tree has the same structure, so the
     same maps name its entries. The OSCAR task models' trees (pretraining,
-    classification, multiple choice) map through
-    ``task_state_dict_from_flax``.
+    captioning, classification, multiple choice) map through
+    ``task_state_dict_from_flax``, and an OSCAR captioning directory's
+    ``pytorch_model.bin`` loads into the captioner through
+    ``load_captioner_checkpoint``.
 
 Orbax checkpoint directories are a JAX format and are not read here.
 """
@@ -139,6 +141,7 @@ def task_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     ``cls/{transform_dense, transform_layernorm, decoder_bias}`` ->
     ``cls.predictions.{transform.dense, transform.LayerNorm, bias}``,
     ``seq_relationship`` -> ``cls.seq_relationship``),
+    ``BertImageCaptioner`` (the same MLM head and no ``seq_relationship``),
     ``ImageBertClassifier`` (``classifier``) and both multiple-choice heads
     (``cls`` or ``cls_fc1`` / ``cls_fc2``, the same names in both)."""
     sd = bert_state_dict(tree["bert"], "bert.")
@@ -147,6 +150,7 @@ def task_state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _dense(sd, "cls.predictions.transform.dense", cls["transform_dense"])
         _layernorm(sd, "cls.predictions.transform.LayerNorm", cls["transform_layernorm"])
         sd["cls.predictions.bias"] = _t(cls["decoder_bias"])
+    if "seq_relationship" in tree:  # pretraining; the captioner has the MLM head alone
         _dense(sd, "cls.seq_relationship", tree["seq_relationship"])
     for name in ("classifier", "cls_fc1", "cls_fc2") + (("cls",) if "kernel" in cls else ()):
         if name in tree:
@@ -193,3 +197,25 @@ def load_aladin_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str
     sd = _strip_prefix(ckpt["model"], "img_txt_enc.")
     meta = {"epoch": ckpt.get("epoch", 0), "Eiters": ckpt.get("Eiters", 0)}
     return sd, ckpt.get("config") or {}, meta
+
+
+def captioner_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An OSCAR checkpoint's state dict (``bert.*``, ``cls.predictions.*``)
+    -> the port's ``BertImageCaptioner`` keys: the backbone and the MLM head
+    as they are, without the tied decoder's copy of the word embeddings
+    (``cls.predictions.decoder.weight``: the head reads the table itself)
+    and without a pretraining checkpoint's ``cls.seq_relationship``."""
+    return {k: v for k, v in sd.items()
+            if k.startswith("bert.") or (k.startswith("cls.predictions.")
+                                         and k != "cls.predictions.decoder.weight")}
+
+
+def load_captioner_checkpoint(checkpoint_dir: str) -> Tuple[Dict[str, torch.Tensor],
+                                                           BertImgConfig]:
+    """OSCAR captioning directory -> (BertImageCaptioner state dict,
+    BertImgConfig)."""
+    with open(os.path.join(checkpoint_dir, "config.json")) as f:
+        cfg = BertImgConfig.from_json_dict(json.load(f))
+    sd = torch.load(os.path.join(checkpoint_dir, "pytorch_model.bin"), map_location="cpu",
+                    weights_only=True)
+    return captioner_state_dict(sd), cfg

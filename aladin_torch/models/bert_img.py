@@ -148,8 +148,9 @@ class BertEmbeddings(nn.Module):
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, input_ids, token_type_ids):
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+    def forward(self, input_ids, token_type_ids, position_ids=None):
+        pos = (torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+               if position_ids is None else position_ids)
         x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
              + select_rows(self.token_type_embeddings.weight, token_type_ids))
         return self.dropout(self.LayerNorm(x))
@@ -185,7 +186,8 @@ class BertSelfAttention(nn.Module):
         self.qkv = (FusedQuantLinear([self.query, self.key, self.value]) if cfg.quant_matmuls
                     else None)
 
-    def forward(self, x, bias, seed=None, x_q8=None):
+    def project(self, x, x_q8=None):
+        """(q, k, v), each (B, S, H, d), of the rows ``x``."""
         b, s, _ = x.shape
         if self.qkv is not None:  # one W8A8 GEMM; x_q8: x quantized upstream
             qkv = self.qkv(x) if x_q8 is None else self.qkv.forward_xq(*x_q8, x.dtype)
@@ -196,18 +198,29 @@ class BertSelfAttention(nn.Module):
             q, k, v = F.linear(x, w, bb).chunk(3, dim=-1)
         else:
             q, k, v = self.query(x), self.key(x), self.value(x)
-        q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim) for t in (q, k, v))
-        if self.fused_attention:  # (B, S, H, d) as projected: no transposes
-            ctx = fused_attention(q, k, v, bias[:, 0], seed, self.dropout_rate,
-                                  self.training and seed is not None)
-            return ctx.reshape(b, s, -1), None
+        return tuple(t.reshape(b, s, self.num_heads, self.head_dim) for t in (q, k, v))
+
+    def attend(self, q, k, v, bias):
+        """The plain attention core: (ctx (B, Q, H * d), probs (B, H, Q, K))
+        of queries (B, Q, H, d) over keys and values (B, K, H, d) under an
+        additive bias broadcastable to (B, H, Q, K); scores and softmax in
+        f32, the rest in v's dtype."""
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        with torch.autocast(x.device.type, enabled=False):  # f32 scores, as in JAX
+        with torch.autocast(q.device.type, enabled=False):  # f32 scores, as in JAX
             scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores / math.sqrt(self.head_dim) + bias
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ctx = torch.matmul(self.dropout(probs), v)
-        return ctx.transpose(1, 2).reshape(b, s, -1), probs
+        return ctx.transpose(1, 2).reshape(q.shape[0], q.shape[2], -1), probs
+
+    def forward(self, x, bias, seed=None, x_q8=None):
+        b, s, _ = x.shape
+        q, k, v = self.project(x, x_q8)
+        if self.fused_attention:  # (B, S, H, d) as projected: no transposes
+            ctx = fused_attention(q, k, v, bias[:, 0], seed, self.dropout_rate,
+                                  self.training and seed is not None)
+            return ctx.reshape(b, s, -1), None
+        return self.attend(q, k, v, bias)
 
 
 class BertSelfOutput(nn.Module):

@@ -85,7 +85,11 @@ Phases, each printing one JSON line:
               S 50 and 84 and the ragged S 134 and 160 (MAX_SEQ), both bias
               shapes, dropout 0 and 0.1, a fully padded row; then kernel,
               plain and scaled_dot_product_attention times at S 50 and 84,
-              each kernel time with its share of the bound.
+              each kernel time with its share of the bound; then the
+              captioning shape, B 32 S 120 under per-row 2-D block masks
+              (bias_q == S): forward and backward against the plain
+              versions, and kernel (also at dropout 0), plain and SDPA (the
+              same float mask) times beside the bound.
   10. k3     - K3a: the fused residual+LayerNorm Triton forward and its
               backward kernel (csrc/layernorm_kernel.cu) against the plain
               versions at M = 128 x 84 and 128 x 50 rows of 768, the
@@ -179,9 +183,38 @@ Phases, each printing one JSON line:
               one epoch, --do_test: finite losses, a validation score in
               [0, 1], one prediction a test example; host and card ms a
               step (nlvr: 2 x 32 streams), peak memory.
+  20. caption - image captioning at VinVL-base width and the COCO
+              geometry (40 caption slots + 30 OD labels + 50 regions, L
+              120): (a) aladin_torch.cli.captioning, f32 with the knobs off
+              as aladin_tpu's CLI, over a synthetic corpus of 8 images, 4
+              steps of 32, once a decoding mode: greedy with one SCST
+              epoch, beam 5, --kv_cache and --use_cbs (every CBS caption
+              holds a detected class word): finite losses and metrics, host
+              and card ms a step, peak memory; (b) one bf16 step at dropout
+              0 with K2 (2-D block masks, bias_q == S) and K3a against one
+              without (train_fused's tolerances), and exactly 12 / 12 / 24
+              / 24 K2 / K3a launches a step at dropout 0.1; (c) a captioner
+              trained here on one fixed caption until its decisions are far
+              apart (the smallest top-1 margin is printed) decodes 16
+              images in f32 by full recompute and with the KV cache, greedy
+              and beam 5: equal tokens, summed log-probs within
+              DECODE_F32_RTOL, host and card ms a batch and a step of
+              greedy in both modes; (d) the
+              same in bf16, full-recompute greedy with fused_attention
+              against without: equal tokens, log-probs within
+              DECODE_BF16_ATOL, exactly 12 x 39 K2 forwards a batch.
+  21. retrieval_oscar - aladin_torch.cli.retrieval_oscar at VinVL-base
+              width over 32 synthetic images: one epoch of pair steps at 16
+              anchors (32 rows x (70 text + 50 regions)), then the cross
+              evaluation of 32 images x 160 captions (5120 pairs): finite
+              losses, R@K, ms a step, pairs/s with the host tensorize and
+              card seconds apart; one bf16 pair step with K2 + K3a against
+              one without, and 12 / 12 / 24 / 24 launches a step.
 
 Then the total seconds, the kernels line ({"kernels": [...]}; K2 and K3a
-also with their launches in one remat step and in one pretraining step),
+also with their launches in one remat step, one pretraining step, one
+caption step and one pair step, K2's forward in one caption decode batch,
+and K2's times at the captioning shape),
 the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
 phase raises, so the script exits nonzero without that last line. It also
@@ -1346,15 +1379,81 @@ def phase_k2() -> dict:
         for t in timings[s].values():
             t["bound_share"] = t["bound_ms"] / t["ms"]
         del out
+    caption = k2_caption_shape(gen, checks, max_err)
     emit({"phase": "k2", "checks": checks, "tolerance": "max|want| * 2^-7 (one bf16 ulp)",
           "timings": {f"B{b} S{s} H{h} d{d} bf16": t for s, t in timings.items()},
+          "caption_timings": {CAPTION_K2_SHAPE: caption},
           "timing": "ms, plain_ms, library_ms: card time (device_ms); ms_rate0: the kernel's "
                     "card time at dropout 0, as the library call runs; event_ms: CUDA events "
                     "around back-to-back wrapper calls (host launch cost included); "
                     "bound_share: bound_ms / ms",
           "library": "F.scaled_dot_product_attention with the bias as a bf16 mask, rate 0; "
                      "backward: torch.autograd.grad through it"})
-    return {"max_err": max_err, "timings": timings}
+    return {"max_err": max_err, "timings": timings, "caption": caption}
+
+
+CAPTION_K2_SHAPE = "B32 S120 Q120 H12 d64 bf16"
+
+
+def k2_caption_shape(gen, checks, max_err) -> dict:
+    """K2 at the captioning step's shape, the mode bias_q == S: B 32 rows of
+    40 caption slots + 30 OD labels + 50 regions under per-row 2-D block
+    masks (tasks/captioning.py::_decode_attention_mask, OD and region
+    lengths drawn per row, their padded rows fully masked): forward and
+    backward against the plain versions at dropout 0.1, then kernel, plain
+    and scaled_dot_product_attention times (the same float mask, rate 0)
+    beside the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.ops.kernels import attention_kernel as ak
+    from aladin_torch.tasks.captioning import _decode_attention_mask
+
+    b, s, h, d = 32, 120, 12, 64
+    rng = np.random.RandomState(3)
+    masks = np.stack([_decode_attention_mask(40, 70, 50, int(o), int(r)) for o, r in
+                      zip(rng.randint(1, 31, b), rng.randint(10, 51, b))])
+    bias = (1.0 - torch.from_numpy(masks).float().cuda()) * -10000.0  # (B, S, S)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+    extra = (torch.full((), 11, dtype=torch.int64, device="cuda"), 0.1, True)
+    want = ak.attention_forward_plain(q, k, v, bias, *extra)
+    max_err["fwd"] = max(max_err["fwd"], check_close(
+        checks, "K2 forward", "caption S120 Q120 ctx", ak.attention_forward(q, k, v, bias, *extra),
+        want, BF16_ULP * want.float().abs().max().item()))
+    for name, gt, wt in zip(("dq", "dk", "dv"), ak.attention_backward(q, k, v, bias, g, *extra),
+                            ak.attention_backward_plain(q, k, v, bias, g, *extra)):
+        max_err["bwd"] = max(max_err["bwd"], check_close(
+            checks, "K2 backward", f"caption S120 Q120 {name}", gt, wt,
+            BF16_ULP * wt.float().abs().max().item()))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    mask = bias[:, None].to(torch.bfloat16)  # (B, 1, S, S)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = g.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    res = {}
+    for key, fn, plain, lib in (
+            ("fwd", lambda: ak.attention_forward(q, k, v, bias, *extra),
+             lambda: ak.attention_forward_plain(q, k, v, bias, *extra), sdpa_fwd),
+            ("bwd", lambda: ak.attention_backward(q, k, v, bias, g, *extra),
+             lambda: ak.attention_backward_plain(q, k, v, bias, g, *extra),
+             lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))):
+        bnd, by = attention_bound(b, s, h, d, s, key == "bwd")
+        res[key] = {"ms": device_ms(fn, 20), "plain_ms": device_ms(plain, 5),
+                    "library_ms": device_ms(lib, 20), "bound_ms": bnd, "bound_by": by}
+        res[key]["bound_share"] = bnd / res[key]["ms"]
+    # the kernel at dropout 0, as the library call runs
+    res["fwd"]["ms_rate0"] = device_ms(lambda: ak.attention_forward(q, k, v, bias, 11, 0.0, True),
+                                       20)
+    res["bwd"]["ms_rate0"] = device_ms(
+        lambda: ak.attention_backward(q, k, v, bias, g, 11, 0.0, True), 20)
+    del out
+    return res
 
 
 def phase_k3() -> dict:
@@ -2461,6 +2560,49 @@ def step_times(step, batch, n: int = 5) -> dict:
             "device_busy_share": prof["device_ms"] / host_ms, "top": prof["top"]}
 
 
+def knob_check(what: str, build, batch, start, lr: float) -> dict:
+    """One bf16 step at dropout 0 from the weights ``start`` with the kernel
+    knobs on (``build(True, 0.0)``) and off: the loss and grad_norm within
+    KNOB_LOSS_RTOL / KNOB_GNORM_RTOL, every gradient within KNOB_GNORM_RTOL
+    (relative L2), every parameter within what one AdamW step at ``lr``
+    allows; raises beyond them. Returns {"agreement", "on_times",
+    "off_times"} (step_times of each)."""
+    import torch
+
+    from aladin_torch.train.schedule import global_norm
+
+    first, moved, grads, times = {}, {}, {}, {}
+    for fused in (True, False):
+        m, step = build(fused, 0.0)
+        first[fused] = {k: v.item() for k, v in step(*batch).items()}
+        # a parameter the loss does not reach (a captioner's pooler) has no gradient
+        grads[fused] = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                        for p in m.parameters()]
+        first[fused]["grad_norm"] = global_norm(grads[fused]).item()
+        moved[fused] = {k: v.detach().clone() for k, v in m.named_parameters()}
+        times[fused] = step_times(step, batch)
+        del m, step
+    on, off = first[True], first[False]
+    agree = {"loss_rel_diff": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+             "grad_norm_rel_diff": abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"],
+             # every parameter's gradient: |g_on - g_off| / |g_off| over all of them
+             "grad_rel_l2_diff": global_norm([a - b for a, b in zip(grads[True], grads[False])]
+                                             ).item() / off["grad_norm"],
+             # one AdamW step from one state moves a parameter by at most
+             # lr (1 + weight decay * |p|) on either side
+             "param_max_abs_diff": max(float((moved[True][k] - moved[False][k]).abs().max())
+                                       for k in moved[True])}
+    param_bound = 2 * lr * (1 + 0.01 * max(float(v.abs().max()) for v in start.values())) * 1.001
+    if not (agree["loss_rel_diff"] <= KNOB_LOSS_RTOL
+            and agree["grad_norm_rel_diff"] <= KNOB_GNORM_RTOL
+            and agree["grad_rel_l2_diff"] <= KNOB_GNORM_RTOL
+            and agree["param_max_abs_diff"] <= param_bound):
+        raise AssertionError(f"{what}: knobs on vs off disagree: {first} {agree}")
+    return {"agreement": {"on": on, "off": off, **agree, "param_bound": param_bound,
+                          "loss_rtol": KNOB_LOSS_RTOL, "grad_norm_rtol": KNOB_GNORM_RTOL},
+            "on_times": times[True], "off_times": times[False]}
+
+
 def phase_pretrain(tmp: str, vocab_dir: str) -> dict:
     """OSCAR+ pretraining at VinVL-base width: (a) cli/pretrain over a
     synthetic corpus (knobs off, f32, as aladin_tpu's CLI), its losses, lr
@@ -2472,7 +2614,7 @@ def phase_pretrain(tmp: str, vocab_dir: str) -> dict:
     from aladin_torch.cli import pretrain as pretrain_cli
     from aladin_torch.tasks.pretrain_data import make_synthetic_pretrain_corpus
     from aladin_torch.tasks.pretraining import BertImgForPreTraining, make_pretrain_step
-    from aladin_torch.train.schedule import global_norm, warmup_linear_schedule
+    from aladin_torch.train.schedule import warmup_linear_schedule
 
     root, run_dir = os.path.join(tmp, "pretrain_corpus"), os.path.join(tmp, "pretrain_run")
     make_synthetic_pretrain_corpus(root, ("coco", "flickr30k"), n_images_per_dataset=64,
@@ -2526,36 +2668,7 @@ def phase_pretrain(tmp: str, vocab_dir: str) -> dict:
         opt, _ = pretrain_cli.make_optimizer(m, PRETRAIN_LR, 0, PRETRAIN_ITERS)
         return m, make_pretrain_step(m, opt, torch.bfloat16)
 
-    first, moved, grads = {}, {}, {}
-    for fused in (True, False):
-        m, step = build(fused, 0.0)
-        first[fused] = {k: v.item() for k, v in step(*batch).items()}
-        first[fused]["grad_norm"] = global_norm([p.grad for p in m.parameters()]).item()
-        moved[fused] = {k: v.detach().clone() for k, v in m.named_parameters()}
-        grads[fused] = [p.grad.clone() for p in m.parameters()]
-        if fused:
-            on_times = step_times(step, batch)
-        else:
-            off_times = step_times(step, batch)
-        del m, step
-    on, off = first[True], first[False]
-    agree = {"loss_rel_diff": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
-             "grad_norm_rel_diff": abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"],
-             # every parameter's gradient: |g_on - g_off| / |g_off| over all of them
-             "grad_rel_l2_diff": global_norm([a - b for a, b in zip(grads[True], grads[False])]
-                                             ).item() / off["grad_norm"],
-             # one AdamW step from one state moves a parameter by at most
-             # lr (1 + weight decay * |p|) on either side
-             "param_max_abs_diff": max(float((moved[True][k] - moved[False][k]).abs().max())
-                                       for k in moved[True])}
-    param_bound = 2 * PRETRAIN_LR * (1 + 0.01 * max(float(v.abs().max())
-                                                     for v in start.values())) * 1.001
-    if not (agree["loss_rel_diff"] <= KNOB_LOSS_RTOL
-            and agree["grad_norm_rel_diff"] <= KNOB_GNORM_RTOL
-            and agree["grad_rel_l2_diff"] <= KNOB_GNORM_RTOL
-            and agree["param_max_abs_diff"] <= param_bound):
-        raise AssertionError(f"pretrain: knobs on vs off disagree: {first} {agree}")
-    del moved, grads
+    knobs = knob_check("pretrain", build, batch, start, PRETRAIN_LR)
     fresh_memory()
     m, step = build(True, 0.1)
     metrics, launches = counted(lambda: step(*batch))
@@ -2567,10 +2680,8 @@ def phase_pretrain(tmp: str, vocab_dir: str) -> dict:
           "cli_log": cli_log, "losses_first_last": [steps[0], steps[-1]], "lr": lrs,
           "checkpoints": names, "cli_kernel_launches": cli_launches,
           "f32_knobs_off": {**cli_times, "peak_mem_gb": peak_cli},
-          "knob_check_dropout0": {"on": on, "off": off, **agree, "param_bound": param_bound,
-                                  "loss_rtol": KNOB_LOSS_RTOL,
-                                  "grad_norm_rtol": KNOB_GNORM_RTOL},
-          "bf16_knobs_on": on_times, "bf16_knobs_off": off_times,
+          "knob_check_dropout0": knobs["agreement"],
+          "bf16_knobs_on": knobs["on_times"], "bf16_knobs_off": knobs["off_times"],
           "launches_dropout0.1": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     del m, step
@@ -2618,6 +2729,369 @@ def phase_classify(tmp: str, vocab_dir: str) -> dict:
     return out
 
 
+# captioning at the COCO geometry of benchmarks/caption_decode_bench.py: 40
+# caption slots, 30 OD-label tokens, 50 regions (L 120), the CLI's defaults
+CAPTION_LR = 3e-5  # cli/captioning's default
+CAPTION_CLI_IMAGES, CAPTION_CLI_EPOCHS = 8, 4  # 40 pairs: one step of 32 an epoch
+DECODE_IMAGES, DECODE_STEPS, DECODE_BEAMS = 16, 39, 5
+# the decode checks' captioner: trained on the card until its decisions are
+# far apart. argmax over logits within rounding of each other is decided by
+# the rounding, and two right implementations (cached against full
+# recompute, K2 against plain attention) may then emit other tokens, after
+# which the rows diverge; a trained captioner's top two are far apart, and
+# the smallest top-1 margin of every decision is printed beside the check
+DECODE_CAPTION = "a photo of the dog in the house left of a tree in the picture of the image"
+DECODE_TRAIN_LR, DECODE_TRAIN_EPOCHS = 2e-4, 30  # 80 pairs: 2 steps an epoch
+# f32 summed log-probs, cached against full recompute: the same f32 math
+# summed in other orders (other GEMM shapes), ~1e-6 relative a value
+DECODE_F32_RTOL = 1e-4
+# bf16 summed log-probs, K2 against plain attention: their attention
+# outputs are one bf16 rounding (2^-8 relative) apart in places, carried
+# through 12 layers to the log-probs of the ~20 real tokens of a caption;
+# 0.1 is 20 tokens at 2^-8 of a log-prob of O(1)
+DECODE_BF16_ATOL = 0.1
+
+
+def caption_corpus(root: str, n_images: int, caption: str = "") -> None:
+    """The synthetic caption corpus (make_synthetic_dataset) with 2054-d
+    features and up to 50 boxes an image, so that the OD labels fill their
+    30 slots; ``caption``: every training caption replaced by it."""
+    from aladin_torch.data.dataset import make_synthetic_dataset
+
+    make_synthetic_dataset(root, n_images=n_images, feat_dim=2054, max_boxes=50)
+    if caption:
+        path = os.path.join(root, "train_captions.json")
+        with open(path) as f:
+            keys = list(json.load(f))
+        with open(path, "w") as f:
+            json.dump({k: [caption] * 5 for k in keys}, f)
+
+
+def check_width(what: str, cfg) -> None:
+    if (cfg.num_hidden_layers, cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+            cfg.img_feature_dim, cfg.vocab_size) != (12, 768, 12, 3072, 2054, BERT_BASE_VOCAB):
+        raise AssertionError(f"{what}: not VinVL-base width: {cfg}")
+
+
+def timed_decode(fn, steps: int) -> dict:
+    """Host ms of one decode (the host clock to a synchronize) and the
+    profiler's card ms of another, a batch and a step."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host = 1e3 * (time.perf_counter() - t0)
+    card = device_profile(fn, 1, top=4)
+    return {"host_ms_batch": host, "card_ms_batch": card["device_ms"],
+            "host_ms_step": host / steps, "card_ms_step": card["device_ms"] / steps,
+            "card_busy_share": card["device_ms"] / host, "top": card["top"]}
+
+
+def decision_margins(model, toks, inp, common) -> float:
+    """The smallest top-1 log-prob margin over the decisions that made the
+    greedy rows ``toks`` (rows that ended before a step excluded),
+    evaluated with the prefix of each step as the decoder saw it."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.tasks.captioning import StepInputs
+
+    s = toks.shape[1]
+    step_inp = StepInputs(*inp, s)
+    pos = torch.arange(s, device=toks.device)[None]
+    alive = torch.ones(toks.shape[0], dtype=torch.bool, device=toks.device)
+    least = float("inf")
+    with torch.no_grad():
+        for t in range(1, s):
+            cap = torch.where(pos < t, toks, common["mask_id"])
+            top2 = F.log_softmax(step_inp.logits(model, cap, t), -1).topk(2).values
+            if alive.any():
+                least = min(least, float((top2[:, 0] - top2[:, 1])[alive].min()))
+            alive &= toks[:, t] != common["sep_id"]
+    return least
+
+
+def phase_caption(tmp: str, vocab_dir: str) -> dict:
+    """Captioning at VinVL-base width and the COCO geometry: (a)
+    cli/captioning (f32, knobs off) over a synthetic corpus of 8 images,
+    4 steps of 32, decoding with greedy + one SCST epoch, beam 5, --kv_cache
+    and --use_cbs; (b) one bf16 step at dropout 0 with K2 (2-D masks,
+    bias_q == S) + K3a on against off, and the launches of a step; (c) on a
+    captioner trained here, decoding 16 images in f32 with full recompute
+    and with the KV cache, greedy and beam 5: equal tokens; (d) bf16 full-
+    recompute greedy with fused_attention against without: equal tokens,
+    12 x 39 K2 forwards."""
+    import torch
+
+    from aladin_torch.cli import captioning as cap_cli
+    from aladin_torch.cli import pretrain as pretrain_cli
+    from aladin_torch.data.tokenizer import BertWordPieceTokenizer
+    from aladin_torch.tasks import captioning as cap
+    from aladin_torch.tasks import decode_cache as dc
+    from aladin_torch.tasks.task_inputs import ImageFeatureProvider
+
+    out = {"card": nvidia_smi_line(), "geometry": "40 caption + 30 OD labels + 50 regions"}
+    part_s, t_part = {}, time.perf_counter()
+
+    # (a) the CLI end to end, one run a decoding mode
+    root = os.path.join(tmp, "caption_corpus")
+    caption_corpus(root, CAPTION_CLI_IMAGES)
+
+    def cli(run_root, run_dir, *extra):
+        return cap_cli.run(["--data_dir", run_root, "--eval_model_dir", vocab_dir,
+                            "--output_dir", os.path.join(tmp, run_dir), "--train_batch_size",
+                            "32", "--eval_batch_size", "8", "--device", "cuda", *extra])
+
+    runs, greedy_res = {}, None
+    for mode, extra in (("greedy_scst", ["--scst_epochs", "1"]),
+                        ("beam5", ["--num_beams", str(DECODE_BEAMS)]),
+                        ("kv_cache", ["--kv_cache"]), ("cbs", ["--use_cbs"])):
+        fresh_memory()
+        t0 = time.perf_counter()
+        res = cli(root, f"caption_{mode}", "--epochs", str(CAPTION_CLI_EPOCHS), *extra)
+        seconds = time.perf_counter() - t0
+        check_width(f"caption {mode}", res["model"].bert.cfg)
+        losses = [v for e in res["losses"] for v in e]
+        preds = res["predictions"]
+        ok = (len(losses) == CAPTION_CLI_EPOCHS and all(math.isfinite(v) for v in losses)
+              and len(preds) == CAPTION_CLI_IMAGES
+              and all(math.isfinite(res["metrics"][k]) for k in ("Bleu_1", "ROUGE_L", "CIDEr")))
+        if mode == "greedy_scst":
+            ok = ok and len(res["scst_losses"]) == 1 and all(
+                math.isfinite(v) for v in res["scst_losses"][0])
+        if mode == "cbs":  # every caption holds one of its image's detected class words
+            prov = ImageFeatureProvider(os.path.join(root, "features.tsv"))
+            hits = sum(bool({o["class"] for o in prov.get_objects(k)} & set(p[0].split()))
+                       for k, p in preds.items())
+            ok = ok and hits == len(preds)
+        if not ok:
+            raise AssertionError(f"caption {mode}: losses {losses} scst {res['scst_losses']} "
+                                 f"metrics {res['metrics']} predictions {preds}")
+        runs[mode] = {"seconds": seconds, "losses": losses, "scst_losses": res["scst_losses"],
+                      "metrics": {k: v for k, v in res["metrics"].items()},
+                      "caption_0": next(iter(preds.values()))[0],
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if mode == "greedy_scst":
+            greedy_res = res
+        else:
+            del res
+    out["cli"] = runs
+    fresh_memory()
+    out["f32_knobs_off"] = step_times(greedy_res["step"], greedy_res["batch"])
+    out["f32_knobs_off"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    part_s["a_cli"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (b) K2 (bias_q == S) + K3a on against off, one state, dropout 0
+    cfg = greedy_res["model"].bert.cfg
+    start = {k: v.detach().clone() for k, v in greedy_res["model"].state_dict().items()}
+    batch = greedy_res["batch"]
+    del greedy_res
+    fresh_memory()
+
+    def build(fused: bool, dropout: float):
+        c = dataclasses.replace(cfg, fused_attention=fused, fused_layernorm=fused,
+                                hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
+        m = cap.BertImageCaptioner(c)
+        m.load_state_dict(start)
+        m.cuda()
+        opt, _ = pretrain_cli.make_optimizer(m, CAPTION_LR, 0, 10)
+        return m, cap.make_caption_train_step(m, opt, 0.1, compute_dtype=torch.bfloat16)
+
+    knobs = knob_check("caption", build, batch, start, CAPTION_LR)
+    out["knob_check_dropout0"] = knobs["agreement"]
+    out["bf16_knobs_on"], out["bf16_knobs_off"] = knobs["on_times"], knobs["off_times"]
+    fresh_memory()
+    m, step = build(True, 0.1)
+    metrics, launches = counted(lambda: step(*batch))
+    want = step_launches(cfg.num_hidden_layers, False, passes=1)
+    if launches != want or not math.isfinite(metrics["loss"].item()):
+        raise AssertionError(f"caption: step launches {launches}, expected {want}; {metrics}")
+    out["launches_step_dropout0.1"] = launches
+    del m, step, start
+    fresh_memory()
+    part_s["b_step"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (c) decoding 16 images with a captioner trained here: full recompute
+    # against the KV cache, f32
+    droot = os.path.join(tmp, "decode_corpus")
+    caption_corpus(droot, DECODE_IMAGES, DECODE_CAPTION)
+    t0 = time.perf_counter()
+    res = cli(droot, "decode_train", "--epochs", str(DECODE_TRAIN_EPOCHS), "--learning_rate",
+              str(DECODE_TRAIN_LR))
+    out["decode_model"] = {"caption": DECODE_CAPTION, "steps": sum(len(e) for e in res["losses"]),
+                           "lr": DECODE_TRAIN_LR, "seconds": time.perf_counter() - t0,
+                           "loss_first_last": [res["losses"][0][0], res["losses"][-1][-1]],
+                           "metrics": res["metrics"]}
+    model = res["model"].eval()
+    del res
+    part_s["c_train"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    tok = BertWordPieceTokenizer.from_pretrained(vocab_dir)
+    tz = cap.CaptionTensorizer(tok)
+    prov = ImageFeatureProvider(os.path.join(droot, "features.tsv"))
+    keys = sorted(prov.id2idx)[:DECODE_IMAGES]
+    inp = [torch.from_numpy(a).cuda() for a in cap_cli.decode_inputs(
+        tok, tz, [prov.get_od_labels(k) for k in keys], [prov.get_image(k) for k in keys])]
+    common = dict(max_steps=DECODE_STEPS, cls_id=tz.cls_id, sep_id=tz.sep_id,
+                  mask_id=tz.mask_id, pad_id=tz.pad_id)
+    decoders = {
+        "greedy_full": lambda: cap.greedy_decode(model, *inp, **common),
+        "greedy_cached": lambda: dc.greedy_decode_cached(model, *inp, **common),
+        "beam5_full": lambda: cap.beam_search_decode(model, *inp, num_beams=DECODE_BEAMS,
+                                                     **common),
+        "beam5_cached": lambda: dc.beam_search_decode_cached(model, *inp,
+                                                             num_beams=DECODE_BEAMS, **common)}
+    got = {k: fn() for k, fn in decoders.items()}
+    margin = decision_margins(model, got["greedy_full"][0], inp, common)
+    decode = {"batch": DECODE_IMAGES, "steps": DECODE_STEPS, "f32": {},
+              "greedy_min_top1_margin": margin, "logp_rtol": DECODE_F32_RTOL}
+    for mode in ("greedy", "beam5"):
+        (ft, fl), (ct, cl) = got[f"{mode}_full"], got[f"{mode}_cached"]
+        rel = ((fl - cl).abs() / fl.abs().clamp(min=1e-6)).max().item()
+        decode["f32"][mode] = {"tokens_equal": bool(torch.equal(ft, ct)), "logp_max_rel": rel,
+                               "caption_0": cap_cli.detokenize(tok, ft[:1].cpu().numpy())[0]}
+        if not (torch.equal(ft, ct) and rel <= DECODE_F32_RTOL):
+            raise AssertionError(f"caption: cached {mode} disagrees with full recompute: "
+                                 f"{decode} {ft.tolist()} {ct.tolist()}")
+    for k in ("greedy_full", "greedy_cached"):  # beam 5 is checked, not timed
+        decode["f32"][k + "_time"] = timed_decode(decoders[k], DECODE_STEPS)
+    part_s["c_decode_f32"] = time.perf_counter() - t_part
+
+    # (d) bf16 full recompute with fused_attention against without
+    t_part = time.perf_counter()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, got
+    fresh_memory()
+    bf16 = {}
+    for fused in (True, False):
+        m = cap.BertImageCaptioner(dataclasses.replace(cfg, fused_attention=fused))
+        m.load_state_dict(state)
+        bf16[fused] = m.to(device="cuda", dtype=torch.bfloat16).eval()
+    (ft, fl), launches_d = counted(lambda: cap.greedy_decode(bf16[True], *inp, **common))
+    pt, pl = cap.greedy_decode(bf16[False], *inp, **common)
+    want_k2 = cfg.num_hidden_layers * DECODE_STEPS
+    diff = (fl.float() - pl.float()).abs().max().item()
+    decode["bf16_fused_vs_plain"] = {
+        "tokens_equal": bool(torch.equal(ft, pt)), "logp_max_abs_diff": diff,
+        "logp_atol": DECODE_BF16_ATOL, "k2_forward_launches": launches_d["k2_fwd"],
+        "plain_min_top1_margin": decision_margins(bf16[False], pt, inp, common),
+        "fused_time": timed_decode(lambda: cap.greedy_decode(bf16[True], *inp, **common),
+                                   DECODE_STEPS),
+        "plain_time": timed_decode(lambda: cap.greedy_decode(bf16[False], *inp, **common),
+                                   DECODE_STEPS)}
+    if not (torch.equal(ft, pt) and diff <= DECODE_BF16_ATOL
+            and launches_d["k2_fwd"] == want_k2 and launches_d["k2_bwd"] == 0):
+        raise AssertionError(f"caption: bf16 decode with K2 disagrees: {decode} "
+                             f"(want {want_k2} K2 forwards) {ft.tolist()} {pt.tolist()}")
+    out["decode"] = decode
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    part_s["d_decode_bf16"] = time.perf_counter() - t_part
+    out["seconds"] = part_s
+    emit({"phase": "caption", **out})
+    del bf16
+    fresh_memory()
+    return {"step_launches": launches, "decode_launches": launches_d}
+
+
+RETRIEVAL_IMAGES, RETRIEVAL_ANCHORS, RETRIEVAL_LR = 32, 16, 2e-5
+
+
+def phase_retrieval_oscar(tmp: str, vocab_dir: str) -> dict:
+    """cli/retrieval_oscar at VinVL-base width over a synthetic corpus of 32
+    images: one epoch of pair steps at 16 anchors (32 rows x (70 text + 50
+    regions)), then evaluate_cross over 32 images x 160 captions (5120
+    pairs): finite losses, R@K; ms a step (f32, knobs off), the cross
+    evaluation's pairs/s with its host tensorize and card time; one bf16
+    pair step with K2 + K3a on against off at dropout 0, and the launches
+    of a step."""
+    import torch
+
+    from aladin_torch.cli import pretrain as pretrain_cli
+    from aladin_torch.cli import retrieval_oscar as ro_cli
+    from aladin_torch.cli.common import build_tokenizer
+    from aladin_torch.config import DataArgs
+    from aladin_torch.data.dataset import RetrievalDataset
+    from aladin_torch.models.bert_img import ImageBertClassifier
+    from aladin_torch.tasks import retrieval_oscar as ro
+
+    root = os.path.join(tmp, "ro_corpus")
+    caption_corpus(root, RETRIEVAL_IMAGES)
+    fresh_memory()
+    t0 = time.perf_counter()
+    res = ro_cli.run(["--data_dir", root, "--eval_model_dir", vocab_dir, "--output_dir",
+                      os.path.join(tmp, "ro_run"), "--train_batch_size", str(RETRIEVAL_ANCHORS),
+                      "--epochs", "1", "--device", "cuda"])
+    cli_seconds = time.perf_counter() - t0
+    cfg = res["model"].bert.cfg
+    check_width("retrieval_oscar", cfg)
+    losses = [m["loss"] for m in res["metrics"]]
+    steps = RETRIEVAL_IMAGES * 5 // RETRIEVAL_ANCHORS
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses) or not (
+            0.0 <= res["results"]["rsum"] <= 600.0):
+        raise AssertionError(f"retrieval_oscar: losses {losses}, results {res['results']}")
+    out = {"card": nvidia_smi_line(), "rows": 2 * RETRIEVAL_ANCHORS, "seq": "70 text + 50 regions",
+           "cli_seconds": cli_seconds, "losses_first_last": [losses[0], losses[-1]],
+           "results": res["results"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    model, batch = res["model"], res["batch"]
+    out["f32_knobs_off"] = step_times(res["step"], batch)
+    del res
+
+    # the cross evaluation again, timed: its host tensorize alone, the card
+    args = DataArgs(data_dir=root, img_feat_file=os.path.join(root, "features.tsv"),
+                    eval_model_dir=vocab_dir, add_od_labels=True)
+    test_ds = RetrievalDataset(build_tokenizer(args), args, "test", is_train=False)
+    keys, n = test_ds.img_keys, len(test_ds.img_keys)
+    pairs = n * n * 5
+    t0 = time.perf_counter()
+    feats = {k: test_ds.get_image(k) for k in keys}
+    for i in range(n):
+        for c in range(n * 5):
+            test_ds.tensorizer.tensorize_joint(test_ds.captions[keys[c // 5]][c % 5],
+                                               test_ds.get_od_labels(keys[i]), feats[keys[i]])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = ro.evaluate_cross(model, test_ds)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    card = device_profile(lambda: ro.evaluate_cross(model, test_ds), 1, top=4)
+    out["cross_eval"] = {"pairs": pairs, "seconds": total_s, "pairs_per_s": pairs / total_s,
+                         "repeats_the_cli_results": again == out["results"],
+                         "host_tensorize_s": host_s, "card_s": card["device_ms"] / 1e3,
+                         "card_busy_share": card["device_ms"] / 1e3 / total_s,
+                         "top": card["top"]}
+
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    fresh_memory()
+
+    def build(fused: bool, dropout: float):
+        c = dataclasses.replace(cfg, fused_attention=fused, fused_layernorm=fused,
+                                hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
+        m = ImageBertClassifier(c)
+        m.load_state_dict(start)
+        m.cuda()
+        opt, _ = pretrain_cli.make_optimizer(m, RETRIEVAL_LR, 0, 10)
+        return m, ro.make_pair_train_step(m, opt, "ce", torch.bfloat16)
+
+    knobs = knob_check("retrieval_oscar", build, batch, start, RETRIEVAL_LR)
+    out["knob_check_dropout0"] = knobs["agreement"]
+    out["bf16_knobs_on"], out["bf16_knobs_off"] = knobs["on_times"], knobs["off_times"]
+    fresh_memory()
+    m, step = build(True, 0.1)
+    metrics, launches = counted(lambda: step(*batch))
+    want = step_launches(cfg.num_hidden_layers, False, passes=1)
+    if launches != want or not math.isfinite(metrics["loss"].item()):
+        raise AssertionError(f"retrieval_oscar: launches {launches}, expected {want}; {metrics}")
+    out["launches_step_dropout0.1"] = launches
+    emit({"phase": "retrieval_oscar", **out})
+    del m, step
+    fresh_memory()
+    return {"launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "aladin_torch")):
         print("chip_smoke.py must run from a checkout of the repository (aladin_torch/ "
@@ -2656,6 +3130,8 @@ def main() -> int:
         write_vocab_dir(vocab_dir)
         pretrain = phase_pretrain(tmp, vocab_dir)["launches"]
         phase_classify(tmp, vocab_dir)
+        caption = phase_caption(tmp, vocab_dir)
+        pair = phase_retrieval_oscar(tmp, vocab_dir)["launches"]
     # K1 runs on three paths: cli/test's scoring, streaming alignment recall,
     # and the sharded scorer and mesh sweep of the parallel phase
     k1_launches = {"bf16": launches["bf16"]["k1"] + streamed["k1_launches"]
@@ -2681,15 +3157,22 @@ def main() -> int:
             "replaces": f"aladin_tpu/ops/pallas/attention_kernel.py:{line}",
             "launches": fused[f"k2_{key}"], "launches_remat_step": remat[f"k2_{key}"],
             "launches_pretrain_step": pretrain[f"k2_{key}"],
+            "launches_caption_step": caption["step_launches"][f"k2_{key}"],
+            "launches_pair_step": pair[f"k2_{key}"],
+            **({"launches_caption_decode": caption["decode_launches"]["k2_fwd"]}
+               if key == "fwd" else {}),
             "max_abs_err": k2["max_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16"})
+            "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16",
+            "caption_shape": {"shape": CAPTION_K2_SHAPE, **k2["caption"][key]}})
     t = k3["timings"][84]
     kernels.append({
         "name": "residual_layernorm forward", "route": "triton",
         "source": "aladin_torch/ops/kernels/layernorm.py",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:70", "launches": fused["k3a"],
         "launches_remat_step": remat["k3a"], "launches_pretrain_step": pretrain["k3a"],
+        "launches_caption_step": caption["step_launches"]["k3a"],
+        "launches_pair_step": pair["k3a"],
         "max_abs_err": k3["max_err"]["fwd"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": "M10752 D768 bf16"})
@@ -2698,6 +3181,8 @@ def main() -> int:
         "source": "aladin_torch/csrc/layernorm_kernel.cu",
         "replaces": "aladin_tpu/ops/pallas/layernorm.py:193", "launches": fused["k3a_bwd"],
         "launches_remat_step": remat["k3a_bwd"], "launches_pretrain_step": pretrain["k3a_bwd"],
+        "launches_caption_step": caption["step_launches"]["k3a_bwd"],
+        "launches_pair_step": pair["k3a_bwd"],
         "max_abs_err": k3["max_err"]["bwd"], "ms": t["backward_ms"],
         "plain_ms": t["backward_plain_ms"], "bound_ms": t["backward_bound_ms"],
         "bound_by": t["backward_bound_by"], "library_ms": t["backward_library_ms"],

@@ -206,4 +206,7 @@ def test_port_imports_no_jax():
             "aladin_torch.tasks.captioning", "aladin_torch.eval.cider",
             "aladin_torch.eval.meteor", "aladin_torch.eval.spice",
             "aladin_torch.eval.caption_metrics", "aladin_torch.eval.nocaps",
-            "aladin_torch.utils.metric_logger"} <= names
+            "aladin_torch.utils.metric_logger", "aladin_torch.tasks.decode_cache",
+            "aladin_torch.tasks.cbs", "aladin_torch.tasks.scst",
+            "aladin_torch.tasks.oscar_teacher", "aladin_torch.tasks.retrieval_oscar",
+            "aladin_torch.cli.captioning", "aladin_torch.cli.retrieval_oscar"} <= names

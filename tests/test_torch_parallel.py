@@ -2,8 +2,10 @@
 process group (parallel/distributed.py), the corpus-sharded scorers
 (parallel/mesh.py), compute_recall_from_scores, sharded_search, the
 streaming mesh sweeps, the data-parallel train step, cli/train with
---mesh_shape dp=2 and its checkpoint, the OSCAR task steps, cli/pretrain
-and cli/classify at dp=2, against aladin_tpu on ``create_mesh("dp=2")`` (2
+--mesh_shape dp=2 and its checkpoint, the OSCAR task steps (pretraining,
+classification, captioning with drop-worst, the retrieval pair step, SCST),
+cli/pretrain, cli/classify, cli/captioning and cli/retrieval_oscar at dp=2,
+against aladin_tpu on ``create_mesh("dp=2")`` (2
 of conftest.py's 8 virtual CPU devices) and against the port's
 single-process results.
 
@@ -24,8 +26,11 @@ Tolerances:
   * the train step (dropout 0): tests/test_torch_train.py's step
     tolerances - metrics rtol 1e-4, params atol 1e-6 where the gradient is
     live and within lr elsewhere;
-  * the OSCAR task steps at dp=2 (pretraining, the kl classifier): the
-    losses rtol 1e-5, the parameters as the train step's;
+  * the OSCAR task steps at dp=2 (pretraining, the kl classifier,
+    captioning with drop-worst over the gathered global tokens, the ce pair
+    step): the losses rtol 1e-5, the parameters as the train step's; the
+    SCST step (the whole batch on each rank): equal on both ranks, within
+    1e-6 of one process's;
   * cli/train dp=2 against dp=1, dropout 0 (an OSCAR directory whose
     config sets the backbone's dropouts to 0 and a recipe with dropout 0),
     lr 1e-3 and ``--compute_dtype float32``: best rsum within 2.6 and the
@@ -95,8 +100,9 @@ def search_queries(direction, ims, caps, il, cl):
 TASK_CFG = dict(vocab_size=40, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
                 intermediate_size=64, max_position_embeddings=64, img_feature_dim=12,
                 num_labels=5, **NO_DROPOUT)
-TASK_STEPS = {"pretrain": 2, "classify_kl": 2}
+TASK_STEPS = {"pretrain": 2, "classify_kl": 2, "caption_dropworst": 2, "pair_ce": 2}
 TASK_B = 8
+CAPTION_A, CAPTION_OD, CAPTION_R = 6, 4, 3  # caption slots, OD labels, regions
 
 
 def task_batch():
@@ -116,20 +122,52 @@ def task_batch():
         np.int32), soft)
 
 
-def run_task_steps(task: str, rank: int = 0, mesh_shape: str = ""):
-    """The OSCAR task step (``task``: pretraining, or the VQA classifier
-    with the kl loss) for TASK_STEPS steps at dropout 0, lr 1e-3, on this
-    rank's rows of ``task_batch()``: (losses, params, gradients of each
-    step). With ``mesh_shape`` the model starts from weights of the rank's
-    own seed and ``cli/pretrain.py::data_parallel`` gives it rank 0's and
-    its rows; without, one process runs the whole batch from rank 0's."""
-    from aladin_torch.cli.pretrain import data_parallel, make_optimizer
-    from aladin_torch.models.bert_img import BertImgConfig, ImageBertClassifier, init_weights
-    from aladin_torch.tasks.classification import make_classifier_train_step
-    from aladin_torch.tasks.pretraining import BertImgForPreTraining, make_pretrain_step
+def caption_batch():
+    """A global caption batch of 8: (ids, 2-D block masks, seg, feats,
+    masked positions, masked ids with inactive 0 slots), seeded numpy."""
+    from aladin_torch.tasks.captioning import _decode_attention_mask
 
-    cfg = BertImgConfig(**TASK_CFG)
-    model = BertImgForPreTraining(cfg) if task == "pretrain" else ImageBertClassifier(cfg)
+    rng = np.random.RandomState(12)
+    la, lt = CAPTION_A, CAPTION_A + CAPTION_OD
+    ids = rng.randint(5, 40, (TASK_B, lt)).astype(np.int32)
+    seg = np.concatenate([np.zeros((TASK_B, la)), np.ones((TASK_B, CAPTION_OD))], 1)
+    masks = np.stack([_decode_attention_mask(la, lt, CAPTION_R, int(o), int(r)) for o, r in
+                      zip(rng.randint(1, CAPTION_OD + 1, TASK_B),
+                          rng.randint(1, CAPTION_R + 1, TASK_B))])
+    feats = rng.randn(TASK_B, CAPTION_R, 12).astype(np.float32)
+    midx = rng.randint(1, la, (TASK_B, 3)).astype(np.int32)
+    mids = rng.randint(5, 40, (TASK_B, 3)).astype(np.int32)
+    mids[rng.rand(TASK_B, 3) < 0.3] = 0
+    return ids, masks, seg.astype(np.int32), feats, midx, mids
+
+
+def _task_model(task: str, cfg):
+    from aladin_torch.models.bert_img import ImageBertClassifier
+    from aladin_torch.tasks.captioning import BertImageCaptioner
+    from aladin_torch.tasks.pretraining import BertImgForPreTraining
+
+    if task == "pretrain":
+        return BertImgForPreTraining(cfg)
+    return (BertImageCaptioner if task.startswith("caption") else ImageBertClassifier)(cfg)
+
+
+def run_task_steps(task: str, rank: int = 0, mesh_shape: str = ""):
+    """The OSCAR task step (``task``: pretraining, the VQA classifier with
+    the kl loss, captioning with drop-worst 0.3, or the retrieval pair step
+    with the ce loss) for TASK_STEPS steps at dropout 0, lr 1e-3, on this
+    rank's rows of ``task_batch()`` / ``caption_batch()``: (losses, params,
+    gradients of each step). With ``mesh_shape`` the model starts from
+    weights of the rank's own seed and ``cli/pretrain.py::data_parallel``
+    gives it rank 0's and its rows; without, one process runs the whole
+    batch from rank 0's."""
+    from aladin_torch.cli.pretrain import data_parallel, make_optimizer
+    from aladin_torch.models.bert_img import BertImgConfig, init_weights
+    from aladin_torch.tasks.captioning import make_caption_train_step
+    from aladin_torch.tasks.classification import make_classifier_train_step
+    from aladin_torch.tasks.pretraining import make_pretrain_step
+    from aladin_torch.tasks.retrieval_oscar import make_pair_train_step
+
+    model = _task_model(task, BertImgConfig(**TASK_CFG))
     init_weights(model, torch.Generator().manual_seed(3 + rank), 0.02)
     mesh, rows = None, slice(0, TASK_B)
     if mesh_shape:
@@ -138,13 +176,20 @@ def run_task_steps(task: str, rank: int = 0, mesh_shape: str = ""):
     ids, mask, seg, feats, lm, nxt, soft = (torch.from_numpy(a[rows]) for a in task_batch())
     if task == "pretrain":
         step, args = make_pretrain_step(model, opt, mesh=mesh), (ids, mask, seg, feats, lm, nxt)
+    elif task == "caption_dropworst":
+        step = make_caption_train_step(model, opt, 0.1, drop_worst_ratio=0.3, mesh=mesh)
+        args = (*(torch.from_numpy(a[rows]) for a in caption_batch()), 0)
+    elif task == "pair_ce":
+        step = make_pair_train_step(model, opt, "ce", mesh=mesh)
+        args = (ids, mask, seg, feats, nxt)
     else:
         step = make_classifier_train_step(model, opt, "kl", mesh=mesh)
         args = (ids, mask, seg, feats, soft)
     losses, grads = [], []
     for _ in range(TASK_STEPS[task]):
         losses.append(step(*args)["loss"].item())
-        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        grads.append({n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                      for n, p in model.named_parameters()})  # the captioner's pooler: none
     return losses, {n: p.detach().clone() for n, p in model.named_parameters()}, grads
 
 
@@ -283,6 +328,24 @@ def _worker(rank: int, port: str, work: str) -> None:  # noqa: C901 - one rank's
     out["classify_cli_params"] = torch.cat([p.detach().reshape(-1)
                                             for p in res["model"].parameters()]).numpy()
     out["classify_cli_results"] = res["test_results"]
+    out.update(scst_step_params(rank, "dp=2"))
+    from aladin_torch.cli import captioning as captioning_cli
+    from aladin_torch.cli import retrieval_oscar as ro_cli
+
+    res = captioning_cli.run(["--output_dir", os.path.join(work, "captioning_dp2"), "--epochs",
+                              "1", "--scst_epochs", "1", "--train_batch_size", "8",
+                              "--max_seq_a_length", "10", *dims])
+    out["captioning_cli_losses"] = np.asarray(res["losses"][0] + res["scst_losses"][0])
+    out["captioning_cli_params"] = torch.cat([p.detach().reshape(-1)
+                                              for p in res["model"].parameters()]).numpy()
+    out["captioning_cli_preds"] = np.asarray([res["predictions"][k][0]
+                                              for k in sorted(res["predictions"])])
+    res = ro_cli.run(["--output_dir", os.path.join(work, "retrieval_oscar_dp2"), "--epochs", "1",
+                      "--train_batch_size", "8", *dims])
+    out["retrieval_oscar_cli_losses"] = np.asarray([m["loss"] for m in res["metrics"]])
+    out["retrieval_oscar_cli_params"] = torch.cat([p.detach().reshape(-1)
+                                                   for p in res["model"].parameters()]).numpy()
+    out["retrieval_oscar_cli_rsum"] = res["results"]["rsum"]
 
     # 6. cli/train at dp=2; rank 0 alone writes the checkpoint; --resume on both ranks
     writes = []
@@ -319,6 +382,29 @@ def _worker(rank: int, port: str, work: str) -> None:  # noqa: C901 - one rank's
     np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
     print(f"rank {rank} OK")
+
+
+def scst_step_params(rank: int = 0, mesh_shape: str = "") -> dict:
+    """One SCST step (tasks/scst.py) on the whole caption batch, every rank
+    the same rows and advantages, from rank 0's weights: the loss, the
+    parameters before and after it."""
+    from aladin_torch.cli.pretrain import data_parallel, make_optimizer
+    from aladin_torch.models.bert_img import BertImgConfig, init_weights
+    from aladin_torch.tasks.scst import make_scst_step
+
+    model = _task_model("caption", BertImgConfig(**TASK_CFG))
+    init_weights(model, torch.Generator().manual_seed(3 + rank), 0.02)
+    mesh = data_parallel(model, mesh_shape, TASK_B, 0, "cpu")[0] if mesh_shape else None
+    before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ids, masks, seg, feats, _, _ = (torch.from_numpy(a) for a in caption_batch())
+    rows = ids[:, :CAPTION_A].clone()
+    rows[:, 0], rows[::3, 4:] = 2, 0  # CLS first; some rows padded
+    adv = torch.from_numpy(np.random.RandomState(13).randn(TASK_B).astype(np.float32))
+    opt, _ = make_optimizer(model, 1e-3, 0, 10)
+    loss = make_scst_step(model, opt, mask_id=4, pad_id=0, mesh=mesh)(
+        rows, adv, ids[:, CAPTION_A:], seg[:, CAPTION_A:], feats, masks)["loss"]
+    return {"scst_loss": loss.item(), "scst_before": before.numpy(),
+            "scst_after": torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()}
 
 
 def cli_test_argv(work: str, out_dir: str):
@@ -647,8 +733,10 @@ def test_dp_step_matches_single_process_and_jax(cluster, jax_mesh):
 
 @pytest.mark.parametrize("task", sorted(TASK_STEPS))
 def test_dp_task_steps_match_one_process(cluster, task):
-    """OSCAR+ pretraining (its MLM denominator the global masked count) and
-    the VQA classifier with the kl loss (over the global B), 2 steps at
+    """OSCAR+ pretraining (its MLM denominator the global masked count), the
+    VQA classifier with the kl loss (over the global B), captioning with
+    drop-worst 0.3 (the global batch's per-token losses sorted together)
+    and the ce pair step (over the global rows), 2 steps at
     dp=2 from rank 0's broadcast weights against one process on the whole
     batch: the losses within 1e-5 relative, the parameters within 1e-6
     where each step's gradient is live and within 2 lr elsewhere (Adam turns
@@ -691,6 +779,33 @@ def test_task_clis_run_at_dp2(cluster):
     np.testing.assert_array_equal(flat, r0["pretrain_cli_params"])
     with open(str(r0["classify_cli_results"])) as f:
         assert len(json.load(f)) == 32
+
+
+def test_dp_scst_step_keeps_ranks_equal(cluster):
+    """One SCST step at dp=2 (each rank the whole batch, the gradients
+    averaged): the parameters moved, are equal on both ranks bit for bit,
+    and equal one process's step."""
+    r0, r1 = cluster.ranks()
+    for k in ("scst_loss", "scst_before", "scst_after"):
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    assert np.any(r0["scst_after"] != r0["scst_before"])
+    want = scst_step_params()
+    np.testing.assert_array_equal(r0["scst_before"], want["scst_before"])
+    assert float(r0["scst_loss"]) == pytest.approx(want["scst_loss"], rel=1e-6)
+    np.testing.assert_allclose(r0["scst_after"], want["scst_after"], atol=1e-6)
+
+
+def test_caption_and_pair_clis_run_at_dp2(cluster):
+    """cli/captioning (one CE epoch, one SCST epoch, greedy decode) and
+    cli/retrieval_oscar --mesh_shape dp=2 --synthetic: finite losses, and
+    the parameters, captions and R@K equal on both ranks."""
+    r0, r1 = cluster.ranks()
+    for cli in ("captioning", "retrieval_oscar"):
+        assert np.all(np.isfinite(r0[f"{cli}_cli_losses"]))
+        for part in ("losses", "params"):
+            np.testing.assert_array_equal(r0[f"{cli}_cli_{part}"], r1[f"{cli}_cli_{part}"])
+    np.testing.assert_array_equal(r0["captioning_cli_preds"], r1["captioning_cli_preds"])
+    assert float(r0["retrieval_oscar_cli_rsum"]) == float(r1["retrieval_oscar_cli_rsum"])
 
 
 def test_dp_params_equal_across_ranks_after_three_steps(cluster):
