@@ -21,8 +21,9 @@ from aladin_torch.io.checkpoint import load_state_dict_report
 from aladin_torch.io.convert import load_oscar_checkpoint
 from aladin_torch.models.aladin import ALADIN
 from aladin_torch.models.bert_img import BertImgConfig
-from aladin_torch.parallel.distributed import barrier, is_main_process, rank_seed
-from aladin_torch.parallel.mesh import Mesh, broadcast_, create_mesh
+from aladin_torch.parallel.distributed import barrier, get_world_size, is_main_process, rank_seed
+from aladin_torch.parallel.mesh import Mesh, broadcast_, create_mesh, mesh_axes
+from aladin_torch.parallel.sharding import check_tp, shard_module_
 
 logger = logging.getLogger("vlpretrain")
 
@@ -58,8 +59,9 @@ def add_shared_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--reinitialize-scheduler", dest="reinitialize_scheduler", action="store_true")
     p.add_argument("--config", default="")
     p.add_argument("--mesh_shape", default="dp=-1",
-                   help="dp=N under torchrun (one process a GPU); dp=-1 = every rank; "
-                        "tp > 1 is not ported")
+                   help="dp=N,tp=M under torchrun (one process a GPU, N x M ranks); dp=-1 = "
+                        "every rank; cli/train shards the model over tp (Megatron), "
+                        "cli/test and cli/search shard only the corpus scoring")
     p.add_argument("--ndcg", action="store_true", default=False,
                    help="NDCG@25 from the relevance matrices on disk (<data_dir>/relevances "
                         "or <dataset.data>/<dataset.name>/relevances)")
@@ -250,31 +252,40 @@ def build_ndcg_scorer(cfg: ExperimentConfig, args: DataArgs, split: str, n_queri
     return None
 
 
-def maybe_create_mesh(mesh_shape: str, device) -> Optional[Mesh]:
+def maybe_create_mesh(mesh_shape: str, device, model=None) -> Optional[Mesh]:
     """--mesh_shape -> a Mesh over the process group when it spans more than
     one rank, else None (one rank needs no mesh). A spec that asks for
-    another number of ranks than the group has raises, and so does a tp
-    axis above 1."""
-    mesh = create_mesh(mesh_shape or "dp=-1", device)
+    another number of ranks than the group has raises; with ``model`` (the
+    one the mesh will shard), so does a tp that does not divide its head
+    counts, before any group is formed."""
+    spec = mesh_shape or "dp=-1"
+    if model is not None:
+        check_tp(model, mesh_axes(spec, get_world_size()).get("tp", 1))
+    mesh = create_mesh(spec, device)
     return mesh if mesh.size > 1 else None
 
 
 def shard_state_and_loaders(state, mesh: Mesh, cfg: ExperimentConfig, seed: int,
                             train_loader: BatchLoader):
-    """Data-parallel placement: rank 0's parameters, buffers, aux learnables
-    and optimizer state on every rank (one broadcast each), the train
-    loader yielding this rank's rows of each global batch, and the rank
-    folded into the dropout generators (the CUDA / CPU default generators
-    and the K2 seed generator), so that no two ranks draw the same masks.
+    """Placement on a (dp, tp) mesh: rank 0's parameters, buffers, aux
+    learnables and optimizer state on every rank (one broadcast each, full
+    tensors), then each rank's tp slice of the model and its Adam moments
+    (``parallel/sharding.py::shard_module_``), the train loader yielding
+    this rank's dp rows of each global batch, and the dp index folded into
+    the dropout generators (the CUDA / CPU default generators and the K2
+    seed generator): no two dp ranks draw the same masks, and the tp ranks
+    of a dp group draw the same ones on their replicated activations.
     Returns the state."""
-    dp = mesh.axes.get("dp", mesh.size)
+    dp = mesh.dp
     if cfg.training.bs % dp:
         raise ValueError(f"batch size {cfg.training.bs} must be divisible by dp={dp}")
     opt_tensors = [v for st in state.optimizer.state.values() for v in st.values()
                    if torch.is_tensor(v)]
     broadcast_(mesh, [*state.model.state_dict().values(), *state.aux.values(), *opt_tensors])
-    train_loader.shard(mesh.rank, dp)
-    folded = rank_seed(seed, mesh.rank)
+    shard_module_(state.model, mesh, state.optimizer)
+    state.mesh = mesh
+    train_loader.shard(mesh.dp_index, dp)
+    folded = rank_seed(seed, mesh.dp_index)
     torch.manual_seed(folded)
     state.model.oscar_model.bert.seed_generator.manual_seed(folded)
     return state

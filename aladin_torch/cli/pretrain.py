@@ -80,7 +80,10 @@ def data_parallel(model: torch.nn.Module, mesh_shape: str, batch_size: int, seed
     mesh = maybe_create_mesh(mesh_shape, device)
     if mesh is None:
         return None, slice(0, batch_size)
-    dp = mesh.axes.get("dp", mesh.size)
+    if mesh.tp > 1:
+        raise ValueError(f"{mesh_shape}: the OSCAR task CLIs shard the batch over dp only; "
+                         "tensor parallelism (tp > 1) is cli/train's")
+    dp = mesh.dp
     if batch_size % dp:
         raise ValueError(f"batch size {batch_size} must be divisible by dp={dp}")
     broadcast_(mesh, list(model.state_dict().values()))

@@ -11,8 +11,9 @@ retrieve-and-rerank quality curve (mirrors aladin_tpu/cli/search.py).
 
 Every subcommand runs on the card unless ``--device cpu`` is given. An
 index either package writes loads in the other. ``query`` and ``curve``
-take ``--mesh_shape dp=N`` under ``torchrun``: the corpus is sharded over
-the ranks (``eval/search.py::sharded_search``) and rank 0 prints and
+take ``--mesh_shape dp=N[,tp=M]`` under ``torchrun``: the corpus is
+sharded over every rank, dp and tp alike (``eval/search.py::
+sharded_search``; the queries encode unsharded) and rank 0 prints and
 writes; ``build`` encodes on one process.
 
     python -m aladin_torch.cli.search build --index_dir idx/ \\
@@ -93,8 +94,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="matching head only (the 0.023 s/query operating point of the "
                         "reference plot)")
     q.add_argument("--mesh_shape", default="",
-                   help="e.g. dp=8 under torchrun: shard the corpus over the ranks "
-                        "(sharded_search's distributed top-k merge)")
+                   help="e.g. dp=8 or dp=4,tp=2 under torchrun: shard the corpus over "
+                        "every rank (sharded_search's distributed top-k merge)")
     q.add_argument("--load_checkpoint", default="",
                    help="override the checkpoint recorded in the index")
     q.add_argument("--out", default="", help="also write results JSON here")

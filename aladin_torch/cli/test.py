@@ -9,9 +9,10 @@ int8 operands). ``--int8_encoder`` runs the encoder's QKV and FFN-up
 projections as W8A8 int8 GEMMs (kernel K4-dynx on the card). ``--ndcg``
 adds the alignment head's NDCG@25 from the relevance matrices on disk
 (``cli/common.py::build_ndcg_scorer``), per fold under ``--fivefold``.
-Under ``torchrun`` with ``--mesh_shape dp=N`` every rank encodes the
-whole split (replicated, as in aladin_tpu) and the alignment head's
-caption axis is scored sharded over the ranks
+Under ``torchrun`` with ``--mesh_shape dp=N[,tp=M]`` every rank encodes
+the whole split with the unsharded model (replicated, as in aladin_tpu,
+whose evaluation never places the parameters over tp) and the alignment
+head's caption axis is scored sharded over every rank, dp and tp alike
 (``parallel/mesh.py::sharded_mrsw_scores``); rank 0 alone logs.
 
     python -m aladin_torch.cli.test --config aladin_torch/configs/<recipe>.json \\

@@ -12,7 +12,16 @@ B / N rows of every global batch and the global batch's loss
 
     torchrun --nproc_per_node N -m aladin_torch.cli.train --mesh_shape dp=N ...
 
-``--mesh_shape dp=-1`` takes every rank; one rank runs without a mesh.
+Tensor parallelism on top: ``--mesh_shape dp=N,tp=M`` under ``torchrun
+--nproc_per_node N*M`` shards the model's attention heads and FFN rows over
+the M ranks of each dp group (Megatron, ``parallel/sharding.py``); each dp
+group takes B / N rows, validation encodes with the sharded model and scores
+over every rank, and the checkpoints hold the full tensors:
+
+    torchrun --nproc_per_node 4 -m aladin_torch.cli.train --mesh_shape dp=2,tp=2 ...
+
+``--mesh_shape dp=-1`` takes every rank; one rank runs without a mesh. A tp
+that does not divide the backbone's or the heads' head counts raises.
 
 ``--synthetic`` builds a tiny on-disk dataset and a small random backbone
 and runs the whole loop (``--device cpu`` runs it without a card).
@@ -110,10 +119,10 @@ def run(argv=None) -> Dict[str, Any]:
         logger.info(f"teacher weights from {args.load_teacher_model}: {stats['matched']} loaded, "
                     f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")
 
-    mesh = maybe_create_mesh(args.mesh_shape, device)
+    mesh = maybe_create_mesh(args.mesh_shape, device, model)
     if mesh is not None:
         state = shard_state_and_loaders(state, mesh, cfg, args.seed, train_loader)
-        logger.info(f"mesh: {mesh.axes}, {cfg.training.bs // mesh.size} rows a rank")
+        logger.info(f"mesh: {mesh.axes}, {cfg.training.bs // mesh.dp} rows a dp rank")
 
     ndcg_scorer = None
     if args.ndcg:

@@ -20,12 +20,17 @@
 // broadcast over the queries) or Q = S (a 2-D mask). T is bf16 or f32; d is 64.
 //
 // Dropout: the TPU's hardware PRNG has no counterpart here. The keep bit of
-// element (b, h, q, k) is a counter-based hash of (seed, b * H + h, q * S + k)
-// in 32-bit integer arithmetic, with the unpadded S,
-//     bits = mix32(mix32(mix32(seed) ^ (b * H + h)) ^ (q * S + k)),
+// element (b, h, q, k) is a counter-based hash of
+// (seed, b * heads_total + head_offset + h, q * S + k) in 32-bit integer
+// arithmetic, with the unpadded S,
+//     bits = mix32(mix32(mix32(seed) ^ (b * heads_total + head_offset + h)) ^ (q * S + k)),
 //     keep = bits >= threshold, threshold = uint32(rate * 2^32),
 // which the plain PyTorch version in ops/kernels/attention_kernel.py computes
 // identically, so kernel and plain version agree with dropout on as well.
+// heads_total is H and head_offset 0 for a launch over a layer's heads; a
+// tensor-parallel rank that holds heads [head_offset, head_offset + H) of a
+// layer of heads_total passes both and draws those heads' masks of the
+// unsharded launch.
 // The seed is read on the card, through a pointer to an int64 whose low 32
 // bits are used: the model draws a layer's seeds on the card, so a CUDA
 // graph that replays the kernel reads a new seed every replay.
@@ -362,7 +367,8 @@ template <int W>
 __global__ void __launch_bounds__(W * 32)
 attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const float* __restrict__ bias, bf16* __restrict__ out, int s_len, int n_heads,
-              int bias_q, const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
+              int bias_q, int heads_total, int head_offset,
+              const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
               float inv_sqrt_d, int dropout) {
   const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   constexpr int SP = 16 * W, NT = 2 * W;
@@ -388,7 +394,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   float s[NT][4];
   softmax_strip<NT>(qs, ks, bs, bias_b, bias_q, s_len, r0, inv_sqrt_d, s);
   if (dropout) {
-    const uint32_t key = mix32(mix32(seed) ^ (uint32_t)bh);
+    const uint32_t key = mix32(mix32(seed) ^ (uint32_t)(b * heads_total + head_offset + h));
     const uint32_t base[2] = {(uint32_t)((r0 + g) * s_len + 2 * t),
                               (uint32_t)((r0 + g + 8) * s_len + 2 * t)};
 #pragma unroll
@@ -424,8 +430,8 @@ __global__ void __launch_bounds__(W * 32)
 attn_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const float* __restrict__ bias, const bf16* __restrict__ gy, bf16* __restrict__ dq,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int s_len, int n_heads, int bias_q,
-              const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
-              float inv_sqrt_d, int dropout) {
+              int heads_total, int head_offset, const long long* __restrict__ seed_ptr,
+              uint32_t threshold, float scale, float inv_sqrt_d, int dropout) {
   const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   constexpr int SP = 16 * W, NT = 2 * W, PP = SP + 8;  // PP: pitch of the pd / ds tiles
   constexpr int kWords = (4 * NT + 31) / 32;
@@ -459,7 +465,7 @@ attn_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   uint32_t keep[kWords];
 #pragma unroll
   for (int w = 0; w < kWords; ++w) keep[w] = 0xffffffffu;
-  const uint32_t key = mix32(mix32(seed) ^ (uint32_t)bh);
+  const uint32_t key = mix32(mix32(seed) ^ (uint32_t)(b * heads_total + head_offset + h));
   const uint32_t base[2] = {(uint32_t)((r0 + g) * s_len + 2 * t),
                             (uint32_t)((r0 + g + 8) * s_len + 2 * t)};
 #pragma unroll
@@ -675,7 +681,8 @@ __device__ void softmax_row(const float* qv, const float* ks, const float* brow,
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              const float* __restrict__ bias, float* __restrict__ out, int s_len, int n_heads,
-             int bias_q, const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
+             int bias_q, int heads_total, int head_offset,
+             const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
              float inv_sqrt_d, int dropout) {
   const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   extern __shared__ __align__(16) unsigned char smem[];
@@ -691,7 +698,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
   load_tile(v, vs, b, h, s_len, n_heads);
   __syncthreads();
 
-  const uint32_t key = mix32(mix32(seed) ^ (uint32_t)bh);
+  const uint32_t key = mix32(mix32(seed) ^ (uint32_t)(b * heads_total + head_offset + h));
   const long tok = (long)n_heads * kHeadDim;
   for (int row = warp; row < s_len; row += kWarps) {
     const long g = ((long)b * s_len + row) * tok + (long)h * kHeadDim;
@@ -729,8 +736,8 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              const float* __restrict__ bias, const float* __restrict__ gy, float* __restrict__ dq,
              float* __restrict__ dk, float* __restrict__ dv, int s_len, int n_heads, int bias_q,
-             const long long* __restrict__ seed_ptr, uint32_t threshold, float scale,
-             float inv_sqrt_d, int dropout) {
+             int heads_total, int head_offset, const long long* __restrict__ seed_ptr,
+             uint32_t threshold, float scale, float inv_sqrt_d, int dropout) {
   const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;  // device-drawn
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int P = kPitchF32;
@@ -752,7 +759,7 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
   __syncthreads();
 
   // 1. undropped probabilities and the keep mask (one bit per element)
-  const uint32_t key = mix32(mix32(seed) ^ (uint32_t)bh);
+  const uint32_t key = mix32(mix32(seed) ^ (uint32_t)(b * heads_total + head_offset + h));
   for (int row = warp; row < s_len; row += kWarps) {
     const float* brow = bias + ((long)b * bias_q + (bias_q == 1 ? 0 : row)) * s_len;
     float p[kPerLane];
@@ -840,9 +847,10 @@ attn_bwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
 
 // ---------------------------------------------------------------------------
 
-bool shape_ok(int b, int s, int h, int d, int bias_q) {
+bool shape_ok(int b, int s, int h, int d, int bias_q, int heads_total, int head_offset) {
   return b > 0 && h > 0 && s > 0 && s <= kMaxSeq && d == kHeadDim && (bias_q == 1 || bias_q == s) &&
-         (long)b * h <= 0x7fffffffL && (long)s * s < 0x7fffffffL;
+         head_offset >= 0 && (long)head_offset + h <= heads_total &&
+         (long)b * heads_total <= 0x7fffffffL && (long)s * s < 0x7fffffffL;
 }
 
 size_t smem_bytes(int dtype, int backward, int s) {
@@ -867,15 +875,17 @@ int launch(Kernel kernel, unsigned grid, unsigned threads, size_t smem, cudaStre
 extern "C" {
 
 // dtype: 0 = bf16 (tensor-core kernel), 1 = f32 (CUDA-core kernel); q, k, v,
-// out alike. q, k, v, out: (B, S, H, d) row-major, bf16 pointers 16-byte
-// aligned; bias: f32 (B, bias_q, S). dropout != 0 applies the keep mask of
-// (*seed, threshold) and scales kept probabilities by `scale`; seed points
-// to one int64 on the card and is not read (it may be null) when dropout is
-// 0. Returns a cudaError_t code.
+// out alike. The H heads are [head_offset, head_offset + H) of heads_total
+// for the dropout hash (H and 0 for a whole layer). q, k, v, out: (B, S, H, d)
+// row-major, bf16 pointers 16-byte aligned; bias: f32 (B, bias_q, S).
+// dropout != 0 applies the keep mask of (*seed, threshold) and scales kept
+// probabilities by `scale`; seed points to one int64 on the card and is not
+// read (it may be null) when dropout is 0. Returns a cudaError_t code.
 int attn_fwd_launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
-                    void* out, int b, int s, int h, int d, int bias_q, const long long* seed,
-                    unsigned threshold, float scale, float inv_sqrt_d, int dropout, void* stream) {
-  if (!shape_ok(b, s, h, d, bias_q)) return (int)cudaErrorInvalidValue;
+                    void* out, int b, int s, int h, int d, int bias_q, int heads_total,
+                    int head_offset, const long long* seed, unsigned threshold, float scale,
+                    float inv_sqrt_d, int dropout, void* stream) {
+  if (!shape_ok(b, s, h, d, bias_q, heads_total, head_offset)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = (unsigned)(b * h);
   if (dtype == 0) {
@@ -884,13 +894,15 @@ int attn_fwd_launch(int dtype, const void* q, const void* k, const void* v, cons
     return launch(kernels[w - 1], grid, 32 * w, bf16_fwd_smem_bytes(s), st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), s, h, bias_q,
-                  seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  heads_total, head_offset, seed, (uint32_t)threshold, scale, inv_sqrt_d,
+                  dropout);
   }
   if (dtype == 1)
     return launch(attn_fwd_f32, grid, kThreads, f32_fwd_smem_bytes(s), st,
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), bias, static_cast<float*>(out), s, h, bias_q,
-                  seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  heads_total, head_offset, seed, (uint32_t)threshold, scale, inv_sqrt_d,
+                  dropout);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -898,10 +910,10 @@ int attn_fwd_launch(int dtype, const void* q, const void* k, const void* v, cons
 // dq, dk, dv, all (B, S, H, d) in the input type.
 int attn_bwd_launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
                     const void* g, void* dq, void* dk, void* dv, int b, int s, int h, int d,
-                    int bias_q, const long long* seed, unsigned threshold, float scale,
-                    float inv_sqrt_d,
-                    int dropout, void* stream) {
-  if (!shape_ok(b, s, h, d, bias_q)) return (int)cudaErrorInvalidValue;
+                    int bias_q, int heads_total, int head_offset, const long long* seed,
+                    unsigned threshold, float scale, float inv_sqrt_d, int dropout,
+                    void* stream) {
+  if (!shape_ok(b, s, h, d, bias_q, heads_total, head_offset)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = (unsigned)(b * h);
   if (dtype == 0) {
@@ -911,14 +923,16 @@ int attn_bwd_launch(int dtype, const void* q, const void* k, const void* v, cons
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), bias, static_cast<const bf16*>(g),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, h,
-                  bias_q, seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  bias_q, heads_total, head_offset, seed, (uint32_t)threshold, scale,
+                  inv_sqrt_d, dropout);
   }
   if (dtype == 1)
     return launch(attn_bwd_f32, grid, kThreads, f32_bwd_smem_bytes(s), st,
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), bias, static_cast<const float*>(g),
                   static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), s, h,
-                  bias_q, seed, (uint32_t)threshold, scale, inv_sqrt_d, dropout);
+                  bias_q, heads_total, head_offset, seed, (uint32_t)threshold, scale,
+                  inv_sqrt_d, dropout);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,7 +16,13 @@ files without it read 0).
     it to ``model_best_rsum.pth.tar`` / ``model_best_ndcgspice.pth.tar`` on
     a new best of either gate; in a data-parallel run only the main process
     writes (the state is the same on every rank), the others wait at the
-    Trainer's barrier and, on ``--resume``, read the same file;
+    Trainer's barrier and, on ``--resume``, read the same file. Under tensor
+    parallelism every rank first gathers the sharded weights and Adam
+    moments to their full shapes (``parallel/sharding.py``), so the file
+    has the reference's keys and shapes, and a tp run's file loads in a
+    tp = 1 run and in aladin_tpu. ``--resume`` and ``--load-teacher-model``
+    load the full tensors before the model is sharded: each rank then keeps
+    its slice;
   * ``resume_state`` restores model, aux, optimizer and step from such a
     file; a released reference file restores the weights only;
   * ``load_teacher_params`` is the non-strict weights-only load, with a
@@ -38,6 +44,7 @@ from torch import nn
 
 from aladin_torch.io.convert import load_aladin_checkpoint
 from aladin_torch.parallel.distributed import is_main_process
+from aladin_torch.parallel.sharding import full_optimizer_state, full_state_dict
 
 PREFIX = "img_txt_enc."
 
@@ -118,19 +125,24 @@ def save_task_checkpoint(path: str, model: nn.Module, iteration: int) -> None:
 def save_checkpoint(out_dir: str, state, epoch: int, config_dict: Dict[str, Any],
                     best_rsum: float, is_best_rsum: bool = False,
                     opt: Optional[Dict[str, Any]] = None, name: str = "checkpoint",
-                    retries: int = 10, is_best_ndcgspice: bool = False) -> str:
+                    retries: int = 10, is_best_ndcgspice: bool = False, mesh=None) -> str:
     """Write ``<out_dir>/<name>.pth.tar``; copy it to
     ``model_best_rsum.pth.tar`` when ``is_best_rsum`` and to
     ``model_best_ndcgspice.pth.tar`` when ``is_best_ndcgspice``. Returns the
-    path; a process other than the main one writes nothing."""
+    path; a process other than the main one writes nothing. ``mesh``: the
+    mesh the model is sharded over (every rank must call: the sharded
+    tensors are gathered first)."""
     path = os.path.abspath(os.path.join(out_dir, f"{name}.pth.tar"))
+    model_sd = full_state_dict(state.model, mesh)
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    optim = full_optimizer_state(state.optimizer_state_dict(), params, mesh)
     if not is_main_process():
         return path
     os.makedirs(out_dir, exist_ok=True)
     ckpt = {
         "epoch": int(epoch),
-        "model": {PREFIX + k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "optimizer": _cpu(state.optimizer_state_dict()),
+        "model": {PREFIX + k: v.detach().cpu() for k, v in model_sd.items()},
+        "optimizer": _cpu(optim),
         "scheduler": {"step": int(state.step)},  # the schedule is closed-form in the step
         "opt": opt,
         "config": config_dict,

@@ -55,6 +55,17 @@ Module names follow OSCAR's state-dict keys (``embeddings.LayerNorm``,
 ``LayerNorm`` for the image LN, ``pooler.dense``) whatever the knobs, so
 ``pytorch_model.bin`` loads with ``load_state_dict`` after removing the
 ``bert.`` prefix.
+
+Tensor parallelism (``parallel/sharding.py::shard_module_`` sets
+``tp_mesh`` on the attention, intermediate and output blocks): each rank
+holds its heads' rows of Q/K/V and its rows of the FFN-up projection
+(column-parallel, the input through ``copy_to_tp``) and the matching
+columns of the attention-out and FFN-down projections (row-parallel,
+reduced over tp in f32 before the bias). Attention runs on
+``num_heads / tp`` local heads; K2 hashes their global head index, so its
+dropout masks are the tp = 1 masks; the plain attention dropout draws the
+whole tensor's mask and keeps its heads' slice. Without ``tp_mesh`` (the
+default) none of this runs.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from aladin_torch.ops.kernels.attention_kernel import fused_attention
 from aladin_torch.ops.kernels.layernorm import (layernorm_q8, residual_layernorm,
                                                 residual_layernorm_q8)
 from aladin_torch.ops.masking import additive_attention_bias
+from aladin_torch.parallel.sharding import copy_to_tp, row_parallel_linear, sharded_dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +183,8 @@ def select_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 class BertSelfAttention(nn.Module):
+    tp_mesh = None  # the mesh once parallel/sharding.py shards the module over tp
+
     def __init__(self, cfg: BertImgConfig):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
@@ -187,8 +201,11 @@ class BertSelfAttention(nn.Module):
                     else None)
 
     def project(self, x, x_q8=None):
-        """(q, k, v), each (B, S, H, d), of the rows ``x``."""
+        """(q, k, v), each (B, S, H, d) with this rank's H heads, of the
+        rows ``x``."""
         b, s, _ = x.shape
+        if self.tp_mesh is not None:
+            x = copy_to_tp(x, self.tp_mesh)
         if self.qkv is not None:  # one W8A8 GEMM; x_q8: x quantized upstream
             qkv = self.qkv(x) if x_q8 is None else self.qkv.forward_xq(*x_q8, x.dtype)
             q, k, v = qkv.chunk(3, dim=-1)
@@ -198,7 +215,7 @@ class BertSelfAttention(nn.Module):
             q, k, v = F.linear(x, w, bb).chunk(3, dim=-1)
         else:
             q, k, v = self.query(x), self.key(x), self.value(x)
-        return tuple(t.reshape(b, s, self.num_heads, self.head_dim) for t in (q, k, v))
+        return tuple(t.reshape(b, s, -1, self.head_dim) for t in (q, k, v))
 
     def attend(self, q, k, v, bias):
         """The plain attention core: (ctx (B, Q, H * d), probs (B, H, Q, K))
@@ -210,21 +227,32 @@ class BertSelfAttention(nn.Module):
             scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores / math.sqrt(self.head_dim) + bias
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        ctx = torch.matmul(self.dropout(probs), v)
+        if self.tp_mesh is None:
+            dropped = self.dropout(probs)
+        else:
+            dropped = sharded_dropout(probs, self.dropout.p, self.training, self.tp_mesh,
+                                      dim=1)
+        ctx = torch.matmul(dropped, v)
         return ctx.transpose(1, 2).reshape(q.shape[0], q.shape[2], -1), probs
 
     def forward(self, x, bias, seed=None, x_q8=None):
         b, s, _ = x.shape
         q, k, v = self.project(x, x_q8)
         if self.fused_attention:  # (B, S, H, d) as projected: no transposes
+            heads = {} if self.tp_mesh is None else {
+                "heads_total": self.num_heads,
+                "head_offset": self.tp_mesh.tp_index * (self.num_heads // self.tp_mesh.tp)}
             ctx = fused_attention(q, k, v, bias[:, 0], seed, self.dropout_rate,
-                                  self.training and seed is not None)
+                                  self.training and seed is not None, **heads)
             return ctx.reshape(b, s, -1), None
         return self.attend(q, k, v, bias)
 
 
 class BertSelfOutput(nn.Module):
-    """dense -> dropout -> LN(x + res); also the FFN output (``BertOutput``)."""
+    """dense -> dropout -> LN(x + res); also the FFN output (``BertOutput``).
+    Under tp the dense layer is row-parallel."""
+
+    tp_mesh = None
 
     def __init__(self, cfg: BertImgConfig, in_features: Optional[int] = None):
         super().__init__()
@@ -237,7 +265,9 @@ class BertSelfOutput(nn.Module):
     def forward(self, h, res):
         """(LN(res + dropout(dense(h))), its (q, s) from K3b with ``emit_q8``
         or None)."""
-        h = self.dropout(self.dense(h))
+        tp = self.tp_mesh
+        h = self.dense(h) if tp is None else row_parallel_linear(h, self.dense, tp)
+        h = self.dropout(h)
         ln = self.LayerNorm
         if self.emit_q8:
             y, q, s = residual_layernorm_q8(res.to(h.dtype), h, ln.weight, ln.bias, ln.eps)
@@ -259,6 +289,8 @@ class BertAttention(nn.Module):
 
 
 class BertIntermediate(nn.Module):
+    tp_mesh = None  # under tp the dense layer is column-parallel
+
     def __init__(self, cfg: BertImgConfig):
         super().__init__()
         self.act = cfg.hidden_act
@@ -270,7 +302,8 @@ class BertIntermediate(nn.Module):
 
     def forward(self, x, x_q8=None):
         if not self.quant:
-            return ffn_act(self.dense(x), self.act)
+            tp = self.tp_mesh
+            return ffn_act(self.dense(x if tp is None else copy_to_tp(x, tp)), self.act)
         return self.dense(x) if x_q8 is None else self.dense.forward_xq(*x_q8, x.dtype)
 
 

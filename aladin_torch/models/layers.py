@@ -16,6 +16,12 @@ The depth aggregator's ``self_attn`` / ``gate_ffn`` and the feature
 fusion's ``alphas.0`` / ``alphas.3`` are the names a released ALADIN
 ``.pth.tar`` holds. Reductions that aladin_tpu asks in f32
 (``preferred_element_type``) run in f32 here too, autocast or not.
+
+Under tensor parallelism (``parallel/sharding.py``) the attention holds its
+heads' rows of each of the packed q, k and v blocks and the matching
+columns of ``out_proj`` (row-parallel), and the TE layer its rows of
+``linear1`` and columns of ``linear2``; the dropouts on those sharded
+activations keep their slice of the whole tensor's mask.
 """
 
 from __future__ import annotations
@@ -27,9 +33,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aladin_torch.parallel.sharding import copy_to_tp, row_parallel_linear, sharded_dropout
+
 
 class TorchMultiheadAttention(nn.Module):
     """nn.MultiheadAttention (self-attention, batch-first) semantics."""
+
+    tp_mesh = None  # the mesh once parallel/sharding.py shards the module over tp
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -43,18 +53,27 @@ class TorchMultiheadAttention(nn.Module):
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, s, e = x.shape
         d = e // self.num_heads
-        q, k, v = (t.reshape(b, s, self.num_heads, d).transpose(1, 2)
+        tp = self.tp_mesh
+        if tp is not None:
+            x = copy_to_tp(x, tp)
+        q, k, v = (t.reshape(b, s, -1, d).transpose(1, 2)
                    for t in F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1))
         with torch.autocast(x.device.type, enabled=False):  # f32 scores, as in JAX
             scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
         if key_padding_mask is not None:  # True = padding
             scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-        probs = self.dropout(torch.softmax(scores, dim=-1).to(v.dtype))
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, e)
-        return self.out_proj(ctx)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        if tp is None:
+            probs = self.dropout(probs)
+        else:
+            probs = sharded_dropout(probs, self.dropout.p, self.training, tp, dim=1)
+        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, -1)
+        return self.out_proj(ctx) if tp is None else row_parallel_linear(ctx, self.out_proj, tp)
 
 
 class TorchTransformerEncoderLayer(nn.Module):
+    tp_mesh = None
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int, dropout: float = 0.1):
         super().__init__()
         self.self_attn = TorchMultiheadAttention(d_model, nhead, dropout)
@@ -66,7 +85,13 @@ class TorchTransformerEncoderLayer(nn.Module):
 
     def forward(self, x, key_padding_mask):
         x = self.norm1(x + self.dropout(self.self_attn(x, key_padding_mask)))
-        ff = self.linear2(self.dropout(torch.relu(self.linear1(x))))
+        tp = self.tp_mesh
+        if tp is None:
+            ff = self.linear2(self.dropout(torch.relu(self.linear1(x))))
+        else:
+            h = torch.relu(self.linear1(copy_to_tp(x, tp)))
+            h = sharded_dropout(h, self.dropout.p, self.training, tp, dim=-1)
+            ff = row_parallel_linear(h, self.linear2, tp)
         return self.norm2(x + self.dropout(ff))
 
 

@@ -19,10 +19,14 @@ no gradient. Then:
     and ``attention_backward_plain``.
 
 Dropout: the keep bit of element (b, h, q, k) is a counter-based hash of
-(seed, b * H + h, q * S + k) in 32-bit integer arithmetic (``keep_mask``),
-the same in the kernel and the plain version, so the two agree with dropout
-on as well. keep = bits >= uint32(rate * 2^32) and kept probabilities are
-scaled by 1 / (1 - rate), as in the JAX kernel. The mask is not the TPU
+(seed, b * heads_total + head_offset + h, q * S + k) in 32-bit integer
+arithmetic (``keep_mask``), the same in the kernel and the plain version,
+so the two agree with dropout on as well. By default ``heads_total`` is H
+and ``head_offset`` 0 (the hash of (b * H + h)); a rank of a tensor-parallel
+group that holds heads [offset, offset + H) of ``heads_total`` passes both,
+and draws exactly the masks of those heads in the unsharded launch. keep =
+bits >= uint32(rate * 2^32) and kept probabilities are scaled by
+1 / (1 - rate), as in the JAX kernel. The mask is not the TPU
 PRNG's: the same distribution, other draws.
 
 The seed is an int or a one-element integer tensor; the kernels read it on
@@ -73,12 +77,17 @@ def _threshold(rate: float) -> int:
 Seed = Union[int, torch.Tensor]
 
 
-def keep_mask(seed: Seed, b: int, h: int, s: int, rate: float,
-              device="cpu") -> torch.Tensor:
+def keep_mask(seed: Seed, b: int, h: int, s: int, rate: float, device="cpu",
+              heads_total: Optional[int] = None, head_offset: int = 0) -> torch.Tensor:
     """(B, H, S, S) bool keep mask of ``seed`` (an int or a one-element
     tensor): bits >= uint32(rate * 2^32) with
-    bits = mix32(mix32(mix32(seed) ^ (b * H + h)) ^ (q * S + k))."""
-    bh = torch.arange(b * h, device=device, dtype=torch.int64).reshape(b, h, 1, 1)
+    bits = mix32(mix32(mix32(seed) ^ (b * heads_total + head_offset + h)) ^ (q * S + k)),
+    ``heads_total`` H by default: heads [head_offset, head_offset + H) of a
+    launch over ``heads_total`` heads."""
+    ht = h if heads_total is None else int(heads_total)
+    bh = (torch.arange(b, device=device, dtype=torch.int64).reshape(b, 1, 1, 1) * ht
+          + int(head_offset)
+          + torch.arange(h, device=device, dtype=torch.int64).reshape(1, h, 1, 1))
     qk = torch.arange(s * s, device=device, dtype=torch.int64).reshape(1, 1, s, s)
     seed = (seed.to(device=device, dtype=torch.int64).reshape(()) if torch.is_tensor(seed)
             else int(seed)) & _M32  # a tensor stays on its device: no sync
@@ -106,26 +115,28 @@ def _probs(q, k, bias):
 
 
 def attention_forward_plain(q, k, v, bias, seed: Seed = 0, dropout_rate: float = 0.0,
-                            train: bool = False) -> torch.Tensor:
+                            train: bool = False, heads_total: Optional[int] = None,
+                            head_offset: int = 0) -> torch.Tensor:
     """The forward kernel's arithmetic in PyTorch, on any device (f32
     accumulation; f64 for f64 inputs)."""
     b, s, h, _ = q.shape
     p, _, _ = _probs(q, k, bias)
     if _dropout_on(dropout_rate, train):
-        keep = keep_mask(seed, b, h, s, dropout_rate, q.device)
+        keep = keep_mask(seed, b, h, s, dropout_rate, q.device, heads_total, head_offset)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), torch.zeros_like(p))
     ctx = torch.matmul(p.to(v.dtype).to(p.dtype), v.permute(0, 2, 1, 3).to(p.dtype))
     return ctx.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def attention_backward_plain(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0.0,
-                             train: bool = False):
+                             train: bool = False, heads_total: Optional[int] = None,
+                             head_offset: int = 0):
     """The backward kernel's arithmetic in PyTorch: (dq, dk, dv) in q's dtype."""
     b, s, h, d = q.shape
     p, qh, kh = _probs(q, k, bias)
     vh, gh = (t.permute(0, 2, 1, 3).to(p.dtype) for t in (v, g))
     if _dropout_on(dropout_rate, train):
-        keep = keep_mask(seed, b, h, s, dropout_rate, q.device)
+        keep = keep_mask(seed, b, h, s, dropout_rate, q.device, heads_total, head_offset)
         scale = 1.0 / (1.0 - dropout_rate)
         zero = torch.zeros((), dtype=p.dtype, device=p.device)
         dv = torch.matmul(torch.where(keep, p * scale, zero).transpose(-1, -2), gh)
@@ -144,10 +155,10 @@ def _kernel_library() -> ctypes.CDLL:
     lib = build.load_library(_KERNEL_SOURCE)
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.attn_fwd_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                    ptr, u32, f32, f32, i32, ptr]
+                                    i32, i32, ptr, u32, f32, f32, i32, ptr]
     lib.attn_fwd_launch.restype = i32
     lib.attn_bwd_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                    i32, i32, ptr, u32, f32, f32, i32, ptr]
+                                    i32, i32, i32, i32, ptr, u32, f32, f32, i32, ptr]
     lib.attn_bwd_launch.restype = i32
     lib.attn_smem_bytes.argtypes = [i32, i32, i32]
     lib.attn_smem_bytes.restype = ctypes.c_ulong
@@ -156,9 +167,12 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, bias, backward: bool) -> None:
+def _check(q, k, v, bias, backward: bool, heads_total: int, head_offset: int) -> None:
     """Raise for CUDA inputs the kernels do not take."""
     b, s, h, d = q.shape
+    if head_offset < 0 or head_offset + h > heads_total:
+        raise ValueError(f"heads [{head_offset}, {head_offset + h}) are not among "
+                         f"heads_total={heads_total}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the attention kernel takes bf16 or f32 q/k/v of one dtype, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -197,15 +211,16 @@ def seed_tensor(seed: Seed, device) -> torch.Tensor:
     return seed.reshape(()) if seed.dtype == torch.int64 else seed.reshape(()).long()
 
 
-def _launch_args(q, bias, seed, dropout_rate, train, stream):
-    """The launch's arguments after the tensors: shape, seed pointer (null
-    without dropout: the kernels do not read it), threshold, scales."""
+def _launch_args(q, bias, seed, dropout_rate, train, heads_total, head_offset, stream):
+    """The launch's arguments after the tensors: shape, the hash's head
+    numbering, seed pointer (null without dropout: the kernels do not read
+    it), threshold, scales."""
     b, s, h, d = q.shape
     on = _dropout_on(dropout_rate, train)
     scale = 1.0 / (1.0 - dropout_rate) if on else 1.0
     seed_ptr = seed_tensor(seed, q.device).data_ptr() if on else None
-    return (b, s, h, d, bias.shape[1], seed_ptr, _threshold(dropout_rate) if on else 0,
-            scale, 1.0 / d ** 0.5, int(on), stream)
+    return (b, s, h, d, bias.shape[1], heads_total, head_offset, seed_ptr,
+            _threshold(dropout_rate) if on else 0, scale, 1.0 / d ** 0.5, int(on), stream)
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -215,23 +230,27 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def attention_forward(q, k, v, bias, seed: Seed = 0, dropout_rate: float = 0.0,
-                      train: bool = False) -> torch.Tensor:
+                      train: bool = False, heads_total: Optional[int] = None,
+                      head_offset: int = 0) -> torch.Tensor:
     """ctx (B, S, H, d): the forward kernel for CUDA tensors, the plain
     version for CPU tensors."""
     if q.device.type == "cpu":
-        return attention_forward_plain(q, k, v, bias, seed, dropout_rate, train)
+        return attention_forward_plain(q, k, v, bias, seed, dropout_rate, train, heads_total,
+                                       head_offset)
     if q.device.type != "cuda":
         raise ValueError(f"fused attention runs on cpu or cuda tensors, got {q.device}")
     q, k, v = (_staged(t) for t in (q, k, v))
     bias = bias.float().contiguous()
-    _check(q, k, v, bias, backward=False)
+    heads_total = q.shape[2] if heads_total is None else int(heads_total)
+    _check(q, k, v, bias, False, heads_total, int(head_offset))
     out = torch.empty_like(q)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attn_fwd_launch(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   bias.data_ptr(), out.data_ptr(),
-                                  *_launch_args(q, bias, seed, dropout_rate, train, stream))
+                                  *_launch_args(q, bias, seed, dropout_rate, train, heads_total,
+                                                int(head_offset), stream))
     _raise_on(lib, err, "forward")
     attention_forward.launches += 1
     return out
@@ -241,17 +260,20 @@ attention_forward.launches = 0  # kernel launches; the plain version does not co
 
 
 def attention_backward(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0.0,
-                       train: bool = False):
+                       train: bool = False, heads_total: Optional[int] = None,
+                       head_offset: int = 0):
     """(dq, dk, dv): the backward kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, bias, g, seed, dropout_rate, train)
+        return attention_backward_plain(q, k, v, bias, g, seed, dropout_rate, train,
+                                        heads_total, head_offset)
     if q.device.type != "cuda":
         raise ValueError(f"fused attention runs on cpu or cuda tensors, got {q.device}")
     q, k, v = (_staged(t) for t in (q, k, v))
     g = _staged(g.to(q.dtype))
     bias = bias.float().contiguous()
-    _check(q, k, v, bias, backward=True)
+    heads_total = q.shape[2] if heads_total is None else int(heads_total)
+    _check(q, k, v, bias, True, heads_total, int(head_offset))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _kernel_library()
     with torch.cuda.device(q.device):
@@ -259,7 +281,8 @@ def attention_backward(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0
         err = lib.attn_bwd_launch(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                                   dv.data_ptr(),
-                                  *_launch_args(q, bias, seed, dropout_rate, train, stream))
+                                  *_launch_args(q, bias, seed, dropout_rate, train, heads_total,
+                                                int(head_offset), stream))
     _raise_on(lib, err, "backward")
     attention_backward.launches += 1
     return dq, dk, dv
@@ -270,33 +293,42 @@ attention_backward.launches = 0
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, dropout_rate, train):
+    def forward(ctx, q, k, v, bias, seed, dropout_rate, train, heads_total, head_offset):
         if q.device.type == "cuda" and _dropout_on(dropout_rate, train):
             seed = seed_tensor(seed, q.device)  # one tensor for the forward and the backward
         if torch.is_tensor(seed):
             ctx.save_for_backward(q, k, v, bias, seed)
         else:
             ctx.save_for_backward(q, k, v, bias)
-        ctx.args = (seed if not torch.is_tensor(seed) else None, dropout_rate, train)
-        return attention_forward(q, k, v, bias, seed, dropout_rate, train)
+        ctx.args = (seed if not torch.is_tensor(seed) else None, dropout_rate, train,
+                    heads_total, head_offset)
+        return attention_forward(q, k, v, bias, seed, dropout_rate, train, heads_total,
+                                 head_offset)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, *seed = ctx.saved_tensors
-        int_seed, dropout_rate, train = ctx.args
+        int_seed, dropout_rate, train, heads_total, head_offset = ctx.args
         seed = seed[0] if seed else int_seed
         with torch.autocast(q.device.type, enabled=False):
-            dq, dk, dv = attention_backward(q, k, v, bias, g, seed, dropout_rate, train)
-        return dq, dk, dv, None, None, None, None
+            dq, dk, dv = attention_backward(q, k, v, bias, g, seed, dropout_rate, train,
+                                            heads_total, head_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                     seed: Optional[Seed] = None, dropout_rate: float = 0.0,
-                    train: bool = False) -> torch.Tensor:
+                    train: bool = False, heads_total: Optional[int] = None,
+                    head_offset: int = 0) -> torch.Tensor:
     """ctx (B, S, H, d) = dropout(softmax(QK^T / sqrt(d) + bias)) V,
     differentiable in q, k, v. ``seed`` (an int, or a one-element integer
     tensor on q's device) must change from call to call in training; the
-    backward regenerates the forward's mask from it."""
+    backward regenerates the forward's mask from it. ``heads_total`` /
+    ``head_offset``: the H heads are [head_offset, head_offset + H) of a
+    layer of ``heads_total`` heads (a tensor-parallel rank's), and draw
+    those heads' masks (default: all of H, from 0)."""
     with torch.autocast(q.device.type, enabled=False):
         return _FusedAttention.apply(q, k, v, bias, 0 if seed is None else seed,
-                                     float(dropout_rate), bool(train))
+                                     float(dropout_rate), bool(train),
+                                     q.shape[2] if heads_total is None else int(heads_total),
+                                     int(head_offset))

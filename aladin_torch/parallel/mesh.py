@@ -8,9 +8,15 @@ function is a ``shard_map``. Here each rank is one process with one device
 ``shard_map`` on its own device, and the ``out_specs`` concatenation along
 the sharded axis is an ``all_gather``. The layouts are the reference's:
 
-  * training: data parallelism over ``dp`` (``train/step.py``); a ``tp``
-    axis above 1 raises (ROADMAP.md, queue 1, item 7b);
-  * evaluation: the retrieval corpus shards over every rank. Images are
+  * training: a 2-D mesh (dp, tp), the rank ``dp_index * tp + tp_index``
+    (tp the fastest axis, as aladin_tpu reshapes its devices (dp, tp)):
+    the batch over dp (``train/step.py``: the loss's gathers and the
+    gradient all-reduce go over the dp group) and Megatron tensor
+    parallelism over tp (``parallel/sharding.py``: each rank holds its
+    heads' and its FFN rows' slices, and the model's conjugate collectives
+    go over the tp group);
+  * evaluation: the retrieval corpus shards over every rank, dp and tp
+    alike (``_flat_axes`` in aladin_tpu). Images are
     replicated, rank r scores caption block r with the single-device scorer
     (the MrSw kernel K1 on the card, its plain version on the CPU), and one
     all-gather assembles the (N_im, N_cap) matrix. int8 scales are taken
@@ -37,10 +43,6 @@ from aladin_torch.ops.alignment import score_all_pairs
 from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 from aladin_torch.parallel.distributed import collective_device, get_rank, get_world_size
 
-TP_ERROR = ("tensor parallelism (a tp mesh axis above 1) is not ported yet "
-            "(ROADMAP.md, queue 1, item 7b)")
-
-
 def parse_mesh_shape(spec: str, n_devices: Optional[int] = None) -> Dict[str, int]:
     """Parse "dp=4,tp=2" (one -1 axis absorbs the remaining ranks of
     ``n_devices``, by default the world size)."""
@@ -63,37 +65,102 @@ def parse_mesh_shape(spec: str, n_devices: Optional[int] = None) -> Dict[str, in
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The axes of a mesh over the default process group, this rank and
-    its device. ``group`` is None for a mesh of one process without a
-    process group: then every collective below is the identity."""
+    its device. ``group`` spans every rank; ``dp_group`` and ``tp_group``
+    are this rank's sub-groups along each axis (the ranks that share its
+    tp index, and those that share its dp index). A group is None where it
+    would hold this rank alone (a mesh of one process without a process
+    group, or an axis of size 1): every collective over it is then the
+    identity."""
 
     axes: Dict[str, int]
     group: Optional[dist.ProcessGroup]
     rank: int
     device: torch.device
+    dp_group: Optional[dist.ProcessGroup] = None
+    tp_group: Optional[dist.ProcessGroup] = None
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.axes.values())))
 
+    @property
+    def dp(self) -> int:
+        return self.axes.get("dp", 1)
 
-def create_mesh(spec: str = "dp=-1", device=None) -> Mesh:
-    """Mesh from a "dp=N" spec over the default process group. ``device``:
-    this rank's device (default: its card under NCCL, else the CPU)."""
-    world = get_world_size()
-    tp = dict(part.strip().partition("=")[::2] for part in spec.split(",")).get("tp", "1")
-    if tp != "1":
-        raise NotImplementedError(TP_ERROR)
-    axes = parse_mesh_shape(spec, world)
+    @property
+    def tp(self) -> int:
+        return self.axes.get("tp", 1)
+
+    @property
+    def dp_index(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_index(self) -> int:
+        return self.rank % self.tp
+
+    def axis_group(self, axis: Optional[str]):
+        """(the group of ``axis``: None = every rank, 'dp' or 'tp'; this
+        rank's index in it)."""
+        if axis is None:
+            return self.group, self.rank
+        if axis == "dp":
+            return self.dp_group, self.dp_index
+        if axis == "tp":
+            return self.tp_group, self.tp_index
+        raise ValueError(f"mesh axes are dp and tp, got {axis!r}")
+
+
+def _axis_groups(dp: int, tp: int, rank: int):
+    """(dp group, tp group) of ``rank`` on a (dp, tp) mesh over the default
+    group. Every rank creates every sub-group, in the same order, as
+    ``dist.new_group`` requires; an axis of size 1 has no group, and an
+    axis that spans the whole mesh is the default group."""
+    if dp * tp == 1:
+        return None, None
+    world = dist.group.WORLD
+    dp_group = tp_group = None
+    if dp > 1:
+        dp_group = world if tp == 1 else None
+        for t in range(tp if tp > 1 else 0):
+            g = dist.new_group([d * tp + t for d in range(dp)])
+            if t == rank % tp:
+                dp_group = g
+    if tp > 1:
+        tp_group = world if dp == 1 else None
+        for d in range(dp if dp > 1 else 0):
+            g = dist.new_group([d * tp + t for t in range(tp)])
+            if d == rank // tp:
+                tp_group = g
+    return dp_group, tp_group
+
+
+def mesh_axes(spec: str, n_devices: Optional[int] = None) -> Dict[str, int]:
+    """The axes of a "dp=N,tp=M" spec (``parse_mesh_shape``), checked to
+    be dp and tp only."""
+    axes = parse_mesh_shape(spec, n_devices)
     unknown = set(axes) - {"dp", "tp"}
     if unknown:
         raise ValueError(f"mesh axes are dp and tp, got {sorted(unknown)} in {spec!r}")
+    return axes
+
+
+def create_mesh(spec: str = "dp=-1", device=None) -> Mesh:
+    """Mesh from a "dp=N,tp=M" spec over the default process group: rank
+    ``dp_index * tp + tp_index``, the dp and tp sub-groups created on every
+    rank. ``device``: this rank's device (default: its card under NCCL,
+    else the CPU)."""
+    world = get_world_size()
+    axes = mesh_axes(spec, world)
     size = int(np.prod(list(axes.values())))
     if size != world:
         raise ValueError(f"mesh {spec!r} spans {size} ranks; the process group has {world} "
                          f"(start one process a device: torchrun --nproc_per_node {size})")
+    rank = get_rank()
     group = dist.group.WORLD if dist.is_initialized() else None
+    dp_group, tp_group = _axis_groups(axes.get("dp", 1), axes.get("tp", 1), rank)
     device = collective_device() if device is None else torch.device(device)
-    return Mesh(axes, group, get_rank(), device)
+    return Mesh(axes, group, rank, device, dp_group, tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -101,34 +168,43 @@ def create_mesh(spec: str = "dp=-1", device=None) -> Mesh:
 # ---------------------------------------------------------------------------
 
 
-def all_gather_cat(mesh: Mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def all_gather_cat(mesh: Mesh, x: torch.Tensor, dim: int = 0,
+                   axis: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes), concatenated along ``dim`` in rank
-    order: the ``out_specs`` concatenation of a ``shard_map``."""
-    if mesh.group is None:
+    order: the ``out_specs`` concatenation of a ``shard_map``. ``axis``:
+    None gathers over every rank, 'dp' / 'tp' over this rank's sub-group
+    of that axis. The gather runs on the collectives' device (gloo has no
+    all-gather of CUDA tensors: a CUDA tensor under gloo goes through host
+    memory)."""
+    group, _ = mesh.axis_group(axis)
+    if group is None:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(mesh.group))]
-    dist.all_gather(parts, x, group=mesh.group)
-    return torch.cat(parts, dim=dim)
+    buf = x.contiguous().to(collective_device())
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
 
 
-def all_reduce_sum_(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` over the ranks in place (``lax.psum``); returns ``x``."""
-    if mesh.group is not None:
-        dist.all_reduce(x, group=mesh.group)
+def all_reduce_sum_(mesh: Mesh, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+    """Sum ``x`` over the ranks (of ``axis``'s group, as in
+    ``all_gather_cat``) in place (``lax.psum``); returns ``x``."""
+    group, _ = mesh.axis_group(axis)
+    if group is not None:
+        dist.all_reduce(x, group=group)
     return x
 
 
 @torch.no_grad()
 def broadcast_(mesh: Mesh, tensors) -> None:
-    """Overwrite each tensor with rank 0's, in place (a tensor off the
-    collectives' device goes through a copy on it)."""
+    """Overwrite each tensor with the mesh's rank 0's, in place (a tensor
+    off the collectives' device goes through a copy on it)."""
     if mesh.group is None:
         return
     dev = collective_device()
+    src = dist.get_global_rank(mesh.group, 0)
     for t in tensors:
         buf = t if t.device == dev else t.to(dev)
-        dist.broadcast(buf, src=0, group=mesh.group)
+        dist.broadcast(buf, src=src, group=mesh.group)
         if buf is not t:
             t.copy_(buf)
 
@@ -139,25 +215,26 @@ class _GatherRows(torch.autograd.Function):
     all-reduce, which gloo has too)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rows = mesh, x.shape[0]
-        return all_gather_cat(mesh, x, 0)
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
+        return all_gather_cat(mesh, x, 0, axis)
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce_sum_(ctx.mesh, g.contiguous().clone())
-        lo = ctx.mesh.rank * ctx.rows
-        return g[lo:lo + ctx.rows], None
+        g = all_reduce_sum_(ctx.mesh, g.contiguous().clone(), ctx.axis)
+        lo = ctx.mesh.axis_group(ctx.axis)[1] * ctx.rows
+        return g[lo:lo + ctx.rows], None, None
 
 
-def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x`` stacked in rank order, with a gradient:
-    where every rank reduces the same loss from the gathered rows, each
-    rank's rows get the sum of all ranks' gradients, that is world-size
-    times the loss's."""
-    if mesh.group is None:
+def gather_rows(mesh: Mesh, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+    """Every rank's rows of ``x`` stacked in rank order (over ``axis``'s
+    group, as in ``all_gather_cat``), with a gradient: where every rank
+    reduces the same loss from the gathered rows, each rank's rows get the
+    sum of all ranks' gradients, that is the group's size times the
+    loss's."""
+    if mesh.axis_group(axis)[0] is None:
         return x
-    return _GatherRows.apply(x, mesh)
+    return _GatherRows.apply(x, mesh, axis)
 
 
 # ---------------------------------------------------------------------------

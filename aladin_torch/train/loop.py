@@ -18,13 +18,23 @@
   * ``--profile_dir``: a ``torch.profiler`` trace of the dispatches that
     cover ``--profile_steps`` steps, from the second dispatch of the first
     epoch this Trainer runs (the first, for an epoch of one dispatch), once;
-  * with a ``mesh`` (data parallelism, as aladin_tpu's Trainer): the
-    data-parallel step, the logged metrics averaged over the ranks
-    (``all_reduce_metrics``), validation encoded on every rank and scored
-    corpus-sharded (``sharded_matching_scores`` + ``compute_recall_from_
+  * TensorBoard scalars under ``logger_name`` (``utils/logging.py::
+    make_tb_writer``, a no-op without tensorboard), with aladin_tpu's tags:
+    at each flush, per step ``epoch``, ``step`` (the batch index), ``lr``
+    (the rate that step's update used) and every metric the step returns,
+    then ``batch_time`` and ``data_time``; at each validation
+    ``matching/{r1,r5,r10,r1i,r5i,r10i,rsum}`` and, with the alignment
+    head, ``alignment/{r1,r5,r10,r1i,r5i,r10i,medr,meanr,ndcg_rougel,
+    ndcg_spice}`` and ``rsum`` (the alignment head's), at the step count;
+  * with a ``mesh`` (as aladin_tpu's Trainer): the step over the mesh
+    (data parallel over dp, the model sharded over tp), the logged metrics
+    averaged over the ranks (``all_reduce_metrics``), validation encoded on
+    every rank (with the sharded model under tp) and scored corpus-sharded
+    over every rank (``sharded_matching_scores`` + ``compute_recall_from_
     scores``, the alignment head through ``sharded_mrsw_scores``); rank 0
-    alone logs, traces and writes the checkpoints, and every rank waits at a
-    barrier after each checkpoint.
+    alone logs, writes the TensorBoard scalars, traces and writes the
+    checkpoints (every rank gathers the tp shards first), and every rank
+    waits at a barrier after each checkpoint.
 
 The validation dataset is built with is_train=True, as the reference does.
 """
@@ -46,7 +56,7 @@ from aladin_torch.parallel.distributed import (all_reduce_metrics, barrier, is_m
 from aladin_torch.parallel.mesh import Mesh, sharded_matching_scores, sharded_mrsw_scores
 from aladin_torch.train.state import TrainState
 from aladin_torch.train.step import make_eval_step, make_multi_train_step, make_train_step
-from aladin_torch.utils.logging import AverageMeter, LogCollector
+from aladin_torch.utils.logging import AverageMeter, LogCollector, NoOpWriter, make_tb_writer
 from aladin_torch.utils.profiling import Trace
 
 
@@ -83,6 +93,7 @@ class Trainer:
         self.profiled = False  # one trace a Trainer
         self.eval_step = make_eval_step(model, compute_dtype)
         self.logger = rank_logger(args.logger_name)
+        self.tb = make_tb_writer(args.logger_name) if is_main_process() else NoOpWriter()
         self.ndcg_scorer = ndcg_scorer
         self.best_rsum = -1.0
         self.best_ndcgspice = -1.0
@@ -92,6 +103,7 @@ class Trainer:
         for epoch in range(start_epoch, self.args.num_epochs):
             self.train_epoch(epoch)
             self._checkpoint(epoch, *self.validate())
+        self.tb.flush()
         return self.state
 
     def train_epoch(self, epoch: int) -> None:
@@ -100,6 +112,7 @@ class Trainer:
         k = self.steps_per_dispatch
         step0 = self.state.step
         pending = []  # device metric dicts, (width,) tensors or scalars, since the last flush
+        pending_steps = []  # (global step, batch index) of each pending step
         window_start = time.time()
 
         def flush(i):
@@ -110,9 +123,18 @@ class Trainer:
             host = torch.cat([torch.stack([m[n].float().reshape(-1) for n in names])
                               for m in pending], dim=1).cpu()  # the window's one sync
             batch_time.update((time.time() - window_start) / host.shape[1], n=host.shape[1])
-            for col in host.T.tolist():
+            for col, (gstep, bi) in zip(host.T.tolist(), pending_steps):
                 for n, v in zip(names, col):
                     collector.update(n, v, n=1)
+                self.tb.add_scalar("epoch", epoch, gstep)
+                self.tb.add_scalar("step", bi, gstep)
+                self.tb.add_scalar("lr", self.state.schedule(
+                    gstep - 1 - self.state.schedule_offset), gstep)
+                collector.tb_log(self.tb, step=gstep)
+            last_step = pending_steps[-1][0]
+            self.tb.add_scalar("batch_time", batch_time.val, last_step)
+            self.tb.add_scalar("data_time", data_time.val, last_step)
+            pending_steps.clear()
             last = dict(zip(names, host[:, -1].tolist()))
             self.last_metrics = last if self.mesh is None else all_reduce_metrics(last)
             pending.clear()
@@ -146,6 +168,7 @@ class Trainer:
             else:
                 pending.append(self.multi_step(self.state, list(window), epoch))
             ndisp += 1
+            pending_steps.extend((step0 + bi + 1, bi) for bi in widx)
             gstep, i, width = step0 + widx[-1] + 1, widx[-1], len(widx)
             window.clear()
             widx.clear()
@@ -180,6 +203,7 @@ class Trainer:
         without a scorer or an alignment loss)."""
         if self.val_loader is None:
             return 0.0, 0.0
+        step = self.state.step
         img_embs, cap_embs, img_lens, cap_lens = encode_data(self.eval_step, self.val_loader,
                                                              logger=self.logger)
         score_fn = None
@@ -188,6 +212,10 @@ class Trainer:
         else:
             m = compute_recall_from_scores(sharded_matching_scores(
                 self.mesh, img_embs[::5, 0, :], cap_embs[:, 0, :]))
+        for tag, key in (("r1", "i2t_r1"), ("r5", "i2t_r5"), ("r10", "i2t_r10"),
+                         ("r1i", "t2i_r1"), ("r5i", "t2i_r5"), ("r10i", "t2i_r10"),
+                         ("rsum", "rsum")):
+            self.tb.add_scalar(f"matching/{tag}", m[key], step)
         self.logger.info("Matching: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f"
                          % (m["i2t_r1"], m["i2t_r5"], m["i2t_r10"],
                             m["t2i_r1"], m["t2i_r5"], m["t2i_r10"], m["rsum"]))
@@ -205,6 +233,13 @@ class Trainer:
                 device=self.device, ndcg_scorer=self.ndcg_scorer, score_fn=score_fn)
             rsum_align = i2t["r1"] + i2t["r5"] + i2t["r10"] + t2i["r1"] + t2i["r5"] + t2i["r10"]
             ndcg_sum = i2t["ndcg_spice"] + t2i["ndcg_spice"]
+            for tag, v in (("r1", i2t["r1"]), ("r5", i2t["r5"]), ("r10", i2t["r10"]),
+                           ("r1i", t2i["r1"]), ("r5i", t2i["r5"]), ("r10i", t2i["r10"]),
+                           ("medr", i2t["medr"]), ("meanr", i2t["meanr"]),
+                           ("ndcg_rougel", i2t["ndcg_rougel"] + t2i["ndcg_rougel"]),
+                           ("ndcg_spice", ndcg_sum)):
+                self.tb.add_scalar(f"alignment/{tag}", v, step)
+            self.tb.add_scalar("rsum", rsum_align, step)
             self.logger.info("Alignment: i2t %.1f/%.1f/%.1f t2i %.1f/%.1f/%.1f rsum %.1f "
                              "ndcg_rouge %.4f ndcg_spice %.4f"
                              % (i2t["r1"], i2t["r5"], i2t["r10"], t2i["r1"], t2i["r5"],
@@ -220,7 +255,7 @@ class Trainer:
         self.best_ndcgspice = max(ndcg_sum, self.best_ndcgspice)
         path = save_checkpoint(self.args.logger_name, self.state, epoch + 1, self.cfg.to_dict(),
                                self.best_rsum, is_best_rsum=is_best, opt=vars(self.args),
-                               is_best_ndcgspice=is_best_ndcg)
+                               is_best_ndcgspice=is_best_ndcg, mesh=self.mesh)
         if self.mesh is not None:
             barrier("checkpoint")
         return path

@@ -20,7 +20,7 @@ rounding, not bit for bit.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -66,10 +66,12 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> None:
     """optax.clip_by_global_norm in place: unchanged below ``max_norm``,
-    else scaled to it."""
-    norm = global_norm(grads)
+    else scaled to it. ``norm``: the global norm when it is not the one of
+    ``grads`` alone (the unsharded model's under tensor parallelism)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
 

@@ -24,6 +24,11 @@ vector. ``optimizer_state_dict`` / ``load_optimizer_state_dict`` give and
 take the eager form (a float lr, ``capturable`` False, CPU step counts)
 whatever the mode, so checkpoints keep one format and load either way.
 
+Under tensor parallelism (``mesh``, set with the model's sharding) the
+parameters, their gradients and Adam's moments are this rank's slices;
+``grad_norm`` and the clip take the unsharded model's norm
+(``parallel/sharding.py::global_norm_tp``).
+
 Auxiliary learnables owned here:
   * the 'auto' loss weights s_k, initialised to -2.3 (learnable, unlike the
     reference's, which never reach its optimizer);
@@ -38,7 +43,8 @@ import torch
 from torch import nn
 
 from aladin_torch.config import ExperimentConfig
-from aladin_torch.train.schedule import clip_by_global_norm_, make_lr_schedule
+from aladin_torch.parallel.sharding import global_norm_tp
+from aladin_torch.train.schedule import clip_by_global_norm_, global_norm, make_lr_schedule
 
 # top-level ALADIN modules (the port's, i.e. the reference torch names)
 FROZEN_WITH_TERAN = (
@@ -76,6 +82,7 @@ class TrainState:
         self.aux = make_aux_params(cfg, device) if aux is None else aux
         self.step = 0
         self.schedule_offset = 0
+        self.mesh = None  # a mesh with a tp axis once the model is sharded over it
         self.schedule = make_lr_schedule(cfg.training, steps_per_epoch)
         frozen = FROZEN_WITH_TERAN if cfg.model.freeze_teran else ()
         self.trainable: List[nn.Parameter] = []
@@ -100,6 +107,13 @@ class TrainState:
         out.update({f"aux.{k}": v for k, v in self.aux.items()})
         return out
 
+    def grad_norm(self, params: Iterable[nn.Parameter]) -> torch.Tensor:
+        """The global norm of the gradients of ``params`` (those that have
+        one), an f32 device scalar; under tp the unsharded model's."""
+        if self.mesh is not None and self.mesh.tp > 1:
+            return global_norm_tp(params, self.mesh)
+        return global_norm([p.grad for p in params if p.grad is not None])
+
     @property
     def schedule_step(self) -> int:
         """The schedule's count: updates since the optimizer started fresh."""
@@ -113,7 +127,7 @@ class TrainState:
         grads = [p.grad for p in self.trainable if p.grad is not None]
         clip = self.cfg.training.grad_clip
         if clip > 0 and grads:
-            clip_by_global_norm_(grads, clip)
+            clip_by_global_norm_(grads, clip, self.grad_norm(self.trainable))
         for group in self.optimizer.param_groups:
             if lr is not None:
                 group["lr"].copy_(lr)

@@ -36,6 +36,15 @@ every rank, before ``grad_norm``, the clip and Adam. There is no
 ``DistributedDataParallel``: its hooks are not part of the step that a CUDA
 graph captures, and this all-reduce is.
 
+Tensor parallelism (a mesh with a tp axis, the model sharded by
+``parallel/sharding.py::shard_module_``): the tp ranks of a dp group hold
+the same rows, so the gathers and the gradient all-reduce above run over
+the dp group only, and the mean divides by dp. The model's own collectives
+(over the tp group) make every replicated parameter's gradient whole on
+each tp rank; ``grad_norm`` and the clip sum the squares of the sharded
+gradients over tp and count the replicated ones once, so the norm is the
+unsharded model's. Adam's moments follow the local shards.
+
 ``make_multi_train_step`` runs a window of K steps as one dispatch, the
 counterpart of aladin_tpu's jitted ``lax.scan``: on the card one CUDA graph
 that captured K consecutive steps over K static batch buffers, replayed once
@@ -59,7 +68,6 @@ from aladin_torch.models.aladin import ALADIN, AladinOutputs, Batch
 from aladin_torch.ops import losses as L
 from aladin_torch.ops.alignment import alignment_scores, alignment_scores_chunked
 from aladin_torch.parallel.mesh import Mesh, all_gather_cat, all_reduce_sum_, gather_rows
-from aladin_torch.train.schedule import global_norm
 from aladin_torch.train.state import TrainState
 
 
@@ -138,13 +146,13 @@ def make_loss_fn(model: ALADIN, cfg: ExperimentConfig,
     mb = tc.encoder_microbatch
 
     def gather(x):
-        return x if mesh is None else gather_rows(mesh, x)
+        return x if mesh is None else gather_rows(mesh, x, axis="dp")
 
     def alignment_matrix(out: AladinOutputs) -> torch.Tensor:
         """This rank's images against every caption, the blocks stacked."""
         caps, cap_len = gather(out.cap_seq), out.cap_len
         if mesh is not None:
-            cap_len = all_gather_cat(mesh, cap_len)
+            cap_len = all_gather_cat(mesh, cap_len, axis="dp")
         if tc.alignment_chunk > 0:
             block = alignment_scores_chunked(out.img_set, caps, out.img_len, cap_len,
                                              tc.alignment_mode, tc.alignment_chunk,
@@ -217,18 +225,18 @@ def _update(model: ALADIN, loss_fn: Callable, state: TrainState, batch: Batch, e
     total.backward()
     if mesh is not None:
         average_gradients(mesh, [p.grad for p in state.parameters() if p.grad is not None])
-    metrics["grad_norm"] = global_norm([p.grad for p in state.parameters() if p.grad is not None])
+    metrics["grad_norm"] = state.grad_norm(state.parameters())
     state.apply_gradients(lr)
     return {k: v.detach() for k, v in metrics.items()}
 
 
 def average_gradients(mesh: Mesh, grads: List[torch.Tensor]) -> None:
-    """Replace each gradient by its mean over the mesh's ranks: one
-    all-reduce of one flat buffer, in place."""
-    if not grads:
+    """Replace each gradient by its mean over the mesh's dp ranks: one
+    all-reduce of one flat buffer over the dp group, in place."""
+    if not grads or mesh.dp_group is None:
         return
-    flat = all_reduce_sum_(mesh, torch.cat([g.reshape(-1) for g in grads]))
-    flat.div_(mesh.size)
+    flat = all_reduce_sum_(mesh, torch.cat([g.reshape(-1) for g in grads]), axis="dp")
+    flat.div_(mesh.dp)
     torch._foreach_copy_(grads, [v.view_as(g) for v, g in
                                  zip(flat.split([g.numel() for g in grads]), grads)])
 

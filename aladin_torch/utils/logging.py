@@ -83,6 +83,10 @@ class LogCollector:
     def __str__(self):
         return "  ".join(f"{k} {v}" for k, v in self.meters.items())
 
+    def tb_log(self, tb_logger, prefix: str = "", step: Optional[int] = None):
+        for k, v in self.meters.items():
+            tb_logger.add_scalar(prefix + k, v.val, global_step=step)
+
 
 class NoOpWriter:
     def add_scalar(self, *a, **kw):

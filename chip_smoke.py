@@ -122,9 +122,8 @@ Phases, each printing one JSON line:
               window of 8 steps against 8 eager steps from the same state at
               dropout 0, bit for bit (at B 128 also with the token-type
               table frozen, the check kept from when its gradient was an
-              atomic sum; two eager runs of the full B 128 step repeat
-              themselves bit for bit, and the full step's graphed metrics
-              are within 1e-2 relative besides bit for bit), host-clock ms a
+              atomic sum, and the full step's graphed metrics within 1e-2
+              relative besides bit for bit), host-clock ms a
               step over 4 windows each, the profiler's card ms, busy share
               and kernels a step by name (24 K2 forwards, 24 backwards, 48
               K3a forwards and 48 backwards), peak memory; at bs 32 and
@@ -144,16 +143,16 @@ Phases, each printing one JSON line:
               width with K2 and K3a, on random batches on the card: (a) bs
               32, dropout 0.1, remat against no remat from one state and
               one CUDA generator state, loss and parameters bit for bit,
-              24 -> 48 K2 and 48 -> 96 K3a forwards (backwards 24 / 48);
+              24 -> 48 K2 and 48 -> 96 K3a forwards (backwards 24 / 48),
+              and the alignment head in chunks of 8 captions
+              (alignment-chunk) within 1e-3 of the unchunked loss;
               (b) B 512, dropout 0, no lever / remat / encoder-microbatch
               128 / both: peak memory, host and card ms a step, launches;
               remat's first loss equal to the no-lever one bit for bit,
               the micro-batched ones within 1e-3, remat's peak below the
-              no-lever peak; (c) B 1024, dropout 0.1, remat +
-              encoder-microbatch 128 + alignment-chunk 64: two finite steps
-              and the peak memory; (d) a CUDA graph of 8 remat steps, and
-              of remat with micro-batches of 16, against 8 eager steps at
-              bs 32, bit for bit.
+              no-lever peak; (c) a CUDA graph of 8 remat steps, and of
+              remat with micro-batches of 16, against 8 eager steps at bs
+              32, bit for bit.
   17. variants - the model variants at VinVL-base width, bs 32, knobs on:
               alignment-side gated depth aggregation with the feature
               fusion, matching-side transformer aggregation with post-layers
@@ -211,10 +210,39 @@ Phases, each printing one JSON line:
               card seconds apart; one bf16 pair step with K2 + K3a against
               one without, and 12 / 12 / 24 / 24 launches a step.
 
+Since the tensor-parallel slice, three more phases, run last (the serving
+corpus is kept for them):
+
+  parity    - aladin_torch.cli.parity, at VinVL-base
+              width over the serving corpus (5k keys: 1000 images; 1k keys:
+              500) from a released-format .pth.tar of main's random
+              weights, not strict: every report section, K1 launched, the
+              5k rows and scores equal to main's bf16 cli/test run bit for
+              bit, the 1k rows equal to cli/test --eval_img_keys_file
+              test_img_keys_1k.tsv (or off only by near-ties), encode,
+              scoring and latency seconds.
+  data_smoke - aladin_torch.cli.data_smoke over the serving corpus's train
+              split: samples/s of the native and the Python reader at 1
+              and 4 loader threads.
+  tensor_parallel - K2 on one tp rank's heads (H 6 of
+              12, head_offset 6) against its plain version and bit for bit
+              against heads 6-11 of an H 12 launch, and its times at H 6
+              and H 3 beside the bound and SDPA's; then two processes on
+              the card, the ranks of a dp=1,tp=2 gloo group, each running
+              the flagship B 128 bf16 step with K2 and K3a on its heads:
+              against the one-process step at dropout 0 and at dropout 0.1
+              (train_fused's knob tolerances on the loss, grad_norm and
+              the gathered gradients, overall and leaf by leaf, every
+              parameter within one Adam step), 24 / 24 / 48 / 48 launches
+              a rank a step, ms a step, the gathered weights' f32 forward
+              in a tp = 1 model (TP_FORWARD_ATOL), and the row-parallel
+              partial product (bf16 operands, f32 result) on the tensor
+              cores against the f32 product of the upcast operands.
+
 Then the total seconds, the kernels line ({"kernels": [...]}; K2 and K3a
 also with their launches in one remat step, one pretraining step, one
 caption step and one pair step, K2's forward in one caption decode batch,
-and K2's times at the captioning shape),
+K2's times at the captioning shape, and K2 on one tp rank's heads),
 the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
 phase raises, so the script exits nonzero without that last line. It also
@@ -639,9 +667,10 @@ def recipe_bs() -> int:
         return json.load(f)["training"]["bs"]
 
 
-def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
+def phase_main(tmp: str, oscar: str, data: str, setup_s: float):
     """cli/test at full width: bf16 scoring, int8 scoring, and the int8
-    encoder (--int8_encoder) with bf16 scoring."""
+    encoder (--int8_encoder) with bf16 scoring. Returns (each run's kernel
+    launches, the bf16 run's results)."""
     import torch
 
     from aladin_torch.cli import test as cli_test
@@ -725,7 +754,124 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float) -> dict:
                                      f"NDCG@25 {want[d][m]}")
     emit({"phase": "main_check", **check, "int8_encoder_corr_limit": INT8_ENCODER_CORR,
           "loader_batches_equal_native_vs_python": len(native_batches)})
-    return {name: launches[name] for name, _ in runs}
+    return {name: launches[name] for name, _ in runs}, results["bf16"]
+
+
+PARITY_SECTIONS = ("matching_5k", "alignment_5k", "matching_5fold", "alignment_5fold",
+                   "matching_1k", "alignment_1k")
+
+
+def _rows_equal(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in set(a) & set(b))
+
+
+def near_tie_only(got, want, tol: float) -> bool:
+    """Every alignment rank that differs between two (N_im, N_cap) score
+    matrices sits on a near-tie: two of that query's scores within ``tol``."""
+    import torch
+
+    from aladin_torch.eval.recall import ranks_from_score_matrix
+
+    g = [r.cpu() for r in ranks_from_score_matrix(torch.as_tensor(got))]
+    w = [r.cpu() for r in ranks_from_score_matrix(torch.as_tensor(want))]
+    for scores, gr, wr in ((want, g[0], w[0]), (want.T, g[1], w[1])):
+        for q in torch.nonzero(gr != wr).flatten().tolist():
+            row = torch.as_tensor(scores[q]).float()
+            gaps = (row[:, None] - row[None, :]).abs()
+            gaps.fill_diagonal_(float("inf"))
+            if not gaps.min() < tol:
+                return False
+    return True
+
+
+def phase_parity(tmp: str, oscar: str, data: str, main_bf16: dict) -> dict:
+    """aladin_torch.cli.parity at VinVL-base width over the serving corpus
+    (1000 images x 5000 captions; test_img_keys.tsv and the 500 images of
+    test_img_keys_1k.tsv) from a released-format .pth.tar of the random
+    weights (write_random_checkpoint: the weights main's cli/test runs
+    evaluate), not strict: every report section present, K1 launched (the
+    count read), the 5k rows equal to main's bf16 cli/test run's (the same
+    encode batches: bit for bit), the 1k rows equal to cli/test
+    --eval_img_keys_file test_img_keys_1k.tsv's (encoded in other batches:
+    rows equal, or every differing rank a near-tie within BF16_ATOL); encode,
+    scoring and latency seconds."""
+    import numpy as np
+
+    from aladin_torch.cli import parity
+    from aladin_torch.cli import test as cli_test
+    from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
+
+    ckpt = os.path.join(tmp, "parity_ckpt.pth.tar")
+    write_random_checkpoint(ckpt, oscar)
+    common = ["--load_checkpoint", ckpt, "--eval_model_dir", oscar, "--data_dir", data,
+              "--img_feat_file", os.path.join(data, "features.tsv"), "--max_seq_length", "50",
+              "--max_img_seq_length", "34", "--add_od_labels", "--device", "cuda"]
+    report_dir = os.path.join(tmp, "parity")
+    mrsw_scores.launches = 0
+    t0 = time.perf_counter()
+    res = parity.run(common + ["--output_dir", report_dir, "--report_dir", report_dir])
+    total_s = time.perf_counter() - t0
+    k1_launches = mrsw_scores.launches
+    report = res["report"]
+    if res["exit_code"] != 0 or k1_launches == 0:
+        raise AssertionError(f"parity: exit {res['exit_code']}, {k1_launches} K1 launches")
+    missing = [k for k in PARITY_SECTIONS if "rsum" not in report["results"].get(k, {})]
+    if missing or not report["latency"] or len(report["checks"]) != 4 or not all(
+            os.path.exists(os.path.join(report_dir, f"parity_report.{e}")) for e in ("json", "md")):
+        raise AssertionError(f"parity report incomplete: missing {missing}, latency "
+                             f"{report['latency']}, checks {report['checks']}")
+    if (report["n_images_5k"], report["n_images_1k"]) != (1000, 500):
+        raise AssertionError(f"parity protocols: {report['n_images_5k']} / {report['n_images_1k']}")
+    rows = report["results"]
+
+    def cli_rows(r):
+        return ({k: v for k, v in r["matching"].items()},
+                {**{f"i2t_{k}": v for k, v in r["alignment_i2t"].items()},
+                 **{f"t2i_{k}": v for k, v in r["alignment_t2i"].items()}})
+
+    m5, a5 = cli_rows(main_bf16)
+    if not (_rows_equal(rows["matching_5k"], m5) and _rows_equal(rows["alignment_5k"], a5)
+            and np.array_equal(res["scores_5k"], main_bf16["scores"])):
+        raise AssertionError(f"parity 5k rows {rows['matching_5k']} {rows['alignment_5k']} != "
+                             f"cli/test's {m5} {a5}")
+    out_1k = os.path.join(tmp, "test_1k")
+    one_k = cli_test.run(common + ["--eval_img_keys_file", "test_img_keys_1k.tsv",
+                                   "--output_dir", out_1k, "--logger_name", out_1k])
+    m1, a1 = cli_rows(one_k)
+    scores_1k = res["scores_5k"][:500, :2500]
+    equal_1k = _rows_equal(rows["matching_1k"], m1) and _rows_equal(rows["alignment_1k"], a1)
+    if not equal_1k and not near_tie_only(one_k["scores"], scores_1k, BF16_ATOL):
+        raise AssertionError(f"parity 1k rows {rows['matching_1k']} {rows['alignment_1k']} != "
+                             f"cli/test's {m1} {a1}, and not by near-ties")
+    emit({"phase": "parity", "card": nvidia_smi_line(), "images": 1000, "captions": 5000,
+          "k1_launches": k1_launches, "sections": list(rows), "checks": report["checks"],
+          "profile": report["profile"], "coverage": report["coverage"],
+          "rows_5k_equal_cli_test": True, "rows_1k_equal_cli_test": equal_1k,
+          "scores_1k_max_abs_diff_vs_cli_test": float(np.abs(one_k["scores"] - scores_1k).max()),
+          "encode_seconds": res["encode_seconds"], "score_seconds": res["score_seconds"],
+          "latency_seconds": res["latency_seconds"], "latency": report["latency"],
+          "total_seconds": total_s, "rsum": {k: v["rsum"] for k, v in rows.items()}})
+    return {"k1_launches": k1_launches}
+
+
+def phase_data_smoke(oscar: str, data: str) -> dict:
+    """aladin_torch.cli.data_smoke over the serving corpus's train split
+    (1000 images x 5 captions, text 50, regions 34, bs 32): samples/s of the
+    native and the pure-Python TSV reader at 1 and 4 loader threads, with
+    the batches copied to the card."""
+    from aladin_torch.cli import data_smoke
+
+    rows = data_smoke.run(["--eval_model_dir", oscar, "--data_dir", data, "--img_feat_file",
+                           os.path.join(data, "features.tsv"), "--max_seq_length", "50",
+                           "--max_img_seq_length", "34", "--add_od_labels", "--num_workers",
+                           "4", "--batch_size", "32", "--device", "cuda"])
+    if [(r["mode"], r["threads"]) for r in rows] != [("native", 1), ("native", 4),
+                                                      ("python", 1), ("python", 4)]:
+        raise AssertionError(f"data_smoke rows: {rows}")
+    if not all(r["samples"] == 4992 and r["samples_per_s"] > 0 for r in rows):
+        raise AssertionError(f"data_smoke did not read every whole batch: {rows}")
+    emit({"phase": "data_smoke", "card": nvidia_smi_line(), "rows": rows})
+    return {"rows": rows}
 
 
 def phase_encode_q8ln(oscar: str, data: str) -> dict:
@@ -1799,28 +1945,47 @@ STEP_KERNELS = {"k2_fwd": "attn_fwd", "k2_bwd": "attn_bwd", "k3a": "rln_fwd",
 GRAPH_K = 8  # steps a window in train_graph and the train_cli window run
 
 
+# torch.profiler (torch 2.11, CUDA 12.8) loses the first device records of a
+# trace, and more of them with every trace the process has taken: a B 128
+# eager window's first K2 forward was its 24th kernel record in a fresh
+# process and was lost after ~27 traces (PERF.md §6). device_profile
+# therefore starts each trace with PROFILE_PAD spin kernels of ~10 us each
+# and requires that some of them were recorded: what was lost lies in the
+# pad, before the calls it measures.
+PROFILE_PAD = 512
+PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
 def device_profile(fn, n: int, top: int = 12) -> dict:
-    """torch.profiler over ``n`` calls of ``fn``: per call, the wall ms
-    under the profiler, the device ms (the sum of the device-side events'
-    times: kernels, copies, fills; one stream, so they do not overlap), and
-    the ``top`` device events by time."""
+    """torch.profiler over ``n`` calls of ``fn``, after the pad: per call,
+    the wall ms under the profiler, the device ms (the sum of the device-side
+    events' times: kernels, copies, fills; one stream, so they do not
+    overlap), and the ``top`` device events by time. Raises if the trace
+    kept none of the pad's kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(20_000)  # cycles
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    pad = sum(e.count for e in events if PAD_KERNEL in e.key)
+    if not pad:
+        raise RuntimeError(f"the profiler kept none of the {PROFILE_PAD} pad kernels: records "
+                           f"of the measured calls may be lost")
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in events
+                   if e.self_device_time_total > 0 and PAD_KERNEL not in e.key
                    and not getattr(e, "is_user_annotation", False)),  # spans, not work
                   key=lambda r: -r[1])
-    return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+    return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows), "pad_kept": pad,
             # the step kernels by name: a CUDA graph's replay shows its kernels
             # too, where the Python launch counters see only the capture
             "step_kernels": {k: sum(r[2] for r in rows if pat in r[0])
@@ -1919,6 +2084,382 @@ def phase_train_fused() -> dict:
     return {"launches": launches}
 
 
+TP = 2  # tensor-parallel ranks of the tensor_parallel phase: two processes on the one card
+TP_SEED = 99  # the generators' seed of both tensor_parallel runs (dp index 0 keeps it)
+TP_FORWARD_ATOL = 1e-4  # f32 eval forward, tp run's weights in a tp = 1 model vs the tp model
+# the partial product on the tensor cores against the upcast f32 product:
+# both sum in f32, in other orders, over K <= 1536 terms
+ROW_PARTIAL_RTOL = 1e-4
+# one parameter's gathered tp gradient against the one-process gradient, by
+# L2: within TP_LEAF_GRAD_RTOL of its own norm plus its size's share of the
+# overall limit (KNOB_GNORM_RTOL |g| sqrt(numel / all)), which covers a
+# leaf whose gradient is small; a gradient that misses a tp rank's share is
+# off by about half of itself. The attention key biases are left to the
+# overall check: softmax ignores a constant added to a row, so their
+# gradients are zero but for rounding (1.4-1.6 of themselves apart)
+TP_LEAF_GRAD_RTOL = 0.25
+
+
+def k2_local_heads() -> dict:
+    """K2 on one tensor-parallel rank's heads (B 128, S 84, bf16): at H 6,
+    heads 6-11 of 12 (head_offset 6), forward and backward at dropout 0.1
+    against the plain version (one bf16 ulp) and against the heads 6-11
+    slice of an H 12 launch on the same q, k, v, g, bias and seed (bit for
+    bit: a block computes one head, and the hash reads the global head);
+    then at H 6 and H 3 (tp 2 and 4) the kernel's card time at dropout 0.1
+    and 0, the plain version's, the bound and SDPA's on the same heads."""
+    import torch
+    import torch.nn.functional as F
+
+    from aladin_torch.ops.kernels import attention_kernel as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h, d = 128, 84, 12, 64
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+    lens = torch.randint(4, s + 1, (b,), generator=gen, device="cuda")
+    bias = (torch.arange(s, device="cuda")[None] >= lens[:, None])[:, None, :].float() * -10000.0
+    seed = torch.full((), 11, dtype=torch.int64, device="cuda")
+    full = ak.attention_forward(q, k, v, bias, seed, 0.1, True)
+    full_g = ak.attention_backward(q, k, v, bias, g, seed, 0.1, True)
+    sl = slice(6, 12)
+    part = [t[:, :, sl].contiguous() for t in (q, k, v, g)]
+    kw = dict(heads_total=h, head_offset=6)
+    got = ak.attention_forward(*part[:3], bias, seed, 0.1, True, **kw)
+    got_g = ak.attention_backward(*part[:3], bias, part[3], seed, 0.1, True, **kw)
+    checks, max_err = [], {"fwd": 0.0, "bwd": 0.0}
+    want = ak.attention_forward_plain(*part[:3], bias, seed, 0.1, True, **kw)
+    max_err["fwd"] = check_close(checks, "K2 forward at head_offset 6", "H6 of 12 ctx", got, want,
+                                 BF16_ULP * want.float().abs().max().item())
+    for name, gt, wt in zip(("dq", "dk", "dv"), got_g, ak.attention_backward_plain(
+            *part[:3], bias, part[3], seed, 0.1, True, **kw)):
+        max_err["bwd"] = max(max_err["bwd"], check_close(
+            checks, "K2 backward at head_offset 6", f"H6 of 12 {name}", gt, wt,
+            BF16_ULP * wt.float().abs().max().item()))
+    slice_bitwise = bool(torch.equal(got, full[:, :, sl])) and all(
+        torch.equal(a, w[:, :, sl]) for a, w in zip(got_g, full_g))
+    if not slice_bitwise:
+        raise AssertionError("K2 at H 6, head_offset 6 differs from heads 6-11 of the H 12 launch")
+
+    timings = {}
+    for tp in (2, 4):
+        hl = h // tp
+        args = [t[:, :, :hl].contiguous() for t in (q, k, v, g)]
+        kw = dict(heads_total=h, head_offset=hl)  # the second rank's heads
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in args[:3])
+        mask = bias[:, None].to(torch.bfloat16)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        gt = args[3].transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        fwd_bound, fwd_by = attention_bound(b, s, hl, d, 1, False)
+        bwd_bound, bwd_by = attention_bound(b, s, hl, d, 1, True)
+        def fwd(rate, fn=ak.attention_forward):
+            return fn(*args[:3], bias, seed, rate, True, **kw)
+
+        def bwd(rate, fn=ak.attention_backward):
+            return fn(*args[:3], bias, args[3], seed, rate, True, **kw)
+
+        timings[f"B{b} S{s} H{hl} of {h} d{d} bf16"] = {
+            "fwd": {"ms": device_ms(lambda: fwd(0.1), 20),
+                    "ms_rate0": device_ms(lambda: fwd(0.0), 20),
+                    "plain_ms": device_ms(lambda: fwd(0.1, ak.attention_forward_plain), 5),
+                    "library_ms": device_ms(sdpa_fwd, 20), "bound_ms": fwd_bound,
+                    "bound_by": fwd_by},
+            "bwd": {"ms": device_ms(lambda: bwd(0.1), 20),
+                    "ms_rate0": device_ms(lambda: bwd(0.0), 20),
+                    "plain_ms": device_ms(lambda: bwd(0.1, ak.attention_backward_plain), 5),
+                    "library_ms": device_ms(lambda: torch.autograd.grad(
+                        out, (qt, kt, vt), gt, retain_graph=True), 20),
+                    "bound_ms": bwd_bound, "bound_by": bwd_by}}
+        del out
+    for t in timings.values():
+        for x in t.values():
+            x["bound_share"] = x["bound_ms"] / x["ms"]
+    return {"checks": checks, "max_err": max_err, "slice_of_h12_launch_bitwise": slice_bitwise,
+            "timings": timings}
+
+
+def tp_rank_main(rank: int, port: int, work: str) -> int:
+    """One rank of the tensor_parallel phase (``chip_smoke.py --tp-rank R
+    --tp-port P --tp-work DIR``): joins a 2-rank gloo group, builds the
+    flagship model from the phase's weights, shards it over dp=1,tp=2 and
+    runs its steps (module docstring of phase_tensor_parallel); rank 0
+    writes its results to ``<work>/rank0.pt``, rank 1 its launch counts."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from aladin_torch.data.pipeline import BatchLoader
+    from aladin_torch.models.aladin import Batch
+    from aladin_torch.ops.kernels import attention_kernel as ak
+    from aladin_torch.ops.kernels import layernorm as lk
+    from aladin_torch.parallel.distributed import initialize, shutdown
+    from aladin_torch.parallel.mesh import create_mesh
+    from aladin_torch.parallel.sharding import full_state_dict, gather_tensor, is_sharded
+    from aladin_torch.cli.common import shard_state_and_loaders
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    # gloo: the one card cannot hold two NCCL ranks; gloo reduces and
+    # broadcasts CUDA tensors, and the gathers go through host memory
+    initialize(f"127.0.0.1:{port}", num_processes=TP, process_id=rank, device="cpu")
+    counters = {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
+                "k3a": lk.residual_layernorm_forward, "k3a_bwd": lk.residual_layernorm_backward}
+    try:
+        mesh = create_mesh(f"dp=1,tp={TP}", device="cuda")
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=True)
+        batch = Batch(**{f: v.cuda() for f, v in inp["batch"].items()})
+        out = {"launches": {}, "metrics": {}, "host_ms_per_step": None}
+
+        def sharded(dropout, head_dropout):
+            cfg, model = flagship_train_model(True, dropout, inp["start"],
+                                              model_over={"dropout": head_dropout})
+            state = TrainState(cfg, model, steps_per_epoch=100)
+            shard_state_and_loaders(state, mesh, cfg, TP_SEED, BatchLoader(range(128), 128))
+            return cfg, model, state
+
+        for tag, dropout in (("dropout0", 0.0), ("dropout0.1", 0.1)):
+            cfg, model, state = sharded(dropout, 0.0)
+            step = make_train_step(model, cfg, torch.bfloat16, mesh)
+            for fn in counters.values():
+                fn.launches = 0
+            metrics = {k: v.item() for k, v in step(state, batch, 0).items()}
+            out["launches"][tag] = {k: fn.launches for k, fn in counters.items()}
+            out["metrics"][tag] = metrics
+            # the step's gradients (after the clip), gathered to full shapes
+            grads = {n: gather_tensor(p.grad, p.tp_kind, mesh) if is_sharded(p) else p.grad
+                     for n, p in model.named_parameters() if p.grad is not None}
+            full = full_state_dict(model, mesh)
+            if rank == 0:
+                out[f"params_{tag}"] = {k: v.detach().cpu() for k, v in full.items()}
+                out[f"grads_{tag}"] = {k: v.cpu() for k, v in grads.items()}
+            del grads
+            if tag == "dropout0":
+                # ms a step on the card's two ranks (both run every step), by
+                # the host's clock and by CUDA events on the card's stream;
+                # no profiler here: the parent process traces the card
+                torch.cuda.synchronize()
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(2):
+                    step(state, batch, 0)
+                stop.record()
+                torch.cuda.synchronize()
+                out["host_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / 2
+                out["card_clock_ms_per_step"] = start.elapsed_time(stop) / 2
+                # the f32 eval forward of the tp model, for the tp = 1 check
+                model.eval()
+                with torch.no_grad():
+                    rows = Batch(**{f: getattr(batch, f)[:32] for f in Batch.__dataclass_fields__})
+                    fwd = model(rows)
+                out["eval_forward"] = {"img_global": fwd.img_global.cpu(),
+                                       "cap_global": fwd.cap_global.cpu(),
+                                       "img_set": fwd.img_set.cpu()}
+                out["params_for_forward"] = {k: v.detach().cpu() for k, v in
+                                             full_state_dict(model, mesh).items()}
+            del model, state, step
+        torch.save(out if rank == 0 else {"launches": out["launches"]},
+                   os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        shutdown()
+    return 0
+
+
+def row_partial_product_check() -> dict:
+    """The row-parallel layers' partial product at a tp = 2 rank's shapes
+    (M 10752 = B 128 x S 84; K 384 of attention-out, 1536 of FFN-down; N
+    768): bf16 operands with an f32 result on the tensor cores
+    (``parallel/sharding.py::_PartialProduct``) against the f32 product of
+    the upcast operands (f32 sums in another order: within
+    ROW_PARTIAL_RTOL of the largest |h| |w|^T entry), and the card ms of
+    each."""
+    import torch
+
+    from aladin_torch.parallel.sharding import _PartialProduct
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for what, k in (("attention-out", 384), ("ffn-down", 1536)):
+        h = torch.randn(10752, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(768, k, generator=gen, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        got = _PartialProduct.apply(h, w)
+        want = h.float() @ w.float().t()
+        scale = float((h.float().abs() @ w.float().abs().t()).max())
+        err = float((got - want).abs().max())
+        if got.dtype != torch.float32 or not err <= ROW_PARTIAL_RTOL * scale:
+            raise AssertionError(f"row-parallel partial product {what}: {got.dtype}, max abs "
+                                 f"diff {err} > {ROW_PARTIAL_RTOL} x {scale}")
+        out[f"M10752 K{k} N768 ({what})"] = {
+            "max_abs_diff": err, "tol": ROW_PARTIAL_RTOL * scale,
+            "bf16_in_f32_out_ms": device_ms(lambda: _PartialProduct.apply(h, w), 20),
+            "f32_upcast_ms": device_ms(lambda: h.float() @ w.float().t(), 20)}
+    return out
+
+
+def phase_tensor_parallel(tmp: str) -> dict:
+    """Tensor parallelism on the card: two processes, each one rank of a
+    dp=1,tp=2 mesh over gloo on the one card (NCCL refuses two ranks on one
+    device; gloo's all-reduce and broadcast take CUDA tensors, the only
+    collectives a dp = 1 step needs, and the mesh's gathers go through host
+    memory). This is a way to run two ranks on one card, not a fallback:
+    the CLIs keep NCCL, one rank a card. The flagship model at VinVL-base
+    width, B 128, bf16, K2 and K3a on, each rank with heads [6 t, 6 t + 6)
+    of every layer:
+
+      * one eager step against the one-process step from the same weights
+        and batch at dropout 0: loss and grad_norm within KNOB_LOSS_RTOL /
+        KNOB_GNORM_RTOL, the gradients gathered to full shapes within
+        KNOB_GNORM_RTOL (relative L2 over all of them) and each within its
+        limit (TP_LEAF_GRAD_RTOL), every parameter after the step
+        within what one Adam step allows (2 lr, plus four f32 roundings of
+        the largest parameter);
+      * the same at dropout 0.1 in the backbone (the heads' dropout 0: its
+        plain dropouts on sharded activations draw other masks than tp = 1
+        by design), both runs' generators seeded alike: K2 hashes the global
+        head, so its masks are the tp = 1 masks;
+      * exactly 24 / 24 K2 and 48 / 48 K3a launches a rank a step;
+      * host ms a step and the card's clock (CUDA events) a step, beside
+        the one-process step's host and profiled card ms (the ranks run no
+        profiler);
+      * the gathered weights loaded into a tp = 1 model give the tp model's
+        f32 eval forward (TP_FORWARD_ATOL);
+      * K2 at one rank's heads (``k2_local_heads``), and the row-parallel
+        partial product (``row_partial_product_check``)."""
+    import torch
+
+    from aladin_torch.models.aladin import Batch
+    from aladin_torch.train.state import TrainState
+    from aladin_torch.train.step import make_train_step
+
+    k2 = k2_local_heads()
+    work = os.path.join(tmp, "tp")
+    os.makedirs(work, exist_ok=True)
+    cfg, model = flagship_train_model(True, 0.0)
+    start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = synth_train_batch(128, seed=21)
+    torch.save({"start": start, "batch": {f: getattr(batch, f).cpu()
+                                          for f in Batch.__dataclass_fields__}},
+               os.path.join(work, "inputs.pt"))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               "--tp-port", str(port), "--tp-work", work],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(TP)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"tensor_parallel rank {r} failed:\n{log[-3000:]}")
+    got = torch.load(os.path.join(work, "rank0.pt"), weights_only=False)
+    rank1 = torch.load(os.path.join(work, "rank1.pt"), weights_only=False)
+    layers = 12
+    want_launches = {"k2_fwd": 2 * layers, "k2_bwd": 2 * layers, "k3a": 4 * layers,
+                     "k3a_bwd": 4 * layers}
+    for r, res in enumerate((got, rank1)):
+        for tag, launches in res["launches"].items():
+            if launches != want_launches:
+                raise AssertionError(f"tp rank {r} {tag}: launches {launches} != {want_launches}")
+
+    # the one-process steps from the same weights and batch
+    out = {"card": nvidia_smi_line(), "mesh": f"dp=1,tp={TP}", "backend": "gloo",
+           "torch": torch.__version__, "ranks_seconds": ranks_s, "k2_local_heads": k2,
+           "launches_per_rank_step": got["launches"]["dropout0"], "comparisons": {}}
+    lr = cfg.training.lr
+    for tag, dropout in (("dropout0", 0.0), ("dropout0.1", 0.1)):
+        cfg1, one = flagship_train_model(True, dropout, start, model_over={"dropout": 0.0})
+        state = TrainState(cfg1, one, steps_per_epoch=100)
+        torch.manual_seed(TP_SEED)
+        step = make_train_step(one, cfg1, torch.bfloat16)
+        want = {k: v.item() for k, v in step(state, batch, 0).items()}
+        tp_m = got["metrics"][tag]
+        params = got[f"params_{tag}"]
+        grads = {n: p.grad for n, p in one.named_parameters() if p.grad is not None}
+        if set(grads) != set(got[f"grads_{tag}"]):
+            raise AssertionError(f"tp step {tag}: gradients of other parameters than the "
+                                 f"one-process step's")
+        # |g_tp - g_one|^2 and |g_one|^2 of each parameter's gradient (L2)
+        sq = {n: (float((got[f"grads_{tag}"][n].cuda() - g).float().norm()) ** 2,
+                  float(g.float().norm()) ** 2, g.numel()) for n, g in grads.items()}
+        total_d, total_w = sum(v[0] for v in sq.values()), sum(v[1] for v in sq.values())
+        total_n = sum(v[2] for v in sq.values())
+        # each leaf against its limit (TP_LEAF_GRAD_RTOL), the key biases left to the sum
+        leaf = sorted(((d ** 0.5 / (TP_LEAF_GRAD_RTOL * w ** 0.5 + KNOB_GNORM_RTOL * (
+            total_w * k / total_n) ** 0.5), n, (d / w) ** 0.5 if w else None)
+            for n, (d, w, k) in sq.items() if not n.endswith("attention.self.key.bias")),
+            key=lambda r: -r[0])
+        agree = {
+            "loss_rel_diff": abs(tp_m["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_norm_rel_diff": abs(tp_m["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+            "grad_rel_l2_diff": (total_d / total_w) ** 0.5,
+            "grad_leaf_share_of_limit_max": leaf[0][0],
+            "grad_leaf_worst": [{"name": n, "share_of_limit": r, "rel_l2_diff": rel}
+                                for r, n, rel in leaf[:4]],
+            "key_bias_rel_l2_diff_max": max(((d / w) ** 0.5 for n, (d, w, _) in sq.items()
+                                             if n.endswith("attention.self.key.bias") and w),
+                                            default=None),
+            "param_max_abs_diff": max(float((params[k].cuda() - v).abs().max())
+                                      for k, v in one.state_dict().items()),
+            # one Adam step from one state moves a parameter by at most lr
+            # either way; the f32 parameter rounds after it (2^-23 of |p|)
+            "param_bound": 2 * lr * 1.001 + 2.0 ** -21 * max(
+                float(v.abs().max()) for v in start.values()),
+            "tp": tp_m, "one_process": want}
+        if set(params) != set(one.state_dict()) or any(
+                tuple(params[k].shape) != tuple(v.shape) for k, v in one.state_dict().items()):
+            raise AssertionError("the gathered state dict differs from a one-process model's "
+                                 "keys or shapes")
+        if not (agree["loss_rel_diff"] <= KNOB_LOSS_RTOL
+                and agree["grad_norm_rel_diff"] <= KNOB_GNORM_RTOL
+                and agree["grad_rel_l2_diff"] <= KNOB_GNORM_RTOL
+                and agree["grad_leaf_share_of_limit_max"] <= 1.0
+                and agree["param_max_abs_diff"] <= agree["param_bound"]):
+            raise AssertionError(f"tp step {tag} against the one-process step: {agree}")
+        out["comparisons"][tag] = agree
+        if tag == "dropout0":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(state, batch, 0)
+            torch.cuda.synchronize()
+            out["one_process_host_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / 3
+            out["one_process_card_ms_per_step"] = device_profile(
+                lambda: step(state, batch, 0), 2, top=0)["device_ms"]
+        del one, state, step, grads
+    out["tp_host_ms_per_step"] = got["host_ms_per_step"]
+    out["tp_card_clock_ms_per_step_rank0"] = got["card_clock_ms_per_step"]
+    out["row_partial_product"] = row_partial_product_check()
+
+    # the tp run's gathered weights in a tp = 1 model: the same f32 forward
+    _, one = flagship_train_model(True, 0.0, {k: v.cuda() for k, v in
+                                              got["params_for_forward"].items()})
+    one.eval()
+    with torch.no_grad():
+        rows = Batch(**{f: getattr(batch, f)[:32] for f in Batch.__dataclass_fields__})
+        fwd = one(rows)
+    err = max(float((getattr(fwd, k).cpu() - v).abs().max())
+              for k, v in got["eval_forward"].items())
+    out["tp1_forward_max_abs_diff"] = err
+    if not err <= TP_FORWARD_ATOL:
+        raise AssertionError(f"the tp run's weights in a tp = 1 model: forward differs by {err}")
+    del one
+    emit({"phase": "tensor_parallel", **out})
+    return {"launches": got["launches"]["dropout0"], "k2": k2}
+
+
 # PyTorch's embedding backward on the card takes a direct, deterministic
 # path up to this many indices and past it sums rows with atomics. The
 # token-type rows (every caption token is type 0, every image-pass text token
@@ -1938,10 +2479,9 @@ def train_graph_at(b: int, check_dropout: bool) -> dict:
     moments and metrics bit for bit. Past 3072 token ids (B x 50), where
     PyTorch's embedding backward would sum the token-type rows with atomics,
     the bitwise check also runs with the token-type table frozen, after two
-    eager runs show the step then repeats itself bit for bit; two eager runs
-    of the full step must repeat themselves bit for bit as well, and the
-    full step's graphed metrics are held to GRAPH_NONDET_RTOL of the eager
-    ones besides bit for bit. Then, on the
+    eager runs show the step then repeats itself bit for bit, and the full
+    step's graphed metrics are held to GRAPH_NONDET_RTOL of the eager ones
+    besides bit for bit. Then, on the
     full step, host-clock ms a step over 4 windows each, the profiler's card
     ms, busy share and kernels a step by name, peak memory; with
     ``check_dropout``, at dropout 0.1 the seeds of two replays and the
@@ -2017,8 +2557,6 @@ def train_graph_at(b: int, check_dropout: bool) -> dict:
     if atomic and not bitwise(want, eager_run(start, True)[3]):
         raise AssertionError(f"B {b}: with the token-type table frozen the eager step still "
                              f"does not repeat itself bit for bit")
-    if atomic and not bitwise(eager_run(start)[3], eager_run(start)[3]):
-        raise AssertionError(f"B {b}: the full eager step does not repeat itself bit for bit")
     got = graph_run(start, atomic)[3]
     if not bitwise(want, got):
         diff = [n for n in want[0] if not torch.equal(want[0][n], got[0][n])]
@@ -2028,10 +2566,9 @@ def train_graph_at(b: int, check_dropout: bool) -> dict:
     out["graph_equals_eager_bitwise"] = {
         "metrics": len(want[0]), "tensors": len(want[1]),
         "token_type_table": "frozen (past 3072 ids)" if atomic else "trained"}
-    if atomic:
-        out["full_eager_step_repeats_bitwise"] = True
     del want, got
     fresh()
+
 
     # 2. the full step: eager timing, then the graph's
     model, eager, step, want = eager_run(start)
@@ -2238,7 +2775,8 @@ def phase_train_cli() -> dict:
 # same math with the GEMMs at another M (other cuBLAS tiles, other bf16
 # sums), which moves a loss of O(10) by far less than 1e-3 of itself
 MICROBATCH_LOSS_RTOL = 1e-3
-LEVER_MB = 128  # encoder-microbatch of the B 512 and B 1024 runs
+LEVER_MB = 128  # encoder-microbatch of the B 512 runs
+LEVER_CHUNK = 8  # alignment-chunk of the bs 32 run: four blocks of captions
 
 
 def step_counters():
@@ -2304,15 +2842,14 @@ def lever_step(start, b: int, dropout: float, remat: bool, mb: int = 0, chunk: i
 def phase_train_levers() -> dict:
     """The memory levers at VinVL-base width with K2 and K3a: (a) remat
     equals no remat bit for bit at bs 32, dropout 0.1, and doubles the
-    forward launches; (b) B 512 at dropout 0 with no lever, remat,
+    forward launches; the alignment head in chunks of LEVER_CHUNK captions
+    (``alignment-chunk``) gives the unchunked loss within
+    MICROBATCH_LOSS_RTOL and the same launches; (b) B 512 at dropout 0 with no lever, remat,
     encoder-microbatch 128 and both: peak memory, host and card ms a step,
     launches, the first step's loss against the no-lever one (remat bit for
     bit, micro-batches within MICROBATCH_LOSS_RTOL), remat's peak below the
-    no-lever peak; (c) B 1024 at dropout 0.1 with remat, encoder-microbatch
-    128 and alignment-chunk 64: two steps with finite losses, peak memory
-    (no no-lever B 1024 step is run); (d) a CUDA graph of 8 remat steps
-    (and of remat with micro-batches of 16) against 8 eager steps at bs 32,
-    bit for bit."""
+    no-lever peak; (c) a CUDA graph of 8 remat steps (and of remat with
+    micro-batches of 16) against 8 eager steps at bs 32, bit for bit."""
     import torch
 
     from aladin_torch.train.step import make_multi_train_step
@@ -2323,17 +2860,19 @@ def phase_train_levers() -> dict:
     del model
     out = {"card": nvidia_smi_line()}
 
-    # (a) bs 32, dropout 0.1: remat against no remat, one eager step
+    # (a) bs 32, dropout 0.1: remat, and the alignment head in chunks of
+    # LEVER_CHUNK captions, against neither, one eager step each
     batch = synth_train_batch(32)
     runs = {}
-    for remat in (False, True):
+    for name, remat, chunk in (("none", False, 0), ("remat", True, 0),
+                               ("chunk", False, LEVER_CHUNK)):
         fresh_memory()
-        model, state, step = lever_step(start, 32, 0.1, remat)
+        model, state, step = lever_step(start, 32, 0.1, remat, chunk=chunk)
         torch.cuda.manual_seed(7)
         metrics, launches = counted(lambda: step(state, batch, 0))
-        runs[remat] = (metrics, [p.detach().clone() for p in state.trainable], launches)
+        runs[name] = (metrics, [p.detach().clone() for p in state.trainable], launches)
         del model, state, step
-    (m0, p0, n0), (m1, p1, n1) = runs[False], runs[True]
+    (m0, p0, n0), (m1, p1, n1), (mc, _, nc) = runs["none"], runs["remat"], runs["chunk"]
     diff = [k for k in m0 if not torch.equal(m0[k], m1[k])]
     if diff or not all(torch.equal(a, c) for a, c in zip(p0, p1)):
         raise AssertionError(f"bs 32, dropout 0.1: remat differs from no remat in metrics "
@@ -2341,8 +2880,16 @@ def phase_train_levers() -> dict:
     if n0 != step_launches(layers, False) or n1 != step_launches(layers, True):
         raise AssertionError(f"launches a step without / with remat {n0} / {n1}, expected "
                              f"{step_launches(layers, False)} / {step_launches(layers, True)}")
+    # the chunked head scores the same pairs block by block (other GEMM shapes)
+    chunk_rel = abs(mc["loss"].item() - m0["loss"].item()) / abs(m0["loss"].item())
+    if not chunk_rel <= MICROBATCH_LOSS_RTOL or nc != n0:
+        raise AssertionError(f"bs 32, dropout 0.1, alignment-chunk {LEVER_CHUNK}: loss "
+                             f"{mc['loss'].item()} against {m0['loss'].item()} (rel {chunk_rel}, "
+                             f"limit {MICROBATCH_LOSS_RTOL}), launches {nc} against {n0}")
     out["bs32_dropout0.1"] = {"remat_equals_no_remat_bitwise": True, "loss": m0["loss"].item(),
-                              "launches_no_remat": n0, "launches_remat": n1}
+                              "launches_no_remat": n0, "launches_remat": n1,
+                              "alignment_chunk": LEVER_CHUNK,
+                              "chunk_loss_rel_diff_vs_none": chunk_rel}
     del runs, p0, p1
 
     # (b) B 512, dropout 0: the four settings from one state and batch
@@ -2386,24 +2933,7 @@ def phase_train_levers() -> dict:
     out["b512_dropout0"] = b512
     del batch
 
-    # (c) B 1024, dropout 0.1, every lever: two steps
-    fresh_memory()
-    batch = synth_train_batch(1024)
-    model, state, step = lever_step(start, 1024, 0.1, True, LEVER_MB, chunk=64)
-    t0 = time.perf_counter()
-    rows = [step(state, batch, 0) for _ in range(2)]
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / 2
-    b1024 = [{k: v.item() for k, v in m.items()} for m in rows]
-    if not all(math.isfinite(v) for m in b1024 for v in m.values()):
-        raise AssertionError(f"B 1024: non-finite metrics {b1024}")
-    out["b1024_dropout0.1"] = {"levers": {"remat": True, "encoder-microbatch": LEVER_MB,
-                                          "alignment-chunk": 64},
-                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-                               "host_ms_per_step_incl_first": host_ms, "metrics": b1024}
-    del model, state, step, batch, rows
-
-    # (d) the levers inside a CUDA graph of 8 steps, bs 32, dropout 0
+    # (c) the levers inside a CUDA graph of 8 steps, bs 32, dropout 0
     batches = [synth_train_batch(32, seed=10 + i) for i in range(GRAPH_K)]
     windows = {}
     for name, mb in (("remat", 0), ("remat_microbatch16", 16)):
@@ -3109,13 +3639,14 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     k1 = phase_k1()
-    with tempfile.TemporaryDirectory() as tmp:
-        oscar, data, setup_s = serving_corpus(tmp)
-        launches = phase_main(tmp, oscar, data, setup_s)
-        q8ln = phase_encode_q8ln(oscar, data)
-        phase_search(tmp, oscar, data)
-        streamed = phase_streaming()
-        parallel = phase_parallel(tmp)
+    corpus_dir = tempfile.TemporaryDirectory()  # the serving corpus, kept for parity at the end
+    tmp = corpus_dir.name
+    oscar, data, setup_s = serving_corpus(tmp)
+    launches, main_bf16 = phase_main(tmp, oscar, data, setup_s)
+    q8ln = phase_encode_q8ln(oscar, data)
+    phase_search(tmp, oscar, data)
+    streamed = phase_streaming()
+    parallel = phase_parallel(tmp)
     k2 = phase_k2()
     k3 = phase_k3()
     k4 = phase_k4()
@@ -3132,9 +3663,17 @@ def main() -> int:
         phase_classify(tmp, vocab_dir)
         caption = phase_caption(tmp, vocab_dir)
         pair = phase_retrieval_oscar(tmp, vocab_dir)["launches"]
-    # K1 runs on three paths: cli/test's scoring, streaming alignment recall,
-    # and the sharded scorer and mesh sweep of the parallel phase
-    k1_launches = {"bf16": launches["bf16"]["k1"] + streamed["k1_launches"]
+    # the PR 14 phases run last, so that the earlier phases keep their order
+    parity_k1 = phase_parity(corpus_dir.name, oscar, data, main_bf16)["k1_launches"]
+    del main_bf16
+    phase_data_smoke(oscar, data)
+    corpus_dir.cleanup()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = phase_tensor_parallel(tmp)
+    # K1 runs on four paths: cli/test's scoring, cli/parity's, streaming
+    # alignment recall, and the sharded scorer and mesh sweep of the
+    # parallel phase
+    k1_launches = {"bf16": launches["bf16"]["k1"] + parity_k1 + streamed["k1_launches"]
                    + parallel["k1_launches"]["bf16"],
                    "int8": launches["int8"]["k1"] + parallel["k1_launches"]["int8"]}
     k1_err = {"bf16": max(k1["max_err"]["bf16"], streamed["k1_max_err"],
@@ -3165,6 +3704,18 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16",
             "caption_shape": {"shape": CAPTION_K2_SHAPE, **k2["caption"][key]}})
+    # K2 on one tensor-parallel rank's heads (H 6 of 12, head_offset 6):
+    # launches a rank in one tp step
+    for name, key, line in (("fused_attention forward, tp rank heads", "fwd", 79),
+                            ("fused_attention backward, tp rank heads", "bwd", 88)):
+        t = tp["k2"]["timings"]["B128 S84 H6 of 12 d64 bf16"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "aladin_torch/csrc/attention_kernel.cu",
+            "replaces": f"aladin_tpu/ops/pallas/attention_kernel.py:{line}",
+            "launches": tp["launches"][f"k2_{key}"], "max_abs_err": tp["k2"]["max_err"][key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": "B128 S84 H6 of 12 (head_offset 6) d64 bf16"})
     t = k3["timings"][84]
     kernels.append({
         "name": "residual_layernorm forward", "route": "triton",
@@ -3216,4 +3767,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp-rank":
+        sys.exit(tp_rank_main(int(sys.argv[2]), int(sys.argv[4]), sys.argv[6]))
     sys.exit(main())

@@ -156,9 +156,10 @@ def test_cli_needs_cuda_unless_cpu_asked(checkpoint):
 @pytest.mark.parametrize("flags", [["--mesh_shape", "dp=1,tp=2"],
                                    ["query", "--mesh_shape", "dp=1,tp=2"]])
 def test_cli_unported_flags_raise(flags):
-    """cli/test and cli/search query on a mesh with a tp axis: tensor
-    parallelism is not ported (ROADMAP.md item 7b)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """cli/test and cli/search query on a dp=1,tp=2 mesh in a process without
+    a process group: the mesh spans 2 ranks and the group has 1, so it
+    raises and names the launch that gives it its ranks."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         if flags[0] == "query":
             torch_search.main([*flags, "--index_dir", "unused", "--query_index", "0",
                                "--device", "cpu"])
@@ -209,4 +210,6 @@ def test_port_imports_no_jax():
             "aladin_torch.utils.metric_logger", "aladin_torch.tasks.decode_cache",
             "aladin_torch.tasks.cbs", "aladin_torch.tasks.scst",
             "aladin_torch.tasks.oscar_teacher", "aladin_torch.tasks.retrieval_oscar",
-            "aladin_torch.cli.captioning", "aladin_torch.cli.retrieval_oscar"} <= names
+            "aladin_torch.cli.captioning", "aladin_torch.cli.retrieval_oscar",
+            "aladin_torch.parallel.sharding", "aladin_torch.cli.parity",
+            "aladin_torch.cli.data_smoke", "aladin_torch.ops.activations"} <= names

@@ -41,6 +41,7 @@ from aladin_torch.train.step import (encode_microbatched, make_loss_fn, make_mul
                                      make_train_step)
 from tests.test_models import SMALL, make_batch, small_cfg
 from tests.test_torch_models import _np_tree, _torch_batch
+from tests.test_torch_threads import _two_threads  # noqa: F401 (autouse)
 
 LR = 1e-3
 KNOBS = {"off": {}, "on": {"fused_attention": True, "fused_layernorm": True}}

@@ -24,6 +24,7 @@ from aladin_torch.cli import train as torch_train_cli
 from aladin_torch.eval import dcg, relevance, retrieval
 from tests.test_torch_cli import _both_clis, checkpoint  # noqa: F401 (a fixture)
 from tests.test_torch_train import CLI as TRAIN_CLI
+from tests.test_torch_threads import _two_threads  # noqa: F401 (autouse)
 
 METHODS = ("rougeL", "spice")
 
@@ -40,6 +41,15 @@ def _scorers(rel_dir, n_queries, split="test"):
     cfg = {"dataset": {"name": "coco", "data": "unused"}}
     return (dcg.DCG(cfg, n_queries, split, relevance_methods=METHODS, rel_dir=rel_dir),
             jax_dcg.DCG(cfg, n_queries, split, relevance_methods=METHODS, rel_dir=rel_dir))
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """cli/train's Trainer writes TensorBoard scalars on rank 0; with the
+    writer unimportable it takes the no-op writer, and this test process
+    imports no TensorFlow (tests/test_torch_host_tools.py reads the tags)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
 
 
 def test_dcg_math_matches(rng):

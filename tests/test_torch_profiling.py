@@ -5,19 +5,31 @@ step's FLOPs accounting (the same pure functions, equal values), and
 
 import json
 import os
+import sys
 
 import pytest
+import torch
 
 from aladin_tpu.utils.profiling import train_step_model_flops as jax_step_flops
 from aladin_tpu.utils.profiling import transformer_layer_flops as jax_layer_flops
 from aladin_torch.cli import train as torch_train_cli
 from aladin_torch.utils import profiling
 from aladin_torch.utils.profiling import train_step_model_flops, transformer_layer_flops
+from tests.test_torch_threads import _two_threads  # noqa: F401 (autouse)
 
 CLI = ["--config", os.path.join(os.path.dirname(os.path.dirname(__file__)), "aladin_torch",
                                 "configs", "alad-alignment-and-matching-distill.json"),
        "--synthetic", "--device", "cpu", "--max_seq_length", "20", "--max_img_seq_length", "12",
        "--img_feature_dim", "32", "--num_workers", "1", "--log_step", "1", "--val_step", "0"]
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """cli/train's Trainer writes TensorBoard scalars on rank 0; with the
+    writer unimportable it takes the no-op writer, and this test process
+    imports no TensorFlow (tests/test_torch_host_tools.py reads the tags)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
 
 
 def test_layer_flops_formula():

@@ -199,9 +199,10 @@ def test_compute_recall_auto_engages_streaming(globs, monkeypatch):
 
 @pytest.mark.parametrize("fn", ["matching", "alignment"])
 def test_mesh_raises(globs, sets, fn):
-    """A mesh with a tp axis raises: tensor parallelism is not ported
-    (ROADMAP.md item 7b); the mesh sweeps are tests/test_torch_parallel.py's."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 7b"):
+    """A dp=1,tp=2 mesh for a streaming sweep in a process without a
+    process group raises, naming the launch that gives it its 2 ranks; the
+    mesh sweeps themselves are tests/test_torch_parallel.py's."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         if fn == "matching":
             tst.streaming_matching_ranks(*globs, CPI, mesh=create_mesh("dp=1,tp=2"),
                                          device="cpu")

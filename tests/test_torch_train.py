@@ -20,6 +20,7 @@ Tolerances:
 import copy
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import optax
@@ -56,6 +57,7 @@ from aladin_torch.train.loop import crossed
 from aladin_torch.train.state import TrainState
 from aladin_torch.train.step import make_loss_fn, make_multi_train_step, make_train_step
 from tests.test_models import SMALL, make_batch, small_cfg
+from tests.test_torch_threads import _two_threads  # noqa: F401 (autouse)
 
 LR = 1e-3
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -100,6 +102,14 @@ def _both(case, rng, training_over=None):
         for k, v in aux_from_flax(jax.tree.map(np.asarray, jstate.params["aux"])).items():
             state.aux[k].copy_(v)
     return jmodel, jstate, model, state, jbatch, _torch_batch(jbatch)
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """cli/train's Trainer writes TensorBoard scalars on rank 0; with the
+    writer unimportable it takes the no-op writer, and this test process
+    imports no TensorFlow (tests/test_torch_host_tools.py reads the tags)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -221,10 +231,13 @@ def test_train_cli_runs_saves_and_resumes(tmp_path):
     assert load_checkpoint(again["checkpoint"])[0]["epoch"] == 2
 
 
-@pytest.mark.parametrize("flags", [["--mesh_shape", "dp=1,tp=2"]])
+@pytest.mark.parametrize("flags", [["--mesh_shape", "dp=1,tp=3"]])
 def test_train_cli_unported_flags_raise(flags, tmp_path):
-    """A tp axis: tensor parallelism is not ported (ROADMAP.md item 7b)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A tp that does not divide the synthetic backbone's 4 heads raises
+    before any process group is asked for, naming the layer and its head
+    count."""
+    with pytest.raises(ValueError, match=r"tp=3 does not divide the 4 heads of "
+                                         r"oscar_model\.bert\.encoder\.layer\.0\.attention\.self"):
         torch_train_cli.main(CLI + ["--output_dir", str(tmp_path), *flags])
 
 

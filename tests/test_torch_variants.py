@@ -38,6 +38,7 @@ from aladin_torch.train.state import TrainState
 from aladin_torch.train.step import make_loss_fn, make_train_step
 from tests.test_models import SMALL, make_batch, small_cfg
 from tests.test_torch_models import _compare_outputs, _np_tree, _torch_batch
+from tests.test_torch_threads import _two_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 LR = 1e-3

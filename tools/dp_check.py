@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Data parallelism across the ranks of a torchrun launch: checks and step
-times of aladin_torch's data-parallel training and sharded scoring.
+"""Data and tensor parallelism across the ranks of a torchrun launch: checks
+and step times of aladin_torch's sharded training and sharded scoring.
 
-    torchrun --nproc_per_node N tools/dp_check.py [--device cpu --small]
+    torchrun --nproc_per_node N tools/dp_check.py [--mesh_shape dp=2,tp=2]
+        [--device cpu --small]
 
-Every rank builds the same weights and global batches from a seed; rank r
-trains on rows [r B / N, (r + 1) B / N) of each. On every rank:
+Every rank builds the same weights and global batches from a seed; on a
+(dp, tp) mesh (default: dp over every rank) the ranks of dp group d train
+on rows [d B / dp, (d + 1) B / dp) of each, and with tp > 1 each holds its
+tp slice of the model (parallel/sharding.py). On every rank:
 
   1. ``sharded_mrsw_scores`` without the small-corpus fallback against the
      unsharded ``mrsw_scores`` on the same inputs (on the card K1 in bf16,
      whose scores do not depend on the shape: bit for bit);
-  2. one data-parallel step against the one-process step on the whole
+  2. one step on the mesh against the one-process step on the whole
      global batch, which every rank also runs: loss, grad_norm and the
-     parameters after the step (bf16 on the card: the GEMMs of B / N rows
-     round differently from those of B, so they agree to within rounding);
-  3. a CUDA graph of K data-parallel steps, the NCCL collectives captured,
-     against K eager ones from the same state, bit for bit (on the CPU the
-     window runs eager steps);
-  4. host-clock ms a step, each step closed by a synchronize: the
-     data-parallel step at the global batch B eager and graphed, and the
-     one-process step at B; and the ms of the gradient all-reduce alone
-     (``train/step.py::average_gradients`` over the step's gradients).
+     parameters after the step, gathered to full shapes (bf16 on the card:
+     the GEMMs of B / dp rows, and the tp ranks' partial products, round
+     differently from those of B, so they agree to within rounding);
+  3. a CUDA graph of K steps on the mesh, the NCCL collectives (dp and tp)
+     captured, against K eager ones from the same state, bit for bit (on
+     the CPU the window runs eager steps);
+  4. host-clock ms a step, each step closed by a synchronize: the step on
+     the mesh at the global batch B eager and graphed, and the one-process
+     step at B; the ms of the dp gradient all-reduce alone
+     (``train/step.py::average_gradients`` over the step's gradients); with
+     tp > 1, the tp all-reduces one step issues (counted in an eager step,
+     then replayed alone: their number, MB and ms).
 
 The card's configuration is the flagship recipe at VinVL-base width (12
 layers, hidden 768, 2054-d regions, text 50, regions 34) with the
@@ -102,6 +108,8 @@ def rows(b, lo: int, hi: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mesh_shape", default="dp=-1",
+                    help="dp=N,tp=M over the launch's N x M ranks")
     ap.add_argument("--small", action="store_true",
                     help="a tiny f32 model at B 8, without the kernel knobs (a rehearsal)")
     ap.add_argument("--k", type=int, default=4, help="steps in the CUDA graph's window")
@@ -117,7 +125,7 @@ def main() -> int:
         return 2
     initialize(device=args.device)
     try:
-        ok = checks(args, create_mesh("dp=-1"))
+        ok = checks(args, create_mesh(args.mesh_shape))
     finally:
         gc.collect()  # the checks' CUDA graphs go before the NCCL communicator
         shutdown()
@@ -127,8 +135,10 @@ def main() -> int:
 def checks(args, mesh) -> bool:
     """Run the checks on this rank; rank 0 prints. True when they pass."""
     import torch
+    import torch.distributed as dist
 
     from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
+    from aladin_torch.parallel import sharding
     from aladin_torch.parallel.distributed import all_reduce_metrics
     from aladin_torch.parallel.mesh import sharded_mrsw_scores
     from aladin_torch.train.state import TrainState
@@ -152,7 +162,8 @@ def checks(args, mesh) -> bool:
         sync()
         return 1e3 * (time.perf_counter() - t0) / reps
 
-    out = {"ranks": n, "device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
+    out = {"ranks": n, "mesh": mesh.axes,
+           "device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
     diffs = {}
 
     # 1. the sharded scorer against the unsharded one
@@ -171,32 +182,38 @@ def checks(args, mesh) -> bool:
     cfg, model = build(torch, args.small, device)
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     b = cfg.training.bs
-    per = b // n
+    per = b // mesh.dp
     batches = [batch(torch, b, args.small, device, 10 + i) for i in range(args.k)]
-    mine = [rows(x, rank * per, (rank + 1) * per) for x in batches]
+    lo = mesh.dp_index * per
+    mine = [rows(x, lo, lo + per) for x in batches]
+
+    def on_mesh():
+        """A copy of the start weights in a TrainState, sharded over tp."""
+        _, m = build(torch, args.small, device)
+        m.load_state_dict(start)
+        state = TrainState(cfg, m, steps_per_epoch=100)
+        sharding.shard_module_(m, mesh, state.optimizer)
+        state.mesh = mesh
+        return m, state
+
     one = TrainState(cfg, model, steps_per_epoch=100)
     one_step = make_train_step(model, cfg, dtype)
     want = {k: v.item() for k, v in one_step(one, batches[0], 0).items()}
-    _, dp_model = build(torch, args.small, device)
-    dp_model.load_state_dict(start)
-    dp = TrainState(cfg, dp_model, steps_per_epoch=100)
+    dp_model, dp = on_mesh()
     dp_step = make_train_step(dp_model, cfg, dtype, mesh)
     got = {k: v.item() for k, v in dp_step(dp, mine[0], 0).items()}
     diffs["loss_rel_diff"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
     diffs["grad_norm_rel_diff"] = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
-    diffs["param_max_abs_diff"] = max((p - q).abs().max().item()
-                                      for p, q in zip(dp.trainable, one.trainable))
+    full = sharding.full_state_dict(dp_model, mesh)
+    diffs["param_max_abs_diff"] = max((full[k] - p).abs().max().item()
+                                      for k, p in model.named_parameters())
     out["one_process_loss"], out["dp_loss"] = want["loss"], got["loss"]
 
     # 3. a graphed window of K dp steps against K eager dp steps
-    _, eager_model = build(torch, args.small, device)
-    eager_model.load_state_dict(start)
-    eager = TrainState(cfg, eager_model, steps_per_epoch=100)
+    eager_model, eager = on_mesh()
     eager_step = make_train_step(eager_model, cfg, dtype, mesh)
     singles = [eager_step(eager, x, 0) for x in mine]
-    _, graph_model = build(torch, args.small, device)
-    graph_model.load_state_dict(start)
-    graphed = TrainState(cfg, graph_model, steps_per_epoch=100)
+    graph_model, graphed = on_mesh()
     multi = make_multi_train_step(graph_model, cfg, dtype, k=args.k, mesh=mesh)
     window = multi(graphed, mine, 0)
     same = all(torch.equal(window[k], torch.stack([s[k] for s in singles])) for k in window)
@@ -212,6 +229,22 @@ def checks(args, mesh) -> bool:
     out["gradient_allreduce"] = {
         "ms": host_ms(lambda: average_gradients(mesh, grads), 5),
         "mbytes": 4e-6 * sum(g.numel() for g in grads)}
+    if mesh.tp > 1:  # the tp all-reduces of one eager step, then alone
+        shapes, real = [], sharding._all_reduce_f32
+        sharding._all_reduce_f32 = lambda x, tp: shapes.append(tuple(x.shape)) or real(x, tp)
+        try:
+            eager_step(eager, mine[0], 0)
+        finally:
+            sharding._all_reduce_f32 = real
+        bufs = [torch.zeros(sh, device=device) for sh in shapes]
+
+        def tp_reduces():
+            for x in bufs:
+                dist.all_reduce(x, group=mesh.tp_group)
+
+        out["tp_allreduces_per_step"] = {
+            "count": len(shapes), "mbytes": 4e-6 * sum(x.numel() for x in bufs),
+            "ms": host_ms(tp_reduces, 3)}
     worst = all_reduce_metrics(diffs, op="sum")
     flags = all_reduce_metrics({"bitwise": float(out["graph_equals_eager_bitwise"]),
                                 "sharded": float(out["sharded_mrsw_bf16_bitwise"])}, op="sum")
