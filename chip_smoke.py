@@ -86,10 +86,13 @@ Phases, each printing one JSON line:
               shapes, dropout 0 and 0.1, a fully padded row; then kernel,
               plain and scaled_dot_product_attention times at S 50 and 84,
               each kernel time with its share of the bound; then the
-              captioning shape, B 32 S 120 under per-row 2-D block masks
-              (bias_q == S): forward and backward against the plain
-              versions, and kernel (also at dropout 0), plain and SDPA (the
-              same float mask) times beside the bound.
+              2-D path (bias_q == S) against the plain versions at B 32 and
+              the odd S 17 and 121 under random 2-D masks, dropout 0 and
+              0.1; then the captioning step's shape, B 32 S 120, and the
+              decoder's, B 16 S 120, under per-row 2-D block masks: forward
+              and backward against the plain versions, and kernel (also at
+              dropout 0), plain and SDPA (the same float mask) times beside
+              the bound.
   10. k3     - K3a: the fused residual+LayerNorm Triton forward and its
               backward kernel (csrc/layernorm_kernel.cu) against the plain
               versions at M = 128 x 84 and 128 x 50 rows of 768, the
@@ -242,7 +245,8 @@ corpus is kept for them):
 Then the total seconds, the kernels line ({"kernels": [...]}; K2 and K3a
 also with their launches in one remat step, one pretraining step, one
 caption step and one pair step, K2's forward in one caption decode batch,
-K2's times at the captioning shape, and K2 on one tp rank's heads),
+K2's times at the captioning step's and the decoder's shapes, and K2 on
+one tp rank's heads),
 the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
 phase raises, so the script exits nonzero without that last line. It also
@@ -1444,7 +1448,7 @@ def check_close(checks, what, tag, got, want, tol):
 def phase_k2() -> dict:
     """K2 forward and backward against the plain versions at B 128, S 50,
     84, 134 and 160, H 12, d 64, bf16; then their times at the path's
-    shapes (S 50 and 84)."""
+    shapes (S 50 and 84); then the 2-D path (``k2_block_masks``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1525,30 +1529,34 @@ def phase_k2() -> dict:
         for t in timings[s].values():
             t["bound_share"] = t["bound_ms"] / t["ms"]
         del out
-    caption = k2_caption_shape(gen, checks, max_err)
+    block_masks = k2_block_masks(gen, checks, max_err)
     emit({"phase": "k2", "checks": checks, "tolerance": "max|want| * 2^-7 (one bf16 ulp)",
           "timings": {f"B{b} S{s} H{h} d{d} bf16": t for s, t in timings.items()},
-          "caption_timings": {CAPTION_K2_SHAPE: caption},
+          "block_mask_timings": block_masks,
           "timing": "ms, plain_ms, library_ms: card time (device_ms); ms_rate0: the kernel's "
                     "card time at dropout 0, as the library call runs; event_ms: CUDA events "
                     "around back-to-back wrapper calls (host launch cost included); "
                     "bound_share: bound_ms / ms",
           "library": "F.scaled_dot_product_attention with the bias as a bf16 mask, rate 0; "
                      "backward: torch.autograd.grad through it"})
-    return {"max_err": max_err, "timings": timings, "caption": caption}
+    return {"max_err": max_err, "timings": timings, "block_masks": block_masks}
 
 
 CAPTION_K2_SHAPE = "B32 S120 Q120 H12 d64 bf16"
+DECODE_K2_SHAPE = "B16 S120 Q120 H12 d64 bf16"
 
 
-def k2_caption_shape(gen, checks, max_err) -> dict:
-    """K2 at the captioning step's shape, the mode bias_q == S: B 32 rows of
-    40 caption slots + 30 OD labels + 50 regions under per-row 2-D block
-    masks (tasks/captioning.py::_decode_attention_mask, OD and region
-    lengths drawn per row, their padded rows fully masked): forward and
-    backward against the plain versions at dropout 0.1, then kernel, plain
-    and scaled_dot_product_attention times (the same float mask, rate 0)
-    beside the bound."""
+def k2_block_masks(gen, checks, max_err) -> dict:
+    """K2's 2-D path (bias_q == S): against the plain versions at B 32 and
+    the odd S 17 and 121 under random 2-D masks (a bias row 16-byte aligned
+    only where S % 4 == 0), dropout 0 and 0.1; then at the captioning
+    step's shape, B 32 rows, and the decoder's, B 16, of 40 caption slots +
+    30 OD labels + 50 regions under per-row block masks
+    (tasks/captioning.py::_decode_attention_mask, OD and region lengths
+    drawn per row, their padded rows fully masked): forward and backward
+    against the plain versions at dropout 0.1, then kernel (also at
+    dropout 0), plain and scaled_dot_product_attention times (the same
+    float mask, rate 0) beside the bound. Returns {shape: timings}."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1556,50 +1564,70 @@ def k2_caption_shape(gen, checks, max_err) -> dict:
     from aladin_torch.ops.kernels import attention_kernel as ak
     from aladin_torch.tasks.captioning import _decode_attention_mask
 
-    b, s, h, d = 32, 120, 12, 64
-    rng = np.random.RandomState(3)
-    masks = np.stack([_decode_attention_mask(40, 70, 50, int(o), int(r)) for o, r in
-                      zip(rng.randint(1, 31, b), rng.randint(10, 51, b))])
-    bias = (1.0 - torch.from_numpy(masks).float().cuda()) * -10000.0  # (B, S, S)
-    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-                  for _ in range(4))
-    extra = (torch.full((), 11, dtype=torch.int64, device="cuda"), 0.1, True)
-    want = ak.attention_forward_plain(q, k, v, bias, *extra)
-    max_err["fwd"] = max(max_err["fwd"], check_close(
-        checks, "K2 forward", "caption S120 Q120 ctx", ak.attention_forward(q, k, v, bias, *extra),
-        want, BF16_ULP * want.float().abs().max().item()))
-    for name, gt, wt in zip(("dq", "dk", "dv"), ak.attention_backward(q, k, v, bias, g, *extra),
-                            ak.attention_backward_plain(q, k, v, bias, g, *extra)):
-        max_err["bwd"] = max(max_err["bwd"], check_close(
-            checks, "K2 backward", f"caption S120 Q120 {name}", gt, wt,
-            BF16_ULP * wt.float().abs().max().item()))
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    mask = bias[:, None].to(torch.bfloat16)  # (B, 1, S, S)
-    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    gt = g.transpose(1, 2)
+    h, d = 12, 64
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    def qkvg(b, s):
+        return (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(4))
 
-    res = {}
-    for key, fn, plain, lib in (
-            ("fwd", lambda: ak.attention_forward(q, k, v, bias, *extra),
-             lambda: ak.attention_forward_plain(q, k, v, bias, *extra), sdpa_fwd),
-            ("bwd", lambda: ak.attention_backward(q, k, v, bias, g, *extra),
-             lambda: ak.attention_backward_plain(q, k, v, bias, g, *extra),
-             lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))):
-        bnd, by = attention_bound(b, s, h, d, s, key == "bwd")
-        res[key] = {"ms": device_ms(fn, 20), "plain_ms": device_ms(plain, 5),
-                    "library_ms": device_ms(lib, 20), "bound_ms": bnd, "bound_by": by}
-        res[key]["bound_share"] = bnd / res[key]["ms"]
-    # the kernel at dropout 0, as the library call runs
-    res["fwd"]["ms_rate0"] = device_ms(lambda: ak.attention_forward(q, k, v, bias, 11, 0.0, True),
-                                       20)
-    res["bwd"]["ms_rate0"] = device_ms(
-        lambda: ak.attention_backward(q, k, v, bias, g, 11, 0.0, True), 20)
-    del out
-    return res
+    def check(tag, q, k, v, g, bias, extra):
+        want = ak.attention_forward_plain(q, k, v, bias, *extra)
+        max_err["fwd"] = max(max_err["fwd"], check_close(
+            checks, "K2 forward", f"{tag} ctx", ak.attention_forward(q, k, v, bias, *extra),
+            want, BF16_ULP * want.float().abs().max().item()))
+        for name, gt, wt in zip(("dq", "dk", "dv"),
+                                ak.attention_backward(q, k, v, bias, g, *extra),
+                                ak.attention_backward_plain(q, k, v, bias, g, *extra)):
+            max_err["bwd"] = max(max_err["bwd"], check_close(
+                checks, "K2 backward", f"{tag} {name}", gt, wt,
+                BF16_ULP * wt.float().abs().max().item()))
+
+    for s in (17, 121):
+        q, k, v, g = qkvg(32, s)
+        keep = torch.rand(32, s, s, generator=gen, device="cuda") > 0.2
+        keep[0] = False  # a fully padded row stays finite (-10000, not -inf)
+        for rate in (0.0, 0.1):
+            check(f"B32 S{s} Q{s} rate{rate}", q, k, v, g, (~keep).float() * -10000.0,
+                  (1000 + s, rate, True))
+
+    out = {}
+    for shape, b, mask_seed in ((CAPTION_K2_SHAPE, 32, 3), (DECODE_K2_SHAPE, 16, 4)):
+        s = 120
+        rng = np.random.RandomState(mask_seed)
+        masks = np.stack([_decode_attention_mask(40, 70, 50, int(o), int(r)) for o, r in
+                          zip(rng.randint(1, 31, b), rng.randint(10, 51, b))])
+        bias = (1.0 - torch.from_numpy(masks).float().cuda()) * -10000.0  # (B, S, S)
+        q, k, v, g = qkvg(b, s)
+        extra = (torch.full((), 11, dtype=torch.int64, device="cuda"), 0.1, True)
+        check(f"block masks B{b} S120 Q120", q, k, v, g, bias, extra)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = bias[:, None].to(torch.bfloat16)  # (B, 1, S, S)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        gt = g.transpose(1, 2)
+
+        def sdpa_fwd(qt=qt, kt=kt, vt=vt, mask=mask):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        res = {}
+        for key, fn, plain, lib in (
+                ("fwd", lambda: ak.attention_forward(q, k, v, bias, *extra),
+                 lambda: ak.attention_forward_plain(q, k, v, bias, *extra), sdpa_fwd),
+                ("bwd", lambda: ak.attention_backward(q, k, v, bias, g, *extra),
+                 lambda: ak.attention_backward_plain(q, k, v, bias, g, *extra),
+                 lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), gt, retain_graph=True))):
+            bnd, by = attention_bound(b, s, h, d, s, key == "bwd")
+            res[key] = {"ms": device_ms(fn, 20), "plain_ms": device_ms(plain, 5),
+                        "library_ms": device_ms(lib, 20), "bound_ms": bnd, "bound_by": by}
+            res[key]["bound_share"] = bnd / res[key]["ms"]
+        # the kernel at dropout 0, as the library call runs
+        res["fwd"]["ms_rate0"] = device_ms(
+            lambda: ak.attention_forward(q, k, v, bias, 11, 0.0, True), 20)
+        res["bwd"]["ms_rate0"] = device_ms(
+            lambda: ak.attention_backward(q, k, v, bias, g, 11, 0.0, True), 20)
+        del sdpa_out
+        out[shape] = res
+    return out
 
 
 def phase_k3() -> dict:
@@ -3703,7 +3731,9 @@ def main() -> int:
             "max_abs_err": k2["max_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": "B128 S84 H12 d64 bf16",
-            "caption_shape": {"shape": CAPTION_K2_SHAPE, **k2["caption"][key]}})
+            **{name: {"shape": shape, **k2["block_masks"][shape][key]}
+               for name, shape in (("caption_shape", CAPTION_K2_SHAPE),
+                                   ("decode_shape", DECODE_K2_SHAPE))}})
     # K2 on one tensor-parallel rank's heads (H 6 of 12, head_offset 6):
     # launches a rank in one tp step
     for name, key, line in (("fused_attention forward, tp rank heads", "fwd", 79),

@@ -147,6 +147,29 @@ def test_attention_kernels_match_plain(cuda, dtype, s, bias_2d, rate):
             at.attention_backward(q, k, v, bias, g, 5, rate, True)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b", [16, 32])
+def test_attention_kernels_match_plain_under_caption_masks(cuda, b, rate):
+    """bf16 K2 at the decoder's (B 16) and the captioning step's (B 32)
+    shape: S 120 = 40 caption slots + 30 OD labels + 50 regions under
+    per-row block masks (tasks/captioning.py::_decode_attention_mask), OD
+    and region lengths drawn per row, so the padded label and region rows
+    are fully masked, and one row with neither OD labels nor regions. The
+    2-D forward takes several heads a block here (plan_fwd: three halves
+    of heads at B 16, three heads at B 32)."""
+    import numpy as np
+
+    from aladin_torch.tasks.captioning import _decode_attention_mask
+
+    rng = np.random.RandomState(b)
+    lens = [(int(o), int(r)) for o, r in zip(rng.randint(1, 31, b), rng.randint(10, 51, b))]
+    lens[1] = (0, 0)
+    masks = np.stack([_decode_attention_mask(40, 70, 50, o, r) for o, r in lens])
+    bias = (1.0 - torch.from_numpy(masks).float().cuda()) * -10000.0
+    q, k, v, _, g = _attention_inputs(cuda, b, 120, 1, torch.bfloat16)
+    _attention_matches_plain(q, k, v, bias, g, rate, torch.bfloat16)
+
+
 @pytest.mark.parametrize("bias_2d", [False, True])
 @pytest.mark.parametrize("s", [84, 160])
 def test_attention_kernels_hold_large_scores(cuda, s, bias_2d):

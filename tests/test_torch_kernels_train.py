@@ -3,7 +3,9 @@ run in interpret mode, on the CPU, and the backbone with each knob on.
 
   * K2 (ops/kernels/attention_kernel.py) against
     ``fused_attention(..., interpret=True)``: forward and gradients at rate
-    0 for 1-D (B, 1, S) and 2-D (B, S, S) biases, rtol/atol 1e-5 forward and
+    0 for 1-D (B, 1, S) and 2-D (B, S, S) biases, and for the 2-D block
+    masks of captioning (6 caption slots + 4 OD labels + 6 regions, one row
+    whose labels and regions are all padding), rtol/atol 1e-5 forward and
     2e-4 for the gradients (the same f32 math summed in another order;
     observed ~1e-6). With dropout the masks differ by design (the TPU PRNG
     has no counterpart), so the port is held to its own contract: the same
@@ -74,6 +76,42 @@ def test_attention_gradients_match_pallas(rng, q_dim):
     for got, wg in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(wg), rtol=2e-4, atol=2e-4)
     assert tb.grad is None  # bias gets no gradient
+
+
+def _caption_qkv(rng):
+    """q, k, v (B, 16, H, D) and the f32 bias of captioning block masks at
+    6 caption slots + 4 OD labels + 6 regions
+    (tasks/captioning.py::_decode_attention_mask), one row with neither OD
+    labels nor regions (their rows all padding, fully masked)."""
+    from aladin_torch.tasks.captioning import _decode_attention_mask
+
+    lens = [(0, 0), (2, 6), (4, 3)]
+    masks = np.stack([_decode_attention_mask(6, 10, 6, o, r, np.float32) for o, r in lens])
+    q, k, v = (rng.randn(B, 16, H, D).astype(np.float32) for _ in range(3))
+    return q, k, v, (1.0 - masks) * -10000.0
+
+
+def test_attention_forward_matches_pallas_under_caption_masks(rng):
+    q, k, v, bias = _caption_qkv(rng)
+    want = jax_fused_attention(*(jnp.asarray(a) for a in (q, k, v, bias)), interpret=True)
+    got = ak.fused_attention(*(torch.from_numpy(a) for a in (q, k, v, bias)))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_attention_gradients_match_pallas_under_caption_masks(rng):
+    q, k, v, bias = _caption_qkv(rng)
+    w = rng.randn(*q.shape).astype(np.float32)
+
+    def jloss(a, b, c):
+        return jnp.sum(jax_fused_attention(a, b, c, jnp.asarray(bias), interpret=True) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ak.fused_attention(tq, tk, tv, torch.from_numpy(bias))
+    (out * torch.from_numpy(w)).sum().backward()
+    for got, wg in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(wg), rtol=2e-4, atol=2e-4)
 
 
 def test_attention_dropout_is_reproducible(rng):
