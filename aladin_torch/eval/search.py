@@ -23,6 +23,11 @@ approximation whose recall floor is the matching head's R@K.
 ``sharded_search`` spreads the corpus over the ranks of a mesh
 (``parallel/mesh.py``): each rank searches its shard and one all-gather
 brings every shard's k-best to every rank for the final merge.
+
+Spans (``utils/profiling.py``): ``search.upload`` (the queries to the
+device), ``search.stage1`` (the global product, the padding mask, the
+shortlist), ``search.rerank`` (the normalisation, the blocks, the top-k and
+the gather) and ``search.fetch`` (the results to the host).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from aladin_torch.ops.alignment import alignment_scores
 from aladin_torch.ops.similarity import l2norm
 from aladin_torch.ops.topk import top_k
 from aladin_torch.parallel.mesh import Mesh, all_gather_cat
+from aladin_torch.utils import profiling
 
 #: candidates a chunk of queries scores at once: at query_chunk 64 and 50
 #: words of D 768 a block gathers 2.5 GB of bf16 token sets (5 GB as f32)
@@ -108,22 +114,24 @@ def _search_batch(corpus: Corpus, q_sets: torch.Tensor, q_lens: torch.Tensor, *,
                   n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores, indices) of one chunk of queries. ``n_valid``: the corpus
     rows past it are padding, masked to -inf before any top-k."""
-    sims = torch.matmul(normalize_globals(q_sets[:, 0, :]), corpus.globals.T)
-    if n_valid is not None:
-        sims[:, n_valid:] = float("-inf")
-    if not rerank:
-        return top_k(sims, k)
+    with profiling.span("search.stage1"):
+        sims = torch.matmul(normalize_globals(q_sets[:, 0, :]), corpus.globals.T)
+        if n_valid is not None:
+            sims[:, n_valid:] = float("-inf")
+        if not rerank:
+            return top_k(sims, k)
+        _, short_idx = top_k(sims, shortlist)  # (Q, K)
 
-    _, short_idx = top_k(sims, shortlist)  # (Q, K)
-    q_norm = l2norm(q_sets, eps=1e-12)
-    fn = _rerank_i2t if direction == "i2t" else _rerank_t2i
-    align = torch.cat([  # (Q, K); each block gathers (Q, block, S, D)
-        fn(q_norm, q_lens, corpus.token_sets[blk], corpus.lengths[blk], aggregation)
-        for blk in short_idx.split(RERANK_BLOCK, dim=1)], dim=1)
-    if n_valid is not None:  # a padding row is shortlisted only by a short shard
-        align = align.masked_fill(short_idx >= n_valid, float("-inf"))
-    best, pos = top_k(align, k)
-    return best, torch.gather(short_idx, 1, pos)
+    with profiling.span("search.rerank"):
+        q_norm = l2norm(q_sets, eps=1e-12)
+        fn = _rerank_i2t if direction == "i2t" else _rerank_t2i
+        align = torch.cat([  # (Q, K); each block gathers (Q, block, S, D)
+            fn(q_norm, q_lens, corpus.token_sets[blk], corpus.lengths[blk], aggregation)
+            for blk in short_idx.split(RERANK_BLOCK, dim=1)], dim=1)
+        if n_valid is not None:  # a padding row is shortlisted only by a short shard
+            align = align.masked_fill(short_idx >= n_valid, float("-inf"))
+        best, pos = top_k(align, k)
+        return best, torch.gather(short_idx, 1, pos)
 
 
 def _chunked(corpus: Corpus, query_sets: torch.Tensor, query_lens: torch.Tensor,
@@ -171,8 +179,9 @@ def search(corpus: Corpus, query_sets, query_lens, *, direction: str, k: int = 1
     """
     if direction not in ("i2t", "t2i"):
         raise ValueError(f"direction must be 'i2t' or 't2i', got {direction!r}")
-    query_sets = torch.as_tensor(query_sets, device=corpus.device)
-    query_lens = torch.as_tensor(query_lens, dtype=torch.int32, device=corpus.device)
+    with profiling.span("search.upload"):
+        query_sets = torch.as_tensor(query_sets, device=corpus.device)
+        query_lens = torch.as_tensor(query_lens, dtype=torch.int32, device=corpus.device)
     n_q = query_sets.shape[0]
     if n_q == 0:  # an empty bucket: empty results with the clamped width
         kk = min(k, min(shortlist, corpus.size) if rerank else corpus.size)
@@ -182,7 +191,8 @@ def search(corpus: Corpus, query_sets, query_lens, *, direction: str, k: int = 1
     scores, idx = _chunked(corpus, query_sets, query_lens, query_chunk, direction=direction,
                            k=k, shortlist=shortlist, rerank=rerank, aggregation=aggregation)
     # one copy to the host at the end: per-chunk copies would wait for each chunk
-    return scores.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+    with profiling.span("search.fetch"):
+        return scores.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
 
 
 @torch.inference_mode()
@@ -219,8 +229,9 @@ def sharded_search(mesh: Mesh, corpus: Corpus, query_sets, query_lens, *, direct
                    F.pad(lens, (0, pad), value=4))
     shortlist = min(shortlist, shard_n)
     k_local = min(k, shortlist if rerank else shard_n)
-    query_sets = torch.as_tensor(query_sets, device=device)
-    query_lens = torch.as_tensor(query_lens, dtype=torch.int32, device=device)
+    with profiling.span("search.upload"):
+        query_sets = torch.as_tensor(query_sets, device=device)
+        query_lens = torch.as_tensor(query_lens, dtype=torch.int32, device=device)
     if query_sets.shape[0] == 0:
         kk = min(k, mesh.size * k_local)
         return np.zeros((0, kk), np.float32), np.zeros((0, kk), np.int32)

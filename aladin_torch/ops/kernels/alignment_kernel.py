@@ -33,6 +33,7 @@ from aladin_torch.ops.alignment import strip_special_tokens
 from aladin_torch.ops.kernels import build
 from aladin_torch.ops.masking import valid_mask
 from aladin_torch.ops.similarity import l2norm
+from aladin_torch.utils import profiling
 
 _KERNEL_SOURCE = "mrsw_kernel.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1}
@@ -143,7 +144,7 @@ def _launch(im: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
                                      out.data_ptr(), n_im, r, n_cap, w, a.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"MrSw kernel launch failed: {lib.mrsw_error_string(err).decode()}")
-    mrsw_scores.launches += 1
+    profiling.count("k1.launches")
     return out
 
 
@@ -161,9 +162,6 @@ def mrsw_scores(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torch.Tensor,
     return _scores(core, im_set, s_seq, im_len, s_len, compute_dtype)
 
 
-mrsw_scores.launches = 0  # kernel launches; the plain version does not count
-
-
 def mrsw_scores_plain(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torch.Tensor,
                       s_len: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """The plain PyTorch version of ``mrsw_scores`` on any device: the same
@@ -172,8 +170,12 @@ def mrsw_scores_plain(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torch.T
 
 
 def _scores(core, im_set, s_seq, im_len, s_len, compute_dtype) -> torch.Tensor:
+    """``core`` on the prepared operands, whose operations
+    (2 x D x N_im x R x N_cap x W) are counted in ``mrsw.launched_ops``."""
     with torch.no_grad():
         im, cap, descale = _prepare(im_set, s_seq, im_len, s_len, compute_dtype)
+        (n_im, r, d), (n_cap, w) = im.shape, cap.shape[:2]
+        profiling.count("mrsw.launched_ops", 2 * d * n_im * r * n_cap * w)
         out = core(im, cap)
     return out * descale if descale is not None else out
 
@@ -210,7 +212,17 @@ def mrsw_scores_bucketed(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torc
 
     Buckets holding fewer than ``min_bucket_frac`` of their axis merge into
     the next wider one. ``scorer`` defaults to ``mrsw_scores(**kernel_kw)``.
+
+    The call is the span ``mrsw.bucketed``, each scorer call inside it the
+    span ``mrsw.call`` (``utils/profiling.py``).
     """
+    with profiling.span("mrsw.bucketed"):
+        return _bucketed(im_set, s_seq, im_len, s_len, bucket_multiple, min_bucket_frac, scorer,
+                         bucket_images, image_bucket_multiple, kernel_kw)
+
+
+def _bucketed(im_set, s_seq, im_len, s_len, bucket_multiple, min_bucket_frac, scorer,
+              bucket_images, image_bucket_multiple, kernel_kw) -> torch.Tensor:
     n_cap, w, _ = s_seq.shape
     n_im = im_set.shape[0]
     device = im_set.device
@@ -231,11 +243,10 @@ def mrsw_scores_bucketed(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torc
                     continue
                 t = torch.as_tensor(ridx, device=device)
                 # slot 0 (the stripped special slot) + width region slots
-                row_blocks.append(mrsw_scores_bucketed(
+                row_blocks.append(_bucketed(
                     im_set.index_select(0, t)[:, :width + 1], s_seq,
-                    im_len.index_select(0, t), s_len, bucket_multiple=bucket_multiple,
-                    min_bucket_frac=min_bucket_frac, scorer=scorer, bucket_images=False,
-                    **kernel_kw).float())
+                    im_len.index_select(0, t), s_len, bucket_multiple, min_bucket_frac, scorer,
+                    False, image_bucket_multiple, kernel_kw).float())
                 row_order.append(ridx)
             inv = np.empty(n_im, np.int64)
             inv[np.concatenate(row_order)] = np.arange(n_im)
@@ -249,7 +260,8 @@ def mrsw_scores_bucketed(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torc
     if scorer is None:
         scorer = functools.partial(mrsw_scores, **kernel_kw)
     if len(keep) == 1 and keep[0] == w:
-        return scorer(im_set, s_seq, im_len, s_len)
+        with profiling.span("mrsw.call"):
+            return scorer(im_set, s_seq, im_len, s_len)
 
     out = torch.zeros(n_im, n_cap, dtype=torch.float32, device=device)
     for width in keep:
@@ -257,6 +269,8 @@ def mrsw_scores_bucketed(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torc
         if idx.size == 0:
             continue
         t = torch.as_tensor(idx, device=device)
-        out[:, t] = scorer(im_set, s_seq.index_select(0, t)[:, :width], im_len,
-                           s_len.index_select(0, t)).float()
+        caps, lens = s_seq.index_select(0, t)[:, :width], s_len.index_select(0, t)
+        with profiling.span("mrsw.call"):
+            got = scorer(im_set, caps, im_len, lens)
+        out[:, t] = got.float()
     return out

@@ -45,6 +45,7 @@ from typing import Optional, Union
 import torch
 
 from aladin_torch.ops.kernels import build
+from aladin_torch.utils import profiling
 
 _KERNEL_SOURCE = "attention_kernel.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -252,11 +253,8 @@ def attention_forward(q, k, v, bias, seed: Seed = 0, dropout_rate: float = 0.0,
                                   *_launch_args(q, bias, seed, dropout_rate, train, heads_total,
                                                 int(head_offset), stream))
     _raise_on(lib, err, "forward")
-    attention_forward.launches += 1
+    profiling.count("k2.fwd_launches")
     return out
-
-
-attention_forward.launches = 0  # kernel launches; the plain version does not count
 
 
 def attention_backward(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0.0,
@@ -284,11 +282,8 @@ def attention_backward(q, k, v, bias, g, seed: Seed = 0, dropout_rate: float = 0
                                   *_launch_args(q, bias, seed, dropout_rate, train, heads_total,
                                                 int(head_offset), stream))
     _raise_on(lib, err, "backward")
-    attention_backward.launches += 1
+    profiling.count("k2.bwd_launches")
     return dq, dk, dv
-
-
-attention_backward.launches = 0
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -43,9 +43,10 @@ CUDA kernels' design and bound.
     they cannot take raise, and a failed build or launch raises;
   * CPU tensors run the plain versions.
 
-``launches`` on each entry counts its calls that launched a kernel: one for
-the backward, though it is two kernel launches (the row pass and the sum of
-the dgamma / dbeta partial rows).
+Each entry counts its calls that launched a kernel in ``utils/profiling.py``
+(``k3a.fwd_launches``, ``k3a.bwd_launches``, ``k3b.launches``): one for the
+backward, though it is two kernel launches (the row pass and the sum of the
+dgamma / dbeta partial rows).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import torch
 
 from aladin_torch.ops.kernels import build
 from aladin_torch.ops.kernels.quant_matmul import quantize_rowwise
+from aladin_torch.utils import profiling
 
 _KERNEL_SOURCE = "layernorm_kernel.cu"
 _BLOCK_M = 4  # rows per program of the Triton forward
@@ -174,11 +176,8 @@ def residual_layernorm_forward(x, res, gamma, beta, eps: float = 1e-12):
             kernel[(triton.cdiv(m, _BLOCK_M),)](
                 x2, r2, gamma, beta, y, mean, rstd, m, d, float(eps), BLOCK_M=_BLOCK_M,
                 BLOCK_D=triton.next_power_of_2(d), num_warps=4)
-        residual_layernorm_forward.launches += 1
+        profiling.count("k3a.fwd_launches")
     return y.reshape(x.shape), mean, rstd
-
-
-residual_layernorm_forward.launches = 0  # kernel launches; the plain version does not count
 
 
 def residual_layernorm_backward_plain(x, res, gamma, mean, rstd, gy):
@@ -239,11 +238,8 @@ def residual_layernorm_backward(x, res, gamma, mean, rstd, gy):
                 rstd.data_ptr(), dx.data_ptr(), None if dres is dx else dres.data_ptr(),
                 dgb.data_ptr(), partial.data_ptr(), partial.shape[0], m, d, _stream(x.device))
         _check(err, lib)
-        residual_layernorm_backward.launches += 1
+        profiling.count("k3a.bwd_launches")
     return dx.reshape(x.shape), dres.reshape(res.shape), dgb[:d], dgb[d:]
-
-
-residual_layernorm_backward.launches = 0  # calls that launched the kernels; the plain version: none
 
 
 class _ResidualLayerNorm(torch.autograd.Function):
@@ -316,11 +312,8 @@ def residual_layernorm_q8(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tenso
                     gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), q.data_ptr(), s.data_ptr(),
                     m, d, float(eps), _stream(x.device))
             _check(err, lib)
-            residual_layernorm_q8.launches += 1
+            profiling.count("k3b.launches")
     return y.reshape(x.shape), q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
-
-
-residual_layernorm_q8.launches = 0  # kernel launches; the plain version does not count
 
 
 def layernorm_q8(x: torch.Tensor):

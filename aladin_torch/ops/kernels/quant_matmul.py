@@ -33,9 +33,10 @@ design, the bound and the tile width's reason).
     ``w8a8_matmul_dynx_plain``: the int8 product exactly in int32, then the
     same epilogue in torch ops.
 
-``launches`` on each entry counts its calls that reached the card: one
-for ``w8a8_matmul``, and one for ``w8a8_matmul_dynx`` though it is two
-kernel launches (the quantize and the GEMM).
+Each entry counts its calls that reached the card in ``utils/profiling.py``
+(``k4.launches``, ``k4.quantize_launches``, ``k4_dynx.launches``): one for
+``w8a8_matmul``, and one for ``w8a8_matmul_dynx`` though it is two kernel
+launches (the quantize and the GEMM).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from aladin_torch.ops.kernels import build
+from aladin_torch.utils import profiling
 
 _KERNEL_SOURCE = "quant_matmul.cu"
 ACTIVATIONS = (None, "gelu", "gelu_tanh")
@@ -195,11 +197,8 @@ def w8a8_matmul(xq: torch.Tensor, xscale: torch.Tensor, wq: torch.Tensor, wscale
             None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
             _ACT_CODE[activation], _OUT_CODE[out_dtype], stream)
     _check(err, lib)
-    w8a8_matmul.launches += 1
+    profiling.count("k4.launches")
     return out
-
-
-w8a8_matmul.launches = 0  # calls that launched the GEMM; the plain version does not count
 
 
 def _check_dynx_x(x: torch.Tensor, name: str) -> None:
@@ -232,11 +231,8 @@ def w8a8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         err = lib.w8a8_quantize_launch(x.data_ptr(), _X_CODE[x.dtype], xq.data_ptr(),
                                        xscale.data_ptr(), m, k, stream)
     _check(err, lib)
-    w8a8_quantize.launches += 1
+    profiling.count("k4.quantize_launches")
     return xq, xscale
-
-
-w8a8_quantize.launches = 0  # calls that launched the quantize alone (not those inside dynx)
 
 
 def w8a8_matmul_dynx(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
@@ -265,11 +261,8 @@ def w8a8_matmul_dynx(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
             wscale.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(), m, n,
             k, _ACT_CODE[activation], _OUT_CODE[out_dtype], stream)
     _check(err, lib)
-    w8a8_matmul_dynx.launches += 1
+    profiling.count("k4_dynx.launches")
     return out
-
-
-w8a8_matmul_dynx.launches = 0  # calls that launched quantize + GEMM (the plain version: none)
 
 
 def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -29,6 +29,10 @@ is plain XLA in aladin_tpu. ``quant_matmuls`` is rejected at prefill.
 
 Beam search gathers the caption cache rows by source beam each step; the
 context caches are beam-invariant and never reordered.
+
+Spans (``utils/profiling.py``): ``decode.cached`` around each decoder's
+body, ``decode.prefill`` and ``decode.step``; ``decode.host_copies`` counts
+the device tensors a step builds from host data.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from aladin_torch.tasks.captioning import (BertImageCaptioner, beam_step, best_beam, categorical,
                                            initial_beam_scores, initial_caption,
                                            top_k_top_p_filtering)
+from aladin_torch.utils import profiling
 
 NEG_BIAS = -10000.0  # additive mask constant (ref:modeling_bert.py:226)
 
@@ -70,36 +75,37 @@ def prefill(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
     change during decoding. ``attn_mask`` is the per-example (B, L, L) block
     mask the full-recompute decoders take; context validity is its diagonal
     over the positions >= max_seq_a."""
-    bert = model.bert
-    cfg = bert.cfg
-    if cfg.quant_matmuls:
-        raise NotImplementedError(
-            "decode_cache has no int8 path (decode is latency-bound, not "
-            "GEMM-bound); run the cached decoders with a bf16/f32 config")
-    model.eval()
-    b, od_w = od_ids.shape
-    ctx_mask = torch.diagonal(attn_mask[:, max_seq_a:, max_seq_a:], dim1=1, dim2=2).long()
+    with profiling.span("decode.prefill"):
+        bert = model.bert
+        cfg = bert.cfg
+        if cfg.quant_matmuls:
+            raise NotImplementedError(
+                "decode_cache has no int8 path (decode is latency-bound, not "
+                "GEMM-bound); run the cached decoders with a bf16/f32 config")
+        model.eval()
+        b, od_w = od_ids.shape
+        ctx_mask = torch.diagonal(attn_mask[:, max_seq_a:, max_seq_a:], dim1=1, dim2=2).long()
 
-    pos_ids = (max_seq_a + torch.arange(od_w, device=od_ids.device))[None, :]
-    od = bert.embeddings(od_ids.long(), od_seg.long(), pos_ids)
-    img = bert.img_embedding(img_feats.to(od.dtype))
-    if cfg.use_img_layernorm:
-        img = bert.LayerNorm(img)
-    x = torch.cat([od, img], dim=1)  # (B, C, D)
+        pos_ids = (max_seq_a + torch.arange(od_w, device=od_ids.device))[None, :]
+        od = bert.embeddings(od_ids.long(), od_seg.long(), pos_ids)
+        img = bert.img_embedding(img_feats.to(od.dtype))
+        if cfg.use_img_layernorm:
+            img = bert.LayerNorm(img)
+        x = torch.cat([od, img], dim=1)  # (B, C, D)
 
-    # every valid context token attends to every valid context token
-    bias = ((1.0 - ctx_mask.float()) * NEG_BIAS)[:, None, None, :]  # (B, 1, 1, C)
-    ks, vs = [], []
-    for layer in bert.encoder.layer:
-        sa = layer.attention.self
-        q, k, v = sa.project(x)
-        ks.append(k)
-        vs.append(v)
-        x = _layer_tail(layer, x, sa.attend(q, k, v, bias)[0])
-    heads = cfg.num_attention_heads
-    zeros = torch.zeros(len(ks), b, max_seq_a, heads, cfg.hidden_size // heads,
-                        dtype=ks[0].dtype, device=x.device)
-    return DecodeCache(torch.stack(ks), torch.stack(vs), ctx_mask, zeros, zeros.clone())
+        # every valid context token attends to every valid context token
+        bias = ((1.0 - ctx_mask.float()) * NEG_BIAS)[:, None, None, :]  # (B, 1, 1, C)
+        ks, vs = [], []
+        for layer in bert.encoder.layer:
+            sa = layer.attention.self
+            q, k, v = sa.project(x)
+            ks.append(k)
+            vs.append(v)
+            x = _layer_tail(layer, x, sa.attend(q, k, v, bias)[0])
+        heads = cfg.num_attention_heads
+        zeros = torch.zeros(len(ks), b, max_seq_a, heads, cfg.hidden_size // heads,
+                            dtype=ks[0].dtype, device=x.device)
+        return DecodeCache(torch.stack(ks), torch.stack(vs), ctx_mask, zeros, zeros.clone())
 
 
 @torch.no_grad()
@@ -112,35 +118,38 @@ def decode_step(model: BertImageCaptioner, cache: DecodeCache, prev_tok: torch.T
     position from a [MASK] embedding, so the slot never held real content)
     and the [MASK] probe's final hidden state gives the MLM logits of
     position t. Returns the (B, V) f32 logits."""
-    bert = model.bert
-    b = prev_tok.shape[0]
-    s = cache.cap_k.shape[2]
-    dev = prev_tok.device
-    ids = torch.stack([prev_tok.long(), torch.full((b,), mask_id, dtype=torch.long, device=dev)],
-                      dim=1)
-    pos_ids = torch.arange(t - 1, t + 1, device=dev)[None, :]
-    x = bert.embeddings(ids, torch.zeros_like(ids), pos_ids)  # (B, 2, D)
+    with profiling.span("decode.step"):
+        bert = model.bert
+        b = prev_tok.shape[0]
+        s = cache.cap_k.shape[2]
+        dev = prev_tok.device
+        probe = torch.full((b,), mask_id, dtype=torch.long, device=dev)
+        ids = torch.stack([prev_tok.long(), probe], dim=1)
+        pos_ids = torch.arange(t - 1, t + 1, device=dev)[None, :]
+        x = bert.embeddings(ids, torch.zeros_like(ids), pos_ids)  # (B, 2, D)
 
-    # additive bias over [ctx | caption slots | 2 in-flight] keys: slot j is
-    # valid iff j < t-1 (slots t-1 and t ride in flight); in flight, prev
-    # sees itself, MASK sees prev and itself
-    cap_valid = (torch.arange(s, device=dev) < t - 1).float()[None, :].expand(b, s)
-    keys_valid = torch.cat([cache.ctx_mask.float(), cap_valid], dim=1)  # (B, C+S)
-    row = ((1.0 - keys_valid) * NEG_BIAS)[:, None, None, :].expand(b, 1, 2, keys_valid.shape[1])
-    infl = torch.tensor([[0.0, NEG_BIAS], [0.0, 0.0]], device=dev).expand(b, 1, 2, 2)
-    bias = torch.cat([row, infl], dim=3)  # (B, 1, 2, C+S+2)
+        # additive bias over [ctx | caption slots | 2 in-flight] keys: slot j is
+        # valid iff j < t-1 (slots t-1 and t ride in flight); in flight, prev
+        # sees itself, MASK sees prev and itself
+        cap_valid = (torch.arange(s, device=dev) < t - 1).float()[None, :].expand(b, s)
+        keys_valid = torch.cat([cache.ctx_mask.float(), cap_valid], dim=1)  # (B, C+S)
+        row = ((1.0 - keys_valid) * NEG_BIAS)[:, None, None, :].expand(b, 1, 2,
+                                                                       keys_valid.shape[1])
+        infl = torch.tensor([[0.0, NEG_BIAS], [0.0, 0.0]], device=dev).expand(b, 1, 2, 2)
+        profiling.count("decode.host_copies")  # infl, built on the host
+        bias = torch.cat([row, infl], dim=3)  # (B, 1, 2, C+S+2)
 
-    for i, layer in enumerate(bert.encoder.layer):
-        sa = layer.attention.self
-        q, k, v = sa.project(x)
-        k_all = torch.cat([cache.ctx_k[i], cache.cap_k[i], k], dim=1)
-        v_all = torch.cat([cache.ctx_v[i], cache.cap_v[i], v], dim=1)
-        ctx = sa.attend(q, k_all, v_all, bias)[0]
-        # the real token at t-1 becomes part of the permanent caption cache
-        cache.cap_k[i, :, t - 1] = k[:, 0]
-        cache.cap_v[i, :, t - 1] = v[:, 0]
-        x = _layer_tail(layer, x, ctx)
-    return model.head(x[:, 1])  # the MASK probe -> (B, V)
+        for i, layer in enumerate(bert.encoder.layer):
+            sa = layer.attention.self
+            q, k, v = sa.project(x)
+            k_all = torch.cat([cache.ctx_k[i], cache.cap_k[i], k], dim=1)
+            v_all = torch.cat([cache.ctx_v[i], cache.cap_v[i], v], dim=1)
+            ctx = sa.attend(q, k_all, v_all, bias)[0]
+            # the real token at t-1 becomes part of the permanent caption cache
+            cache.cap_k[i, :, t - 1] = k[:, 0]
+            cache.cap_v[i, :, t - 1] = v[:, 0]
+            x = _layer_tail(layer, x, ctx)
+        return model.head(x[:, 1])  # the MASK probe -> (B, V)
 
 
 @torch.no_grad()
@@ -149,22 +158,23 @@ def greedy_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_feats, a
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached greedy decode: the outputs of tasks.captioning.greedy_decode
     (tokens (B, max_steps + 1), summed log-probs)."""
-    b, s = img_feats.shape[0], max_steps + 1
-    cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-    cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
-    finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
-    logprob = torch.zeros(b, device=cap.device)
-    prev = cap[:, 0].clone()
-    for t in range(1, s):
-        logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
-        tok = logp.argmax(dim=-1)
-        tok_lp = logp.gather(1, tok[:, None])[:, 0]
-        tok = torch.where(finished, pad_id, tok)
-        logprob += torch.where(finished, 0.0, tok_lp)
-        cap[:, t] = tok
-        finished |= tok == sep_id
-        prev = tok
-    return cap, logprob
+    with profiling.span("decode.cached"):
+        b, s = img_feats.shape[0], max_steps + 1
+        cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
+        cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
+        finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
+        logprob = torch.zeros(b, device=cap.device)
+        prev = cap[:, 0].clone()
+        for t in range(1, s):
+            logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
+            tok = logp.argmax(dim=-1)
+            tok_lp = logp.gather(1, tok[:, None])[:, 0]
+            tok = torch.where(finished, pad_id, tok)
+            logprob += torch.where(finished, 0.0, tok_lp)
+            cap[:, t] = tok
+            finished |= tok == sep_id
+            prev = tok
+        return cap, logprob
 
 
 @torch.no_grad()
@@ -176,19 +186,20 @@ def sample_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_feats, a
     uniform row a step) as tasks.captioning.sample_decode, so the same
     generator state and the same logits give the same caption. Returns
     token rows (B, max_steps + 1)."""
-    b, s = img_feats.shape[0], max_steps + 1
-    cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-    cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
-    finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
-    prev = cap[:, 0].clone()
-    for t in range(1, s):
-        logits = decode_step(model, cache, prev, t, mask_id=mask_id)
-        logits = top_k_top_p_filtering(logits / temperature, top_k, top_p)
-        tok = torch.where(finished, pad_id, categorical(logits, generator))
-        cap[:, t] = tok
-        finished |= tok == sep_id
-        prev = tok
-    return cap
+    with profiling.span("decode.cached"):
+        b, s = img_feats.shape[0], max_steps + 1
+        cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
+        cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
+        finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
+        prev = cap[:, 0].clone()
+        for t in range(1, s):
+            logits = decode_step(model, cache, prev, t, mask_id=mask_id)
+            logits = top_k_top_p_filtering(logits / temperature, top_k, top_p)
+            tok = torch.where(finished, pad_id, categorical(logits, generator))
+            cap[:, t] = tok
+            finished |= tok == sep_id
+            prev = tok
+        return cap
 
 
 @torch.no_grad()
@@ -200,24 +211,27 @@ def beam_search_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_fea
     tasks.captioning.beam_search_decode. The prefill runs on the B
     originals (the context is beam-invariant) and its K/V are repeated
     across the beams."""
-    b, k, s = img_feats.shape[0], num_beams, max_steps + 1
-    c = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-    cache = DecodeCache(c.ctx_k.repeat_interleave(k, dim=1), c.ctx_v.repeat_interleave(k, dim=1),
-                        c.ctx_mask.repeat_interleave(k, dim=0),
-                        c.cap_k.repeat_interleave(k, dim=1), c.cap_v.repeat_interleave(k, dim=1))
-    cap = initial_caption(b * k, s, cls_id, mask_id, img_feats.device)
-    scores = initial_beam_scores(b, k, cap.device)
-    finished = torch.zeros(b * k, dtype=torch.bool, device=cap.device)
-    lengths = torch.ones(b * k, dtype=torch.long, device=cap.device)
-    prev = cap[:, 0].clone()
-    for t in range(1, s):
-        logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
-        top_scores, rows, tok = beam_step(scores, logp, finished, b, k, pad_id)
-        cap, finished, lengths = cap[rows], finished[rows], lengths[rows]
-        cache = cache._replace(cap_k=cache.cap_k[:, rows], cap_v=cache.cap_v[:, rows])
-        prev = torch.where(finished, pad_id, tok)
-        cap[:, t] = prev
-        lengths = torch.where(finished, lengths, lengths + 1)
-        finished = finished | (tok == sep_id)
-        scores = top_scores.reshape(-1)
-    return best_beam(cap, scores, lengths, b, k, length_penalty)
+    with profiling.span("decode.cached"):
+        b, k, s = img_feats.shape[0], num_beams, max_steps + 1
+        c = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
+        cache = DecodeCache(c.ctx_k.repeat_interleave(k, dim=1),
+                            c.ctx_v.repeat_interleave(k, dim=1),
+                            c.ctx_mask.repeat_interleave(k, dim=0),
+                            c.cap_k.repeat_interleave(k, dim=1),
+                            c.cap_v.repeat_interleave(k, dim=1))
+        cap = initial_caption(b * k, s, cls_id, mask_id, img_feats.device)
+        scores = initial_beam_scores(b, k, cap.device)
+        finished = torch.zeros(b * k, dtype=torch.bool, device=cap.device)
+        lengths = torch.ones(b * k, dtype=torch.long, device=cap.device)
+        prev = cap[:, 0].clone()
+        for t in range(1, s):
+            logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
+            top_scores, rows, tok = beam_step(scores, logp, finished, b, k, pad_id)
+            cap, finished, lengths = cap[rows], finished[rows], lengths[rows]
+            cache = cache._replace(cap_k=cache.cap_k[:, rows], cap_v=cache.cap_v[:, rows])
+            prev = torch.where(finished, pad_id, tok)
+            cap[:, t] = prev
+            lengths = torch.where(finished, lengths, lengths + 1)
+            finished = finished | (tok == sep_id)
+            scores = top_scores.reshape(-1)
+        return best_beam(cap, scores, lengths, b, k, length_penalty)

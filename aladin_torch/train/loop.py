@@ -16,8 +16,12 @@
     spice NDCG sum (i2t + t2i) gates the best-NDCG one;
   * a checkpoint after each validation, copied on a new best of either;
   * ``--profile_dir``: a ``torch.profiler`` trace of the dispatches that
-    cover ``--profile_steps`` steps, from the second dispatch of the first
-    epoch this Trainer runs (the first, for an epoch of one dispatch), once;
+    cover ``--profile_steps`` steps and of the loading of their batches,
+    from the second dispatch of the first epoch this Trainer runs (the
+    first, for an epoch of one dispatch), once, with the spans
+    ``loop.data`` (the wait for the loader's next batch),
+    ``loop.dispatch`` and ``loop.flush`` (the metrics' read-back and log);
+    the counters it traced are logged beside its path;
   * TensorBoard scalars under ``logger_name`` (``utils/logging.py::
     make_tb_writer``, a no-op without tensorboard), with aladin_tpu's tags:
     at each flush, per step ``epoch``, ``step`` (the batch index), ``lr``
@@ -41,6 +45,7 @@ The validation dataset is built with is_train=True, as the reference does.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional, Tuple
 
@@ -56,8 +61,8 @@ from aladin_torch.parallel.distributed import (all_reduce_metrics, barrier, is_m
 from aladin_torch.parallel.mesh import Mesh, sharded_matching_scores, sharded_mrsw_scores
 from aladin_torch.train.state import TrainState
 from aladin_torch.train.step import make_eval_step, make_multi_train_step, make_train_step
+from aladin_torch.utils import profiling
 from aladin_torch.utils.logging import AverageMeter, LogCollector, NoOpWriter, make_tb_writer
-from aladin_torch.utils.profiling import Trace
 
 
 def crossed(gstep: int, width: int, period: int) -> bool:
@@ -119,29 +124,30 @@ class Trainer:
             nonlocal window_start
             if not pending:
                 return
-            names = list(pending[0])
-            host = torch.cat([torch.stack([m[n].float().reshape(-1) for n in names])
-                              for m in pending], dim=1).cpu()  # the window's one sync
-            batch_time.update((time.time() - window_start) / host.shape[1], n=host.shape[1])
-            for col, (gstep, bi) in zip(host.T.tolist(), pending_steps):
-                for n, v in zip(names, col):
-                    collector.update(n, v, n=1)
-                self.tb.add_scalar("epoch", epoch, gstep)
-                self.tb.add_scalar("step", bi, gstep)
-                self.tb.add_scalar("lr", self.state.schedule(
-                    gstep - 1 - self.state.schedule_offset), gstep)
-                collector.tb_log(self.tb, step=gstep)
-            last_step = pending_steps[-1][0]
-            self.tb.add_scalar("batch_time", batch_time.val, last_step)
-            self.tb.add_scalar("data_time", data_time.val, last_step)
-            pending_steps.clear()
-            last = dict(zip(names, host[:, -1].tolist()))
-            self.last_metrics = last if self.mesh is None else all_reduce_metrics(last)
-            pending.clear()
-            window_start = time.time()
-            self.logger.info(f"Epoch: [{epoch}][{i}/{len(self.train_loader)}]\t{collector}\t"
-                             f"lr {self.state.schedule(self.state.schedule_step - 1):.3g}\t"
-                             f"Time {batch_time}\tData {data_time}")
+            with profiling.span("loop.flush"):
+                names = list(pending[0])
+                host = torch.cat([torch.stack([m[n].float().reshape(-1) for n in names])
+                                  for m in pending], dim=1).cpu()  # the window's one sync
+                batch_time.update((time.time() - window_start) / host.shape[1], n=host.shape[1])
+                for col, (gstep, bi) in zip(host.T.tolist(), pending_steps):
+                    for n, v in zip(names, col):
+                        collector.update(n, v, n=1)
+                    self.tb.add_scalar("epoch", epoch, gstep)
+                    self.tb.add_scalar("step", bi, gstep)
+                    self.tb.add_scalar("lr", self.state.schedule(
+                        gstep - 1 - self.state.schedule_offset), gstep)
+                    collector.tb_log(self.tb, step=gstep)
+                last_step = pending_steps[-1][0]
+                self.tb.add_scalar("batch_time", batch_time.val, last_step)
+                self.tb.add_scalar("data_time", data_time.val, last_step)
+                pending_steps.clear()
+                last = dict(zip(names, host[:, -1].tolist()))
+                self.last_metrics = last if self.mesh is None else all_reduce_metrics(last)
+                pending.clear()
+                window_start = time.time()
+                self.logger.info(f"Epoch: [{epoch}][{i}/{len(self.train_loader)}]\t{collector}\t"
+                                 f"lr {self.state.schedule(self.state.schedule_step - 1):.3g}\t"
+                                 f"Time {batch_time}\tData {data_time}")
 
         ndisp = 0  # dispatches issued this epoch
         prof = None
@@ -152,7 +158,7 @@ class Trainer:
             if not self.profile_dir or self.profiled:
                 return
             if prof is None and ndisp == prof_start:
-                prof = Trace(self.profile_dir, cuda=self.device.type == "cuda")
+                prof = profiling.Trace(self.profile_dir, cuda=self.device.type == "cuda")
                 prof.start()
             elif prof is not None and (ndisp - prof_start) * k >= self.profile_steps:
                 self._stop_trace(prof)
@@ -162,11 +168,11 @@ class Trainer:
 
         def dispatch():
             nonlocal ndisp
-            prof_tick()
-            if self.multi_step is None:
-                pending.append(self.train_step(self.state, window[0], epoch))
-            else:
-                pending.append(self.multi_step(self.state, list(window), epoch))
+            with profiling.span("loop.dispatch"):
+                if self.multi_step is None:
+                    pending.append(self.train_step(self.state, window[0], epoch))
+                else:
+                    pending.append(self.multi_step(self.state, list(window), epoch))
             ndisp += 1
             pending_steps.extend((step0 + bi + 1, bi) for bi in widx)
             gstep, i, width = step0 + widx[-1] + 1, widx[-1], len(widx)
@@ -179,7 +185,14 @@ class Trainer:
                 self._checkpoint(epoch, *self.validate())
 
         end = time.time()
-        for i, batch in enumerate(self.train_loader.epoch(epoch)):
+        batches = iter(self.train_loader.epoch(epoch))
+        for i in itertools.count():
+            if not window:  # a trace covers its windows' batches from their first
+                prof_tick()
+            with profiling.span("loop.data"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             data_time.update(time.time() - end, n=1)
             window.append(batch)
             widx.append(i)
@@ -192,10 +205,11 @@ class Trainer:
             self._stop_trace(prof)
         flush(max(len(self.train_loader) - 1, 0))
 
-    def _stop_trace(self, prof: Trace) -> None:
-        path = prof.stop()
+    def _stop_trace(self, prof: profiling.Trace) -> None:
+        path, traced = prof.stop()
         self.profiled = True
-        self.logger.info(f"profiler trace ({self.profile_steps} steps) -> {path}")
+        self.logger.info(f"profiler trace ({self.profile_steps} steps) -> {path}; "
+                         f"traced counters {dict(sorted(traced.items()))}")
 
     def validate(self) -> Tuple[float, float]:
         """Encode the validation split; returns (rsum: matching, plus

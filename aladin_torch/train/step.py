@@ -52,6 +52,12 @@ a window; on the CPU, K eager steps. Either way the window equals K single
 steps bit for bit: the same kernels in the same order, dropout from the same
 Philox offsets (a graph advances the CUDA generator by what the captured
 steps draw), the learning rates of the same schedule counts.
+
+Spans (``utils/profiling.py``), none inside captured code: a replay is
+``step.fill`` (the buffer copies, the learning rates, the gate),
+``step.replay`` and ``step.metrics``; a graph's warm-up and capture is
+``step.capture`` (counted in ``step.captures``), a window run as single
+steps ``step.eager`` (its steps counted in ``step.eager_steps``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from aladin_torch.ops import losses as L
 from aladin_torch.ops.alignment import alignment_scores, alignment_scores_chunked
 from aladin_torch.parallel.mesh import Mesh, all_gather_cat, all_reduce_sum_, gather_rows
 from aladin_torch.train.state import TrainState
+from aladin_torch.utils import profiling
 
 
 def compute_autocast(device: torch.device, dtype: Optional[torch.dtype]):
@@ -280,8 +287,10 @@ def make_multi_train_step(model: ALADIN, cfg: ExperimentConfig,
         if not 1 <= len(batches) <= k:
             raise ValueError(f"a window holds 1..{k} batches, got {len(batches)}")
         if len(batches) < k or batches[0].txt_ids.device.type != "cuda":
-            rows = [single(state, b, epoch) for b in batches]
-            return {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
+            profiling.count("step.eager_steps", len(batches))
+            with profiling.span("step.eager"):
+                rows = [single(state, b, epoch) for b in batches]
+                return {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
         if multi_step.window is None:
             multi_step.window = CapturedWindow(model, cfg, loss_fn, state, batches, mesh)
         return multi_step.window.replay(state, batches, epoch)
@@ -332,47 +341,51 @@ class CapturedWindow:
         self.lrs = torch.zeros(self.n, dtype=torch.float32, device=device)
         self.gate = torch.zeros((), dtype=torch.float32, device=device)
         self.stream = torch.cuda.Stream(device)  # the warm-up's and the capture's
-        step = state.step
-        self._fill(state, batches, 0)
-        saved = self._save(state, device)
-        self.stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(self.stream):
-            _update(model, loss_fn, state, self.inputs[0], 0, self.lrs[0], self.gate, mesh)
-        torch.cuda.current_stream(device).wait_stream(self.stream)
-        self._restore(state, saved, device)
+        profiling.count("step.captures")
+        with profiling.span("step.capture"):
+            step = state.step
+            self._fill(state, batches, 0)
+            saved = self._save(state, device)
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(self.stream):
+                _update(model, loss_fn, state, self.inputs[0], 0, self.lrs[0], self.gate, mesh)
+            torch.cuda.current_stream(device).wait_stream(self.stream)
+            self._restore(state, saved, device)
 
-        self.graph = torch.cuda.CUDAGraph()
-        state.optimizer.zero_grad(set_to_none=True)  # the captured steps' grads live in the pool
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                rows = [_update(model, loss_fn, state, self.inputs[i], 0, self.lrs[i], self.gate,
-                                mesh) for i in range(self.n)]
-                self.names = list(rows[0])
-                # the window's metrics, stacked as lax.scan stacks them
-                self.metrics = torch.stack([torch.stack([r[k].float() for r in rows])
-                                            for k in self.names])
-        except RuntimeError as e:
-            if mesh is None:
-                raise
-            raise RuntimeError(f"the data-parallel train window could not be captured as one "
-                               f"CUDA graph with its NCCL collectives ({e}); run with "
-                               f"--steps_per_dispatch 1") from e
-        state.step = step
+            self.graph = torch.cuda.CUDAGraph()
+            # the captured steps' grads live in the pool
+            state.optimizer.zero_grad(set_to_none=True)
+            try:
+                with torch.cuda.graph(self.graph, stream=self.stream):
+                    rows = [_update(model, loss_fn, state, self.inputs[i], 0, self.lrs[i],
+                                    self.gate, mesh) for i in range(self.n)]
+                    self.names = list(rows[0])
+                    # the window's metrics, stacked as lax.scan stacks them
+                    self.metrics = torch.stack([torch.stack([r[k].float() for r in rows])
+                                                for k in self.names])
+            except RuntimeError as e:
+                if mesh is None:
+                    raise
+                raise RuntimeError(f"the data-parallel train window could not be captured as one "
+                                   f"CUDA graph with its NCCL collectives ({e}); run with "
+                                   f"--steps_per_dispatch 1") from e
+            state.step = step
 
     def _fill(self, state: TrainState, batches: List[Batch], epoch: int) -> None:
         """Copy the batches, the learning rates and the gate into the
         graph's buffers on the current stream."""
-        for buf, b in zip(self.inputs, batches):
-            for f in _FIELDS:
-                dst, src = getattr(buf, f), getattr(b, f)
-                if dst.shape != src.shape:  # copy_ would broadcast a smaller batch
-                    raise ValueError(f"batch field {f} is {tuple(src.shape)}; this graph was "
-                                     f"captured for {tuple(dst.shape)}")
-                dst.copy_(src, non_blocking=True)
-        lrs = torch.tensor([state.schedule(state.schedule_step + i) for i in range(self.n)],
-                           dtype=torch.float32).pin_memory()
-        self.lrs.copy_(lrs, non_blocking=True)
-        self.gate.fill_(float(epoch >= self.cfg.training.activate_distillation_after))
+        with profiling.span("step.fill"):
+            for buf, b in zip(self.inputs, batches):
+                for f in _FIELDS:
+                    dst, src = getattr(buf, f), getattr(b, f)
+                    if dst.shape != src.shape:  # copy_ would broadcast a smaller batch
+                        raise ValueError(f"batch field {f} is {tuple(src.shape)}; this graph was "
+                                         f"captured for {tuple(dst.shape)}")
+                    dst.copy_(src, non_blocking=True)
+            lrs = torch.tensor([state.schedule(state.schedule_step + i) for i in range(self.n)],
+                               dtype=torch.float32).pin_memory()
+            self.lrs.copy_(lrs, non_blocking=True)
+            self.gate.fill_(float(epoch >= self.cfg.training.activate_distillation_after))
 
     @staticmethod
     def _save(state: TrainState, device):
@@ -402,9 +415,11 @@ class CapturedWindow:
         if len(batches) != self.n:
             raise ValueError(f"this graph runs windows of {self.n} batches, got {len(batches)}")
         self._fill(state, batches, epoch)
-        self.graph.replay()
+        with profiling.span("step.replay"):
+            self.graph.replay()
         state.step += self.n
-        out = self.metrics.clone()  # the graph overwrites its slots on the next replay
+        with profiling.span("step.metrics"):
+            out = self.metrics.clone()  # the graph overwrites its slots on the next replay
         return {k: out[i] for i, k in enumerate(self.names)}
 
 

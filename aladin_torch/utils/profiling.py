@@ -1,12 +1,24 @@
-"""Profiling hooks and the train step's FLOPs accounting (mirrors
-aladin_tpu/utils/profiling.py).
+"""The port's tracing: spans and counters inside the program, the
+``--profile_dir`` trace, and the train step's FLOPs accounting.
 
-``Trace`` / ``trace(log_dir)`` record a ``torch.profiler`` trace (the CPU
-and, on the card, the CUDA activity) and write it as a Chrome trace,
-``<log_dir>/trace.json`` (Perfetto or chrome://tracing open it); the
-Trainer records ``--profile_steps`` steps of the first epoch with it
-(``--profile_dir``). ``annotate(name)`` names a span in it. ``StepTimer``
-times on the host clock, waiting for the card when given a CUDA tensor.
+``span(name)`` names a stretch of host code in a ``torch.profiler`` trace:
+while a profiler records it is a ``record_function`` (a ``user_annotation``
+event in the same session, and so on the same clock, as the device's
+records); otherwise it is one shared no-op context, a flag check and no
+call into the dispatcher. ``count(name, n)`` adds to a process-wide
+counter, and also to a traced tally while a profiler records;
+``counters(traced)`` reads either, ``reset_counters(traced)`` clears it.
+The kernel wrappers count their launches here, one counter a kernel named
+by the ids of PERF.md's kernel table (``k1.launches``,
+``k2.fwd_launches``, ...).
+
+``Trace`` records a trace (the CPU and, on the card, the CUDA activity)
+and writes it as a Chrome trace, ``<log_dir>/trace.json`` (Perfetto or
+chrome://tracing open it); the Trainer records ``--profile_steps`` steps of
+the first epoch with it (``--profile_dir``). torch.profiler on the card
+loses the first device records of a trace, more with every trace a process
+takes, so on the card a trace opens with ``PAD`` spin kernels, and ``stop``
+logs how many of them were kept: whatever was lost lies in the pad.
 
 ``train_step_model_flops`` / ``transformer_layer_flops`` are aladin_tpu's
 pure functions, copied; divide by a step's seconds and
@@ -19,19 +31,62 @@ the fused attention kernel hashes a seed drawn from the same generator.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import logging
 import os
-import time
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
 
 H100_SXM_BF16_DENSE_PEAK = 989e12  # FLOP/s, NVIDIA's data sheet, dense bf16 at 700 W
+PAD = 512  # spin kernels that open a trace on the card
+PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+_OFF = contextlib.nullcontext()
+_lock = threading.Lock()
+_counts: Dict[str, int] = collections.Counter()
+_traced: Dict[str, int] = collections.Counter()
+
+
+def span(name: str):
+    """A ``record_function(name)`` while a profiler records, else a shared
+    no-op context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``, and to its traced tally while a
+    profiler records."""
+    with _lock:
+        _counts[name] += n
+        if _profiler_enabled():
+            _traced[name] += n
+
+
+def counters(traced: bool = False) -> Dict[str, int]:
+    """A copy of the cumulative counters, or of the traced tally; a name
+    never counted reads 0."""
+    with _lock:
+        return collections.Counter(_traced if traced else _counts)
+
+
+def reset_counters(traced: bool = True) -> None:
+    """Clear the traced tally (or, with ``traced=False``, the cumulative
+    counters)."""
+    with _lock:
+        (_traced if traced else _counts).clear()
 
 
 class Trace:
-    """A ``torch.profiler`` capture: ``start()``, then ``stop()`` writes
-    ``<log_dir>/trace.json`` and returns its path."""
+    """A ``torch.profiler`` capture: ``start()`` clears the traced
+    counters and, on the card, queues the pad; ``stop()`` writes
+    ``<log_dir>/trace.json`` and returns its path and the traced
+    counters."""
 
     def __init__(self, log_dir: str, cuda: Optional[bool] = None):
         from torch.profiler import ProfilerActivity, profile
@@ -43,33 +98,35 @@ class Trace:
         self._prof = profile(activities=activities)
 
     def start(self) -> None:
+        if self._cuda:
+            torch.cuda.synchronize()
+        reset_counters(traced=True)
         self._prof.start()
+        if self._cuda:
+            for _ in range(PAD):
+                torch.cuda._sleep(20_000)  # cycles
+            torch.cuda.synchronize()
 
-    def stop(self) -> str:
+    def stop(self) -> Tuple[str, Dict[str, int]]:
         if self._cuda:
             torch.cuda.synchronize()  # the queued work ends inside the trace
         self._prof.stop()
+        traced = counters(traced=True)
         os.makedirs(self.log_dir, exist_ok=True)
         path = os.path.join(self.log_dir, "trace.json")
         self._prof.export_chrome_trace(path)
-        return path
+        if self._cuda:
+            from torch.autograd import DeviceType
 
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Record a trace of the block into ``<log_dir>/trace.json``."""
-    t = Trace(log_dir)
-    t.start()
-    try:
-        yield t
-    finally:
-        t.stop()
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    with torch.profiler.record_function(name):
-        yield
+            kept = sum(e.count for e in self._prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and PAD_KERNEL in e.key)
+            log = logging.getLogger("vlpretrain")
+            if kept:
+                log.info(f"trace pad: {kept} of {PAD} spin kernels kept")
+            else:
+                log.warning(f"trace pad: none of {PAD} spin kernels kept; the trace may have "
+                            f"lost the first records of the steps")
+        return path, traced
 
 
 def transformer_layer_flops(seq: int, d_model: int, d_ff: int) -> float:
@@ -128,18 +185,3 @@ def train_step_model_flops(
         fwd += 2 * batch * batch * (n_regions - 1) * (text_len - 3) * hidden
     fwd += 2 * batch * batch * hidden  # global score matrix
     return 3.0 * fwd  # fwd + 2x bwd
-
-
-class StepTimer:
-    """Host-clock step timer; ``lap(t)`` waits for the card first when ``t``
-    is a CUDA tensor, so the lap holds the work queued before it."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def lap(self, fetchable: Optional[torch.Tensor] = None) -> float:
-        if fetchable is not None and fetchable.is_cuda:
-            torch.cuda.synchronize(fetchable.device)
-        now = time.perf_counter()
-        dt, self.t0 = now - self.t0, now
-        return dt

@@ -678,12 +678,9 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float):
     import torch
 
     from aladin_torch.cli import test as cli_test
-    from aladin_torch.ops.kernels import layernorm as lk
-    from aladin_torch.ops.kernels import quant_matmul as qm
-    from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 
-    counters = {"k1": mrsw_scores, "k4_dynx": qm.w8a8_matmul_dynx, "k4": qm.w8a8_matmul,
-                "k3b": lk.residual_layernorm_q8, "k3a": lk.residual_layernorm_forward}
+    counters = {"k1": "k1.launches", "k4_dynx": "k4_dynx.launches", "k4": "k4.launches",
+                "k3b": "k3b.launches", "k3a": "k3a.fwd_launches"}
     launches, results = {}, {}
     common = [
         "--config", os.path.join(ROOT, "aladin_torch", "configs", RECIPE),
@@ -698,10 +695,9 @@ def phase_main(tmp: str, oscar: str, data: str, setup_s: float):
     runs = (("bf16", []), ("int8", ["--compute_dtype", "int8"]),
             ("int8_encoder", ["--int8_encoder"]), ("ndcg", ["--ndcg"]))
     for name, extra in runs:
-        for fn in counters.values():
-            fn.launches = 0
+        before = launch_counts(counters)
         res = cli_test.run(common + extra)
-        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        launches[name] = launches_since(before, counters)
         results[name] = res
         if launches[name]["k1"] == 0:
             raise AssertionError(f"{name} run never launched the MrSw kernel")
@@ -803,7 +799,6 @@ def phase_parity(tmp: str, oscar: str, data: str, main_bf16: dict) -> dict:
 
     from aladin_torch.cli import parity
     from aladin_torch.cli import test as cli_test
-    from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 
     ckpt = os.path.join(tmp, "parity_ckpt.pth.tar")
     write_random_checkpoint(ckpt, oscar)
@@ -811,11 +806,11 @@ def phase_parity(tmp: str, oscar: str, data: str, main_bf16: dict) -> dict:
               "--img_feat_file", os.path.join(data, "features.tsv"), "--max_seq_length", "50",
               "--max_img_seq_length", "34", "--add_od_labels", "--device", "cuda"]
     report_dir = os.path.join(tmp, "parity")
-    mrsw_scores.launches = 0
+    before = launch_counts(K1_COUNTER)
     t0 = time.perf_counter()
     res = parity.run(common + ["--output_dir", report_dir, "--report_dir", report_dir])
     total_s = time.perf_counter() - t0
-    k1_launches = mrsw_scores.launches
+    k1_launches = launches_since(before, K1_COUNTER)["k1"]
     report = res["report"]
     if res["exit_code"] != 0 or k1_launches == 0:
         raise AssertionError(f"parity: exit {res['exit_code']}, {k1_launches} K1 launches")
@@ -890,8 +885,6 @@ def phase_encode_q8ln(oscar: str, data: str) -> dict:
     from aladin_torch.data.dataset import RetrievalDataset
     from aladin_torch.data.pipeline import BatchLoader, batch_from_numpy
     from aladin_torch.eval.encode import encode_data
-    from aladin_torch.ops.kernels import layernorm as lk
-    from aladin_torch.ops.kernels import quant_matmul as qm
 
     keys = os.path.join(data, "test_img_keys_200.tsv")  # 200 images: 1000 caption rows
     with open(keys, "w") as f:
@@ -903,8 +896,8 @@ def phase_encode_q8ln(oscar: str, data: str) -> dict:
     cfg = load_config(os.path.join(ROOT, "aladin_torch", "configs", RECIPE))
     ds = RetrievalDataset(build_tokenizer(args), args, "test", is_train=False)
     loader = BatchLoader(ds, cfg.training.bs, shuffle=False, drop_last=False, device="cuda")
-    counters = {"k3b": lk.residual_layernorm_q8, "k4": qm.w8a8_matmul,
-                "k4_dynx": qm.w8a8_matmul_dynx, "k3a": lk.residual_layernorm_forward}
+    counters = {"k3b": "k3b.launches", "k4": "k4.launches", "k4_dynx": "k4_dynx.launches",
+                "k3a": "k3a.fwd_launches"}
     batch = batch_from_numpy(ds.collate(np.arange(cfg.training.bs)), torch.device("cuda"))
     out, seconds, launches, profiles = {}, {}, {}, {}
     for name, knobs in (("int8_encoder", {}), ("q8ln", {"fused_layernorm": True}), ("bf16", {})):
@@ -913,13 +906,12 @@ def phase_encode_q8ln(oscar: str, data: str) -> dict:
         if name != "bf16":
             seconds[name] = []
             for _ in range(2):  # the first pass includes the kernels' first launches
-                for fn in counters.values():
-                    fn.launches = 0
+                before = launch_counts(counters)
                 t0 = time.perf_counter()
                 out[name] = encode_data(model, loader, buffer_len=51)
                 torch.cuda.synchronize()
                 seconds[name].append(time.perf_counter() - t0)
-            launches[name] = {k: fn.launches for k, fn in counters.items()}
+            launches[name] = launches_since(before, counters)
         with torch.inference_mode():  # the card's time for one batch of the encode
             model(batch)
             profiles[name] = device_profile(lambda: model(batch), 3, top=6)
@@ -1182,10 +1174,10 @@ def phase_streaming() -> dict:
     # (b) alignment through K1 at 5000 x 25000, R 34, W 50, bf16, cap_block 2048
     im, cap, il, cl = corpus(gen, 5000, 25000, 34, 50)
     im_rows, il_rows = im.repeat_interleave(cpi, 0), il.repeat_interleave(cpi, 0)
-    mrsw_scores.launches = 0
+    before = launch_counts(K1_COUNTER)
     streamed, sec = timed(lambda: st.streaming_alignment_ranks(im_rows, cap, il_rows, cl, "MrSw",
                                                                cpi, cap_block=2048))
-    launches = mrsw_scores.launches
+    launches = launches_since(before, K1_COUNTER)["k1"]
     want_launches = -(-25000 // 2048) + -(-25000 // 512)
     if launches != want_launches:
         raise AssertionError(f"streaming launched K1 {launches} times, expected {want_launches}")
@@ -1299,12 +1291,13 @@ def _parallel_checks(tmp: str, mesh) -> dict:
     args = corpus(gen, 1000, 5000, 34, 50)
     sharded, k1_err = {}, {}
     for name, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
-        mrsw_scores.launches = 0
+        before = launch_counts(K1_COUNTER)
         sharded[name] = timed(f"sharded_mrsw_{name}", lambda dt=dt: sharded_mrsw_scores(
             mesh, *args, compute_dtype=dt, small_corpus_fallback=False))
-        launches[name] += mrsw_scores.launches
-        if mrsw_scores.launches != 1:
-            raise AssertionError(f"sharded {name} scoring launched K1 {mrsw_scores.launches} times")
+        k1 = launches_since(before, K1_COUNTER)["k1"]
+        launches[name] += k1
+        if k1 != 1:
+            raise AssertionError(f"sharded {name} scoring launched K1 {k1} times")
         plain = mrsw_scores_plain(*args, compute_dtype=dt)
         k1_err[name] = (sharded[name] - plain).abs().max().item()
         unsharded = mrsw_scores(*args, compute_dtype=dt)
@@ -1349,10 +1342,10 @@ def _parallel_checks(tmp: str, mesh) -> dict:
     im, cap, il, cl = corpus(gen, 5000, 25000, 34, 50)
     im_rows, il_rows = im.repeat_interleave(cpi, 0), il.repeat_interleave(cpi, 0)
     solo = st.streaming_alignment_ranks(im_rows, cap, il_rows, cl, "MrSw", cpi, cap_block=2048)
-    mrsw_scores.launches = 0
+    before = launch_counts(K1_COUNTER)
     meshed = timed("mesh_alignment_sweep", lambda: st.streaming_alignment_ranks(
         im_rows, cap, il_rows, cl, "MrSw", cpi, cap_block=2048, mesh=mesh))
-    sweep_launches = mrsw_scores.launches
+    sweep_launches = launches_since(before, K1_COUNTER)["k1"]
     launches["bf16"] += sweep_launches
     if sweep_launches != -(-25000 // 2048) + -(-25000 // 512):
         raise AssertionError(f"the mesh alignment sweep launched K1 {sweep_launches} times")
@@ -1971,6 +1964,23 @@ def synth_train_batch(b: int, l: int = 50, r: int = 34, feat_dim: int = 2054,
 STEP_KERNELS = {"k2_fwd": "attn_fwd", "k2_bwd": "attn_bwd", "k3a": "rln_fwd",
                 "k3a_bwd": "rln_bwd"}
 GRAPH_K = 8  # steps a window in train_graph and the train_cli window run
+# the step kernels' launch counters in utils/profiling.py, by this script's keys
+K1_COUNTER = {"k1": "k1.launches"}
+STEP_COUNTERS = {"k2_fwd": "k2.fwd_launches", "k2_bwd": "k2.bwd_launches",
+                 "k3a": "k3a.fwd_launches", "k3a_bwd": "k3a.bwd_launches"}
+
+
+def launch_counts(names: dict) -> dict:
+    """{key: the value of the counter ``names[key]`` of utils/profiling.py}."""
+    from aladin_torch.utils import profiling
+
+    now = profiling.counters()
+    return {k: now[n] for k, n in names.items()}
+
+
+def launches_since(before: dict, names: dict) -> dict:
+    """The counters ``names`` less their values in ``before``."""
+    return {k: v - before[k] for k, v in launch_counts(names).items()}
 
 
 # torch.profiler (torch 2.11, CUDA 12.8) loses the first device records of a
@@ -2026,13 +2036,10 @@ def phase_train_fused() -> dict:
     them), then knobs on vs off at dropout 0."""
     import torch
 
-    from aladin_torch.ops.kernels import attention_kernel as ak
     from aladin_torch.ops.kernels import layernorm as lk
     from aladin_torch.train.state import TrainState
     from aladin_torch.train.step import make_train_step
 
-    counters = {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
-                "k3a": lk.residual_layernorm_forward, "k3a_bwd": lk.residual_layernorm_backward}
     batch = synth_train_batch(128)
 
     def run_steps(step, state, n):
@@ -2057,14 +2064,13 @@ def phase_train_fused() -> dict:
         plain_calls.append(1)
         return plain_bwd(*args)
 
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts(STEP_COUNTERS)
     lk.residual_layernorm_backward_plain = counted_plain_bwd
     try:
         metrics, ms = run_steps(make_train_step(model, cfg, torch.bfloat16), state, n_steps)
     finally:
         lk.residual_layernorm_backward_plain = plain_bwd
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launches_since(before, STEP_COUNTERS)
     layers = model.oscar_model.bert.cfg.num_hidden_layers
     want = {"k2_fwd": n_steps * 2 * layers, "k2_bwd": n_steps * 2 * layers,
             "k3a": n_steps * 2 * 2 * layers,  # 2 passes; 2 LayerNorms a layer
@@ -2222,8 +2228,6 @@ def tp_rank_main(rank: int, port: int, work: str) -> int:
 
     from aladin_torch.data.pipeline import BatchLoader
     from aladin_torch.models.aladin import Batch
-    from aladin_torch.ops.kernels import attention_kernel as ak
-    from aladin_torch.ops.kernels import layernorm as lk
     from aladin_torch.parallel.distributed import initialize, shutdown
     from aladin_torch.parallel.mesh import create_mesh
     from aladin_torch.parallel.sharding import full_state_dict, gather_tensor, is_sharded
@@ -2236,8 +2240,6 @@ def tp_rank_main(rank: int, port: int, work: str) -> int:
     # gloo: the one card cannot hold two NCCL ranks; gloo reduces and
     # broadcasts CUDA tensors, and the gathers go through host memory
     initialize(f"127.0.0.1:{port}", num_processes=TP, process_id=rank, device="cpu")
-    counters = {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
-                "k3a": lk.residual_layernorm_forward, "k3a_bwd": lk.residual_layernorm_backward}
     try:
         mesh = create_mesh(f"dp=1,tp={TP}", device="cuda")
         inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=True)
@@ -2254,10 +2256,9 @@ def tp_rank_main(rank: int, port: int, work: str) -> int:
         for tag, dropout in (("dropout0", 0.0), ("dropout0.1", 0.1)):
             cfg, model, state = sharded(dropout, 0.0)
             step = make_train_step(model, cfg, torch.bfloat16, mesh)
-            for fn in counters.values():
-                fn.launches = 0
+            before = launch_counts(STEP_COUNTERS)
             metrics = {k: v.item() for k, v in step(state, batch, 0).items()}
-            out["launches"][tag] = {k: fn.launches for k, fn in counters.items()}
+            out["launches"][tag] = launches_since(before, STEP_COUNTERS)
             out["metrics"][tag] = metrics
             # the step's gradients (after the clip), gathered to full shapes
             grads = {n: gather_tensor(p.grad, p.tp_kind, mesh) if is_sharded(p) else p.grad
@@ -2518,8 +2519,6 @@ def train_graph_at(b: int, check_dropout: bool) -> dict:
 
     import torch
 
-    from aladin_torch.ops.kernels import attention_kernel as ak
-    from aladin_torch.ops.kernels import layernorm as lk
     from aladin_torch.train.state import TrainState
     from aladin_torch.train.step import make_multi_train_step, make_train_step
 
@@ -2621,11 +2620,9 @@ def train_graph_at(b: int, check_dropout: bool) -> dict:
         raise AssertionError(f"B {b}: the full graphed step differs from eager: {rel}")
     out["full_graph_equals_eager_bitwise"] = True
     del want, got
-    counters = (ak.attention_forward, ak.attention_backward, lk.residual_layernorm_forward,
-                lk.residual_layernorm_backward)
-    before = [c.launches for c in counters]
+    before = launch_counts(STEP_COUNTERS)
     out["graph_ms_per_step"] = host_ms(lambda: multi(graphed, batches, 0))
-    if [c.launches for c in counters] != before:
+    if any(launches_since(before, STEP_COUNTERS).values()):
         raise AssertionError("a replay called a kernel wrapper from Python")
     out["graph_profile"] = device_profile(lambda: multi(graphed, batches, 0), 1, top=0)
     out["graph_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2676,7 +2673,6 @@ def graph_dropout_check(batches) -> dict:
             seen.append(seed.clone())
         return launch(q, kk, v, bias, seed, *args)
 
-    recording.launches = 0  # the wrapper's body counts on the name it is called by
     ak.attention_forward = recording
     try:
         torch.cuda.manual_seed(3)
@@ -2720,16 +2716,15 @@ def phase_train_cli() -> dict:
     from aladin_torch.cli import train as cli_train
     from aladin_torch.data.dataset import make_synthetic_dataset
     from aladin_torch.io.checkpoint import load_checkpoint
-    from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores
 
     def run(argv):
         """(cli/train's result, seconds, K1 launches); the checkpoint must
         load back equal and the metrics be finite."""
-        mrsw_scores.launches = 0
+        before = launch_counts(K1_COUNTER)
         t0 = time.perf_counter()
         out = cli_train.run(argv)
         run_s = time.perf_counter() - t0
-        launches = mrsw_scores.launches
+        launches = launches_since(before, K1_COUNTER)["k1"]
         trainer, state = out["trainer"], out["state"]
         if launches == 0:
             raise AssertionError("cli/train's validation never launched the MrSw kernel")
@@ -2788,15 +2783,20 @@ def phase_train_cli() -> dict:
             raise AssertionError(f"cli/train at K {GRAPH_K} differs from K 1 in "
                                  f"{[key for key, v in same.items() if not v]}: {windowed}")
         with open(os.path.join(tmp, "trace", "trace.json")) as f:
-            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
-                     if e.get("cat") == "kernel"}
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        names = set(kernels)
         traced = {k: sum(pat in n for n in names) for k, pat in STEP_KERNELS.items()}
         if not all(traced.values()):
             raise AssertionError(f"the --profile_dir trace misses step kernels: {traced}")
+        pad_kept = sum(PAD_KERNEL in n for n in kernels)  # utils/profiling.py::Trace's pad
+        if not pad_kept:
+            raise AssertionError(f"the --profile_dir trace kept none of its {PROFILE_PAD} pad "
+                                 f"kernels")
     emit({"phase": "train_cli_windowed", "images": 200, "bs": 32, "knobs": "K2 + K3a",
           "card": nvidia_smi_line(), "runs": {f"k{k}": v for k, v in windowed.items()},
-          "trace_kernel_names": traced, "checkpoint_loads_back": True,
-          "k8_equals_k1": True})
+          "trace_kernel_names": traced, "trace_pad_kept": pad_kept,
+          "checkpoint_loads_back": True, "k8_equals_k1": True})
     return {"launches": launches}
 
 # encoder micro-batch losses against the unsplit step's at dropout 0: the
@@ -2807,26 +2807,14 @@ LEVER_MB = 128  # encoder-microbatch of the B 512 runs
 LEVER_CHUNK = 8  # alignment-chunk of the bs 32 run: four blocks of captions
 
 
-def step_counters():
-    """The train step's kernel wrappers by name: K2 forward / backward, K3a
-    forward / backward (each counts the calls that launched its kernel)."""
-    from aladin_torch.ops.kernels import attention_kernel as ak
-    from aladin_torch.ops.kernels import layernorm as lk
-
-    return {"k2_fwd": ak.attention_forward, "k2_bwd": ak.attention_backward,
-            "k3a": lk.residual_layernorm_forward, "k3a_bwd": lk.residual_layernorm_backward}
-
-
 def counted(fn):
     """(fn's result, the step kernels' launches while it ran)."""
     import torch
 
-    counters = step_counters()
-    for c in counters.values():
-        c.launches = 0
+    before = launch_counts(STEP_COUNTERS)
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: c.launches for k, c in counters.items()}
+    return out, launches_since(before, STEP_COUNTERS)
 
 
 def step_launches(layers: int, remat: bool, micro: int = 0, passes: int = 2) -> dict:

@@ -15,6 +15,7 @@ from aladin_torch.ops.kernels import alignment_kernel as ak
 from aladin_torch.ops.kernels import attention_kernel as at
 from aladin_torch.ops.kernels import layernorm as lk
 from aladin_torch.ops.kernels import quant_matmul as qm
+from aladin_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +26,12 @@ def cuda():
         pytest.skip("needs a CUDA device: the CUDA and Triton kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _launches(*names):
+    """The named kernel launch counters of ``utils/profiling.py``."""
+    c = profiling.counters()
+    return tuple(c[n] for n in names)
 
 
 def _corpus(gen, n_im, n_cap, s_im, s_s, d):
@@ -49,9 +56,9 @@ def test_mrsw_kernel_matches_plain(cuda, shape):
     only the descale rounds). One launch per call."""
     args = _corpus(cuda, *shape)
     for dt in (torch.bfloat16, torch.int8):
-        before = ak.mrsw_scores.launches
+        before = _launches("k1.launches")
         got = ak.mrsw_scores(*args, compute_dtype=dt)
-        assert ak.mrsw_scores.launches == before + 1
+        assert _launches("k1.launches") == (before[0] + 1,)
         want = ak.mrsw_scores_plain(*args, compute_dtype=dt)
         assert torch.isfinite(got).all()
         if dt == torch.bfloat16:
@@ -118,14 +125,14 @@ def _ulp_close(got, want, dtype):
 def _attention_matches_plain(q, k, v, bias, g, rate, dtype, backward=True):
     """K2 forward (and backward) against the plain versions; one launch each."""
     args = (q, k, v, bias)
-    before = (at.attention_forward.launches, at.attention_backward.launches)
+    before = _launches("k2.fwd_launches", "k2.bwd_launches")
     _ulp_close(at.attention_forward(*args, 5, rate, True),
                at.attention_forward_plain(*args, 5, rate, True), dtype)
     if backward:
         for got, want in zip(at.attention_backward(*args, g, 5, rate, True),
                              at.attention_backward_plain(*args, g, 5, rate, True)):
             _ulp_close(got, want, dtype)
-    assert (at.attention_forward.launches, at.attention_backward.launches) == (
+    assert _launches("k2.fwd_launches", "k2.bwd_launches") == (
         before[0] + 1, before[1] + int(backward))
 
 
@@ -216,9 +223,9 @@ def test_residual_layernorm_kernel_matches_plain(cuda, x_dtype, m, d):
     gamma = 1.0 + 0.1 * torch.randn(d, generator=cuda, device="cuda")
     beta = 0.1 * torch.randn(d, generator=cuda, device="cuda")
     gy = torch.randn(m, d, generator=cuda, device="cuda").to(x_dtype)
-    before = lk.residual_layernorm_forward.launches
+    before = _launches("k3a.fwd_launches")
     y, mean, rstd = lk.residual_layernorm_forward(x, res, gamma, beta)
-    assert lk.residual_layernorm_forward.launches == before + 1
+    assert _launches("k3a.fwd_launches") == (before[0] + 1,)
     wy, wmean, wrstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta)
     _ulp_close(y, wy, x_dtype)
     torch.testing.assert_close(mean, wmean, rtol=1e-4, atol=1e-4 * wmean.abs().max().item())
@@ -254,9 +261,9 @@ def _ln_backward_matches_plain(args):
     the largest (column sums in another order). One launch; when x and res
     share a dtype dx and dres are one tensor."""
     x, res = args[:2]
-    before = lk.residual_layernorm_backward.launches
+    before = _launches("k3a.bwd_launches")
     got = lk.residual_layernorm_backward(*args)
-    assert lk.residual_layernorm_backward.launches == before + 1
+    assert _launches("k3a.bwd_launches") == (before[0] + 1,)
     want = lk.residual_layernorm_backward_plain(*args)
     assert got[0].shape == x.shape and got[1].shape == res.shape
     for g, w in zip(got[:2], want[:2]):
@@ -305,10 +312,9 @@ def test_residual_layernorm_autograd_uses_the_backward_kernel(cuda):
     x, res, gamma, _, _, gy = _ln_backward_inputs(cuda, 2 * 84, 768, torch.bfloat16)
     beta = torch.zeros_like(gamma)
     leaves = [t.clone().requires_grad_() for t in (x, res, gamma, beta)]
-    before = (lk.residual_layernorm_forward.launches, lk.residual_layernorm_backward.launches)
+    before = _launches("k3a.fwd_launches", "k3a.bwd_launches")
     lk.residual_layernorm(*leaves).backward(gy)
-    assert (lk.residual_layernorm_forward.launches,
-            lk.residual_layernorm_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert _launches("k3a.fwd_launches", "k3a.bwd_launches") == (before[0] + 1, before[1] + 1)
     _, mean, rstd = lk.residual_layernorm_forward_plain(x, res, gamma, beta)
     want = lk.residual_layernorm_backward_plain(x, res, gamma, mean, rstd, gy)
     _ulp_close(leaves[0].grad, want[0], torch.bfloat16)
@@ -380,13 +386,13 @@ def test_w8a8_kernels_match_plain(cuda, activation, out_dtype, m):
     ulp of the largest. One launch each."""
     x, wq, ws, b = _w8a8_inputs(cuda, m, 768, 2304)
     xq, xs = qm.quantize_rowwise(x)
-    before = (qm.w8a8_matmul.launches, qm.w8a8_matmul_dynx.launches)
+    before = _launches("k4.launches", "k4_dynx.launches")
     kw = {"activation": activation, "out_dtype": out_dtype}
     pairs = ((qm.w8a8_matmul(xq, xs, wq, ws, b, **kw),
               qm.w8a8_matmul_plain(xq, xs, wq, ws, b, **kw)),
              (qm.w8a8_matmul_dynx(x, wq, ws, b, **kw),
               qm.w8a8_matmul_dynx_plain(x, wq, ws, b, **kw)))
-    assert (qm.w8a8_matmul.launches, qm.w8a8_matmul_dynx.launches) == (before[0] + 1, before[1] + 1)
+    assert _launches("k4.launches", "k4_dynx.launches") == (before[0] + 1, before[1] + 1)
     for got, want in pairs:
         assert got.shape == (m, 2304) and got.dtype == out_dtype and torch.isfinite(got).all()
         rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else (1e-6 if activation is None else 1e-5)
@@ -457,9 +463,9 @@ def test_w8a8_quantize_kernel_is_bitwise(cuda):
     x[7] *= 1e4
     x[9] *= 1e-6
     for xt in (x.to(torch.bfloat16), x, _every_bf16_value()):
-        before = qm.w8a8_quantize.launches
+        before = _launches("k4.quantize_launches")
         xq, xs = qm.w8a8_quantize(xt)
-        assert qm.w8a8_quantize.launches == before + 1
+        assert _launches("k4.quantize_launches") == (before[0] + 1,)
         wq, ws = qm.quantize_rowwise_dynx(xt)
         assert xq.dtype == torch.int8 and xs.shape == (xt.shape[0], 1)
         assert torch.equal(xq, wq) and torch.equal(xs, ws)
@@ -528,10 +534,9 @@ def test_residual_layernorm_q8_kernel_matches_plain(cuda, m):
     res = (0.5 * torch.randn(m, 768, generator=cuda, device="cuda")).to(torch.bfloat16)
     gamma = 1.0 + 0.1 * torch.randn(768, generator=cuda, device="cuda")
     beta = 0.1 * torch.randn(768, generator=cuda, device="cuda")
-    before = (lk.residual_layernorm_q8.launches, lk.residual_layernorm_forward.launches)
+    before = _launches("k3b.launches", "k3a.fwd_launches")
     y, q, s = lk.residual_layernorm_q8(x, res, gamma, beta)
-    assert (lk.residual_layernorm_q8.launches, lk.residual_layernorm_forward.launches) == (
-        before[0] + 1, before[1])
+    assert _launches("k3b.launches", "k3a.fwd_launches") == (before[0] + 1, before[1])
     wy, wq, ws = lk.residual_layernorm_q8_plain(x, res, gamma, beta)
     _ulp_close(y, wy, torch.bfloat16)
     assert q.dtype == torch.int8 and s.shape == (m, 1)
@@ -571,16 +576,15 @@ def test_quant_encoder_launches_its_kernels(cuda):
     ids = torch.randint(3, 97, (4, 12), generator=cuda, device="cuda")
     mask = torch.ones(4, 12, dtype=torch.int32, device="cuda")
     ref = BertImgModel(BertImgConfig(**small)).cuda().eval()
-    counters = (qm.w8a8_matmul_dynx, qm.w8a8_matmul, lk.residual_layernorm_q8,
-                lk.residual_layernorm_forward)
+    counters = ("k4_dynx.launches", "k4.launches", "k3b.launches", "k3a.fwd_launches")
     for knobs, want in (({"quant_matmuls": True}, (4, 0, 0, 0)),
                         ({"quant_matmuls": True, "fused_layernorm": True}, (0, 4, 4, 0))):
         model = BertImgModel(BertImgConfig(**small, **knobs)).cuda().eval()
         model.load_state_dict(ref.state_dict())
-        before = [fn.launches for fn in counters]
+        before = _launches(*counters)
         with torch.no_grad():
             got, want_out = model(ids, mask)[0], ref(ids, mask)[0]
-        assert tuple(fn.launches - b for fn, b in zip(counters, before)) == want, knobs
+        assert tuple(n - b for n, b in zip(_launches(*counters), before)) == want, knobs
         assert torch.isfinite(got).all()
         cos = torch.nn.functional.cosine_similarity(got.flatten(1), want_out.flatten(1))
         assert cos.min().item() > 0.99
@@ -606,11 +610,12 @@ def test_streamed_alignment_ranks_equal_the_kernels_dense_ranks(cuda):
     im, cap, il, cl = _corpus(cuda, n_im, n_im * cpi, 34, 50, 768)
     ims = l2norm(im, eps=1e-12)
     dense = ak.mrsw_scores(ims, l2norm(cap, eps=1e-12), il, cl)
-    before = ak.mrsw_scores.launches
+    before = _launches("k1.launches")[0]
     got = streaming_alignment_ranks(im.repeat_interleave(cpi, 0), cap,
                                     il.repeat_interleave(cpi, 0), cl, "MrSw", cpi,
                                     cap_block=50)
-    assert ak.mrsw_scores.launches - before == 4 + 4  # ceil(185/50) tiles, ceil(185/50) GT blocks
+    # ceil(185/50) tiles, ceil(185/50) GT blocks
+    assert _launches("k1.launches")[0] - before == 4 + 4
     for g, w in zip(got, _rank_arrays(dense, cpi)):
         np.testing.assert_array_equal(g, w)
 
@@ -758,9 +763,9 @@ def test_graphed_window_equals_eager_steps(cuda, dropout, chunk):
     multi = make_multi_train_step(graph_model, graphed.cfg, torch.bfloat16, k=4)
     torch.cuda.manual_seed(5)
     windows = [multi(graphed, batches[:4], 0)]
-    before = (at.attention_forward.launches, lk.residual_layernorm_backward.launches)
+    before = _launches("k2.fwd_launches", "k3a.bwd_launches")
     windows.append(multi(graphed, batches[4:], 1))
-    assert (at.attention_forward.launches, lk.residual_layernorm_backward.launches) == before
+    assert _launches("k2.fwd_launches", "k3a.bwd_launches") == before
     assert multi.window.n == 4
     assert graphed.step == eager.step == 8
     for name in singles[0]:
@@ -782,18 +787,17 @@ def test_remat_equals_no_remat_on_the_card(cuda):
     from aladin_torch.train.step import make_train_step
 
     (batch,) = _small_batches(1, b=32)
-    counters = (at.attention_forward, at.attention_backward, lk.residual_layernorm_forward,
-                lk.residual_layernorm_backward)
+    counters = ("k2.fwd_launches", "k2.bwd_launches", "k3a.fwd_launches", "k3a.bwd_launches")
     runs = {}
     for remat in (False, True):
         model, state = _small_train(0.1, remat=remat)
         step = make_train_step(model, state.cfg, torch.bfloat16)
         torch.cuda.manual_seed(9)
-        before = [c.launches for c in counters]
+        before = _launches(*counters)
         metrics = step(state, batch, 0)
         torch.cuda.synchronize()
         runs[remat] = (metrics, [p.detach().clone() for p in state.trainable],
-                       [c.launches - b for c, b in zip(counters, before)])
+                       [n - b for n, b in zip(_launches(*counters), before)])
     (m0, p0, n0), (m1, p1, n1) = runs[False], runs[True]
     for name in m0:
         assert torch.equal(m0[name], m1[name]), name
@@ -841,7 +845,6 @@ def test_graph_replays_draw_new_attention_seeds(cuda, monkeypatch):
             seen.append(seed.clone())
         return launch(q, k, v, bias, seed, *args)
 
-    recording.launches = 0  # the wrapper's body counts on the name it is called by
     monkeypatch.setattr(at, "attention_forward", recording)
     model, state = _small_train(0.1)
     multi = make_multi_train_step(model, state.cfg, torch.bfloat16, k=2)
@@ -853,6 +856,41 @@ def test_graph_replays_draw_new_attention_seeds(cuda, monkeypatch):
     second = torch.stack(captured).cpu()
     assert first.unique().numel() == 8
     assert not torch.equal(first, second)
+
+
+def test_captured_window_opens_its_spans(cuda, tmp_path):
+    """The first window of K batches captures the graph once
+    (``step.captures`` + 1); a traced replay opens ``step.fill``,
+    ``step.replay`` and ``step.metrics`` and captures nothing again (the
+    traced tally of ``step.captures`` stays 0)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from aladin_torch.train.step import make_multi_train_step
+
+    model, state = _small_train(0.0)
+    multi = make_multi_train_step(model, state.cfg, torch.bfloat16, k=2)
+    batches = _small_batches(2)
+    captures = profiling.counters()["step.captures"]
+    multi(state, batches, 0)
+    assert profiling.counters()["step.captures"] == captures + 1
+    profiling.reset_counters()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            multi(state, batches, 0)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    for name in ("step.fill", "step.replay", "step.metrics"):
+        assert names.count(name) == 2, (name, names)
+    assert "step.capture" not in names and "step.eager" not in names
+    assert profiling.counters()["step.captures"] == captures + 1
+    assert profiling.counters(traced=True)["step.captures"] == 0
 
 
 def test_graph_remainder_runs_single_steps(cuda):
@@ -868,10 +906,10 @@ def test_graph_remainder_runs_single_steps(cuda):
     singles = [step(eager, b, 0) for b in batches]
     multi = make_multi_train_step(graph_model, graphed.cfg, torch.bfloat16, k=4)
     windows = [multi(graphed, batches[:4], 0)]
-    window, before = multi.window, at.attention_forward.launches
+    window, before = multi.window, _launches("k2.fwd_launches")[0]
     windows.append(multi(graphed, batches[4:], 0))
     assert multi.window is window and window.n == 4
-    assert at.attention_forward.launches == before + 2 * 2 * 2  # steps x passes x layers
+    assert _launches("k2.fwd_launches")[0] == before + 2 * 2 * 2  # steps x passes x layers
     assert graphed.step == eager.step == 6
     for name in singles[0]:
         got = torch.cat([w[name] for w in windows])
@@ -1003,9 +1041,9 @@ def test_sharded_scorer_on_a_one_rank_nccl_group(cuda, nccl_mesh):
 
     args = _corpus(cuda, 37, 301, 34, 50, 768)
     for dt in (torch.bfloat16, torch.int8):
-        before = ak.mrsw_scores.launches
+        before = _launches("k1.launches")
         got = sharded_mrsw_scores(nccl_mesh, *args, compute_dtype=dt, small_corpus_fallback=False)
-        assert ak.mrsw_scores.launches == before + 1
+        assert _launches("k1.launches") == (before[0] + 1,)
         want = ak.mrsw_scores(*args, compute_dtype=dt)
         if dt == torch.bfloat16:
             assert torch.equal(got, want)
@@ -1119,15 +1157,13 @@ def test_pretrain_step_with_the_kernels_matches_the_plain_step(cuda):
     from aladin_torch.train.schedule import global_norm
 
     ((on, step_on), (off, step_off)), batch = _pretrain_pair(0.0)
-    counters = (at.attention_forward, at.attention_backward, lk.residual_layernorm_forward,
-                lk.residual_layernorm_backward)
-    for c in counters:
-        c.launches = 0
+    counters = ("k2.fwd_launches", "k2.bwd_launches", "k3a.fwd_launches", "k3a.bwd_launches")
+    before = _launches(*counters)
     got = step_on(*batch)
     torch.cuda.synchronize()
-    assert [c.launches for c in counters] == [4, 4, 8, 8]
+    assert [n - b for n, b in zip(_launches(*counters), before)] == [4, 4, 8, 8]
     want = step_off(*batch)
-    assert [c.launches for c in counters] == [4, 4, 8, 8]
+    assert [n - b for n, b in zip(_launches(*counters), before)] == [4, 4, 8, 8]
     assert abs(got["loss"].item() - want["loss"].item()) <= 1e-2 * abs(want["loss"].item())
     g_on = global_norm([p.grad for p in on.parameters()]).item()
     g_off = global_norm([p.grad for p in off.parameters()]).item()

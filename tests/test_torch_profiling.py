@@ -60,7 +60,8 @@ def test_model_flops_scaling():
 def test_train_cli_profile_dir_writes_a_trace(tmp_path, caplog, k):
     """--profile_dir on the CPU: one trace over two epochs (here of the
     first epoch's one dispatch), a Chrome trace that names the backbone's
-    ops; the run's result is the run's without it."""
+    ops and holds the loop's spans, the traced counters logged beside its
+    path; the run's result is the run's without it."""
     prof = str(tmp_path / "prof")
     with caplog.at_level("INFO", logger="vlpretrain"):
         out = torch_train_cli.run(CLI + ["--output_dir", str(tmp_path), "--logger_name",
@@ -69,12 +70,15 @@ def test_train_cli_profile_dir_writes_a_trace(tmp_path, caplog, k):
                                          "--steps_per_dispatch", k])
     assert out["trainer"].profiled
     assert sum("profiler trace" in r.getMessage() for r in caplog.records) == 1
+    assert sum("traced counters" in r.getMessage() for r in caplog.records) == 1
     assert os.listdir(prof) == ["trace.json"]
     with open(os.path.join(prof, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("addmm" in n or "linear" in n for n in names)
     assert any("backward" in n.lower() for n in names)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"loop.data", "loop.dispatch"} <= spans, spans
     plain = torch_train_cli.run(CLI + ["--output_dir", str(tmp_path / "plain"),
                                        "--logger_name", str(tmp_path / "plain_run"),
                                        "--num_epochs", "2", "--steps_per_dispatch", k])
