@@ -10,29 +10,46 @@ dominates:
   * OD-label and region tokens never attend to the caption (block mask,
     ref:oscar/run_captioning.py:297-317), so their per-layer K/V are
     computed ONCE (prefill) and reused by every decode step;
-  * each step feeds exactly TWO in-flight tokens: the real token generated
-    at position t-1 (whose K/V overwrite caption-cache slot t-1: the
-    previous step computed that position from a [MASK] embedding) and the
-    [MASK] probe at position t whose MLM logits emit token t, the
-    reference's two-token past-decoding input
+  * each step feeds exactly TWO tokens: the real token generated at
+    position t-1 and the [MASK] probe at position t whose MLM logits emit
+    token t, the reference's two-token past-decoding input
     (ref:oscar/modeling/modeling_bert.py:700-736).
+
+The cache is one pair of head-major buffers, K and V of shape (layers, B,
+H, C + S, Dh): slots [0, C) hold the context's K/V, written by the
+prefill, and slot C + j caption position j. A step writes its real
+token's K/V into caption slot t-1 (the previous step computed that
+position from a [MASK] embedding) and the probe's into slot t, which the
+next step overwrites, then attends over the buffers where they lie: a
+(B, H, C + S, Dh) layer slice is what the batched matmuls read, so no key
+is concatenated or copied. The buffers start at zero, never empty memory:
+a masked slot still goes through the matmul, and a NaN there would turn
+its whole row into NaN.
+
+The step's additive bias over the C + S keys is built on the device from
+``key_pos``, made once at prefill: the caption position a key's slot holds
+(j for caption slot j, -1 for a valid context token, which every row
+sees, and a position past any caption for an invalid one). Row r (the
+token at position t - 1 + r) sees key j iff ``key_pos[j] <= t - 1 + r``:
+prev sees the caption up to itself, the probe sees prev and itself. Masked
+keys add exact zeros.
 
 The layer math is the captioner's own: each step calls the backbone's
 embedding (at explicit positions), projection, LayerNorm and FFN modules
 and the plain attention core of ``BertSelfAttention.attend``, with the
 same additive -10000 mask constant and f32 scores and softmax, so the
 logits are those of the full-recompute path up to the order of the f32
-sums. A step attends 2
-queries over C + S + 2 keys, which is not the fused attention kernel's
-contract (its query and key lengths are equal): it stays plain torch, as it
-is plain XLA in aladin_tpu. ``quant_matmuls`` is rejected at prefill.
+sums. A step attends 2 queries over C + S keys, which is not the fused
+attention kernel's contract (its query and key lengths are equal): it
+stays plain torch, as it is plain XLA in aladin_tpu. ``quant_matmuls`` is
+rejected at prefill.
 
-Beam search gathers the caption cache rows by source beam each step; the
-context caches are beam-invariant and never reordered.
+Beam search gathers the caption slots by source beam each step; the
+context slots are beam-invariant and never reordered.
 
 Spans (``utils/profiling.py``): ``decode.cached`` around each decoder's
-body, ``decode.prefill`` and ``decode.step``; ``decode.host_copies`` counts
-the device tensors a step builds from host data.
+body, ``decode.prefill`` and ``decode.step``; ``decode.kv_bytes`` counts
+the bytes of cached K and V each step's attention reads.
 """
 
 from __future__ import annotations
@@ -51,11 +68,10 @@ NEG_BIAS = -10000.0  # additive mask constant (ref:modeling_bert.py:226)
 
 
 class DecodeCache(NamedTuple):
-    ctx_k: torch.Tensor  # (layers, B, C, H, Dh): OD + region keys, beam-invariant
-    ctx_v: torch.Tensor
+    k: torch.Tensor  # (layers, B, H, C + S, Dh): context slots [0, C), caption slot C + j
+    v: torch.Tensor
     ctx_mask: torch.Tensor  # (B, C) 1 = valid context token
-    cap_k: torch.Tensor  # (layers, B, S, H, Dh): caption slots, filled as decoding goes
-    cap_v: torch.Tensor
+    key_pos: torch.Tensor  # (B, C + S) caption position each slot holds; -1: seen by every row
 
 
 def _layer_tail(layer, x, ctx) -> torch.Tensor:
@@ -67,8 +83,9 @@ def _layer_tail(layer, x, ctx) -> torch.Tensor:
 @torch.no_grad()
 def prefill(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
             max_seq_a: int) -> DecodeCache:
-    """Run the OD-label + region context once, recording per-layer K/V (the
-    model is put in eval mode).
+    """Run the OD-label + region context once, writing per-layer K/V into
+    the context slots of zeroed buffers with ``max_seq_a`` caption slots
+    (the model is put in eval mode).
 
     The context block is self-contained under the decode mask (labels and
     regions attend among themselves, never to the caption), so its K/V never
@@ -92,20 +109,24 @@ def prefill(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
         if cfg.use_img_layernorm:
             img = bert.LayerNorm(img)
         x = torch.cat([od, img], dim=1)  # (B, C, D)
+        c = x.shape[1]
 
+        heads = cfg.num_attention_heads
+        k_buf = torch.zeros(len(bert.encoder.layer), b, heads, c + max_seq_a,
+                            cfg.hidden_size // heads, dtype=x.dtype, device=x.device)
+        v_buf = torch.zeros_like(k_buf)
         # every valid context token attends to every valid context token
         bias = ((1.0 - ctx_mask.float()) * NEG_BIAS)[:, None, None, :]  # (B, 1, 1, C)
-        ks, vs = [], []
-        for layer in bert.encoder.layer:
+        for i, layer in enumerate(bert.encoder.layer):
             sa = layer.attention.self
             q, k, v = sa.project(x)
-            ks.append(k)
-            vs.append(v)
+            k_buf[i, :, :, :c] = k.transpose(1, 2)
+            v_buf[i, :, :, :c] = v.transpose(1, 2)
             x = _layer_tail(layer, x, sa.attend(q, k, v, bias)[0])
-        heads = cfg.num_attention_heads
-        zeros = torch.zeros(len(ks), b, max_seq_a, heads, cfg.hidden_size // heads,
-                            dtype=ks[0].dtype, device=x.device)
-        return DecodeCache(torch.stack(ks), torch.stack(vs), ctx_mask, zeros, zeros.clone())
+        # an invalid context slot holds a position past every caption row
+        ctx_pos = torch.where(ctx_mask.bool(), -1, max_seq_a)
+        cap_pos = torch.arange(max_seq_a, device=x.device).expand(b, max_seq_a)
+        return DecodeCache(k_buf, v_buf, ctx_mask, torch.cat([ctx_pos, cap_pos], dim=1))
 
 
 @torch.no_grad()
@@ -113,41 +134,33 @@ def decode_step(model: BertImageCaptioner, cache: DecodeCache, prev_tok: torch.T
                 *, mask_id: int) -> torch.Tensor:
     """One decode step at caption position ``t`` (the model in eval mode).
 
-    Feeds [prev_tok @ t-1, MASK @ t]; the real token's K/V are written into
-    caption-cache slot t-1 in place (the previous step computed that
-    position from a [MASK] embedding, so the slot never held real content)
-    and the [MASK] probe's final hidden state gives the MLM logits of
-    position t. Returns the (B, V) f32 logits."""
+    Feeds [prev_tok @ t-1, MASK @ t] and writes their K/V into caption
+    slots t-1 and t in place (the previous step computed slot t-1 from a
+    [MASK] embedding; this step's probe slot is rewritten by the next one);
+    the [MASK] probe's final hidden state gives the MLM logits of position
+    t. Returns the (B, V) f32 logits."""
     with profiling.span("decode.step"):
         bert = model.bert
         b = prev_tok.shape[0]
-        s = cache.cap_k.shape[2]
+        c = cache.ctx_mask.shape[1]
         dev = prev_tok.device
-        probe = torch.full((b,), mask_id, dtype=torch.long, device=dev)
-        ids = torch.stack([prev_tok.long(), probe], dim=1)
+        ids = torch.full((b, 2), mask_id, dtype=torch.long, device=dev)
+        ids[:, 0] = prev_tok
         pos_ids = torch.arange(t - 1, t + 1, device=dev)[None, :]
         x = bert.embeddings(ids, torch.zeros_like(ids), pos_ids)  # (B, 2, D)
 
-        # additive bias over [ctx | caption slots | 2 in-flight] keys: slot j is
-        # valid iff j < t-1 (slots t-1 and t ride in flight); in flight, prev
-        # sees itself, MASK sees prev and itself
-        cap_valid = (torch.arange(s, device=dev) < t - 1).float()[None, :].expand(b, s)
-        keys_valid = torch.cat([cache.ctx_mask.float(), cap_valid], dim=1)  # (B, C+S)
-        row = ((1.0 - keys_valid) * NEG_BIAS)[:, None, None, :].expand(b, 1, 2,
-                                                                       keys_valid.shape[1])
-        infl = torch.tensor([[0.0, NEG_BIAS], [0.0, 0.0]], device=dev).expand(b, 1, 2, 2)
-        profiling.count("decode.host_copies")  # infl, built on the host
-        bias = torch.cat([row, infl], dim=3)  # (B, 1, 2, C+S+2)
+        # row r, the token at position t - 1 + r, sees key j iff key_pos[j] <= t - 1 + r
+        bias = torch.where(cache.key_pos[:, None, None, :] <= pos_ids[..., None], 0.0,
+                           NEG_BIAS)  # (B, 1, 2, C + S)
+        profiling.count("decode.kv_bytes", 2 * cache.k.numel() * cache.k.element_size())
 
+        slots = slice(c + t - 1, c + t + 1)
         for i, layer in enumerate(bert.encoder.layer):
             sa = layer.attention.self
             q, k, v = sa.project(x)
-            k_all = torch.cat([cache.ctx_k[i], cache.cap_k[i], k], dim=1)
-            v_all = torch.cat([cache.ctx_v[i], cache.cap_v[i], v], dim=1)
-            ctx = sa.attend(q, k_all, v_all, bias)[0]
-            # the real token at t-1 becomes part of the permanent caption cache
-            cache.cap_k[i, :, t - 1] = k[:, 0]
-            cache.cap_v[i, :, t - 1] = v[:, 0]
+            cache.k[i, :, :, slots] = k.transpose(1, 2)
+            cache.v[i, :, :, slots] = v.transpose(1, 2)
+            ctx = sa.attend(q, cache.k[i].transpose(1, 2), cache.v[i].transpose(1, 2), bias)[0]
             x = _layer_tail(layer, x, ctx)
         return model.head(x[:, 1])  # the MASK probe -> (B, V)
 
@@ -214,11 +227,9 @@ def beam_search_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_fea
     with profiling.span("decode.cached"):
         b, k, s = img_feats.shape[0], num_beams, max_steps + 1
         c = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-        cache = DecodeCache(c.ctx_k.repeat_interleave(k, dim=1),
-                            c.ctx_v.repeat_interleave(k, dim=1),
+        cache = DecodeCache(c.k.repeat_interleave(k, dim=1), c.v.repeat_interleave(k, dim=1),
                             c.ctx_mask.repeat_interleave(k, dim=0),
-                            c.cap_k.repeat_interleave(k, dim=1),
-                            c.cap_v.repeat_interleave(k, dim=1))
+                            c.key_pos.repeat_interleave(k, dim=0))
         cap = initial_caption(b * k, s, cls_id, mask_id, img_feats.device)
         scores = initial_beam_scores(b, k, cap.device)
         finished = torch.zeros(b * k, dtype=torch.bool, device=cap.device)
@@ -228,10 +239,18 @@ def beam_search_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_fea
             logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
             top_scores, rows, tok = beam_step(scores, logp, finished, b, k, pad_id)
             cap, finished, lengths = cap[rows], finished[rows], lengths[rows]
-            cache = cache._replace(cap_k=cache.cap_k[:, rows], cap_v=cache.cap_v[:, rows])
+            reorder_caption_slots(cache, rows)
             prev = torch.where(finished, pad_id, tok)
             cap[:, t] = prev
             lengths = torch.where(finished, lengths, lengths + 1)
             finished = finished | (tok == sep_id)
             scores = top_scores.reshape(-1)
         return best_beam(cap, scores, lengths, b, k, length_penalty)
+
+
+def reorder_caption_slots(cache: DecodeCache, rows: torch.Tensor) -> None:
+    """Gather every layer's caption slots by source beam ``rows``, in place;
+    the context slots are beam-invariant and stay."""
+    cap = slice(cache.ctx_mask.shape[1], None)
+    cache.k[:, :, :, cap] = cache.k[:, rows, :, cap]
+    cache.v[:, :, :, cap] = cache.v[:, rows, :, cap]

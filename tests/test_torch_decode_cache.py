@@ -1,5 +1,5 @@
 """KV-cached caption decoding in aladin_torch (tasks/decode_cache.py): the
-prefill + two-in-flight-token decoders give the tokens of the port's
+prefill + two-token-step decoders give the tokens of the port's
 full-recompute decoders across the config-variant matrix of
 tests/test_decode_cache.py, and the tokens of aladin_tpu's cached
 decoders, with per-example OD / region lengths (the cache's context
@@ -46,15 +46,56 @@ def test_cached_greedy_equals_full_recompute_across_variants(variant):
 
 
 def test_prefill_shapes_and_context_validity():
-    _, _, tm = captioner_pair()
-    cache = dc.prefill(tm, *_t(*decode_case()), MAX_SEQ_A)
+    """The head-major buffers: context slots hold aladin_tpu's prefill K/V,
+    the caption slots start at zero."""
+    jm, params, tm = captioner_pair()
+    inp = decode_case()
+    cache = dc.prefill(tm, *_t(*inp), MAX_SEQ_A)
     cfg = tm.bert.cfg
-    h, dh = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
-    assert cache.ctx_k.shape == (cfg.num_hidden_layers, B, OD_W + IMG_W, h, dh)
-    assert cache.cap_k.shape == (cfg.num_hidden_layers, B, MAX_SEQ_A, h, dh)
+    h, dh, c = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads, OD_W + IMG_W
+    assert cache.k.shape == cache.v.shape == (cfg.num_hidden_layers, B, h, c + MAX_SEQ_A, dh)
+    want = jdc.prefill(params, jm.cfg, *inp, MAX_SEQ_A)
+    for got, ref in ((cache.k, want.ctx_k), (cache.v, want.ctx_v)):
+        _close(got[:, :, :, :c], np.asarray(ref).transpose(0, 1, 3, 2, 4))
+        assert not got[:, :, :, c:].any()
     np.testing.assert_array_equal(cache.ctx_mask.numpy(), [[1] * 5 + [1] * 4,
                                                            [1, 1, 1, 0, 0] + [1, 1, 0, 0],
                                                            [1, 1, 0, 0, 0] + [1, 1, 1, 0]])
+
+
+def test_decode_step_reads_the_cache_in_place():
+    """A step concatenates nothing and copies no tensor as wide as the
+    cache's C + S keys: the batched matmuls read the buffers where they lie."""
+    _, _, tm = captioner_pair()
+    cache = dc.prefill(tm, *_t(*decode_case()), MAX_SEQ_A)
+    keys = cache.k.shape[3]
+    prev = torch.full((B,), KW["cls_id"])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        dc.decode_step(tm, cache, prev, 3, mask_id=KW["mask_id"])
+    ops = [(e.name, e.input_shapes) for e in prof.events()]
+    assert ("aten::bmm" in {n for n, _ in ops}) and not any(n == "aten::cat" for n, _ in ops)
+    # (B, H, keys, Dh) or its transpose: the attention's K / V operands
+    wide = [(n, sh) for n, sh in ops if n in ("aten::clone", "aten::copy_")
+            and any(len(x) == 4 and max(x[2:]) >= keys for x in sh)]
+    assert not wide, wide
+
+
+def test_beam_reorder_moves_caption_slots_only():
+    """The beam reorder gathers the caption slots by source beam in place;
+    the context slots stay as the prefill wrote them."""
+    _, _, tm = captioner_pair()
+    cache = dc.prefill(tm, *_t(*decode_case()), MAX_SEQ_A)
+    c = OD_W + IMG_W
+    gen = torch.Generator().manual_seed(1)
+    cache.k[:, :, :, c:] = torch.randn(cache.k[:, :, :, c:].shape, generator=gen)
+    cache.v[:, :, :, c:] = torch.randn(cache.v[:, :, :, c:].shape, generator=gen)
+    before = cache.k.clone(), cache.v.clone()
+    rows = torch.tensor([2, 0, 0])
+    dc.reorder_caption_slots(cache, rows)
+    for got, was in zip((cache.k, cache.v), before):
+        assert torch.equal(got[:, :, :, :c], was[:, :, :, :c])
+        assert torch.equal(got[:, :, :, c:], was[:, rows, :, c:])
 
 
 @pytest.mark.parametrize("mode", ["greedy", "beam1", "beam3"])

@@ -117,7 +117,13 @@ def test_cached_decoder_spans_and_host_copies(tmp_path):
     steps = annotations(events, "decode.step")
     assert len(steps) == KW["max_steps"]
     assert all(encloses_an_op(s, events) for s in steps)
-    assert counted["decode.host_copies"] == KW["max_steps"]
+    # no tensor built from host data a step; each step's attention reads the
+    # whole cache: layers x B x (C + S) x H x Dh, K and V, f32
+    assert counted["decode.host_copies"] == 0
+    b, od_w = inp[0].shape
+    keys = od_w + inp[2].shape[1] + KW["max_steps"] + 1
+    per_step = TINY["num_hidden_layers"] * b * keys * TINY["hidden_size"] * 2 * 4
+    assert counted["decode.kv_bytes"] == KW["max_steps"] * per_step
 
 
 def test_bucketed_scoring_spans_and_launched_ops(tmp_path):
