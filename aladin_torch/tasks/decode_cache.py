@@ -47,6 +47,12 @@ rejected at prefill.
 Beam search gathers the caption slots by source beam each step; the
 context slots are beam-invariant and never reordered.
 
+``greedy_decode_cached`` is the one entry point of cached greedy
+captioning, whatever the model: a model with a latent cache (Kimi-VL) goes
+to ``tasks/decode_latent.py`` (imported at its first call), the BertImg
+captioner to ``greedy_decode_bert``. A change to cached decoding made
+behind this name reaches both models' callers.
+
 Spans (``utils/profiling.py``): ``decode.cached`` around each decoder's
 body, ``decode.prefill`` and ``decode.step``; ``decode.kv_bytes`` counts
 the bytes of cached K and V each step's attention reads.
@@ -165,10 +171,23 @@ def decode_step(model: BertImageCaptioner, cache: DecodeCache, prev_tok: torch.T
         return model.head(x[:, 1])  # the MASK probe -> (B, V)
 
 
+def greedy_decode_cached(model, *inputs, **options) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KV-cached greedy decode by the model's kind of cache: a model with a
+    latent cache (``latent_cache``, Kimi-VL's language model) goes to
+    ``tasks/decode_latent.py::greedy_decode`` (input_ids, image_embeds,
+    attention_mask; max_steps), the BertImg captioner to
+    ``greedy_decode_bert``."""
+    if getattr(model, "latent_cache", False):
+        from aladin_torch.tasks import decode_latent
+
+        return decode_latent.greedy_decode(model, *inputs, **options)
+    return greedy_decode_bert(model, *inputs, **options)
+
+
 @torch.no_grad()
-def greedy_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask, *,
-                         max_steps: int, cls_id: int, sep_id: int, mask_id: int, pad_id: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def greedy_decode_bert(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask, *,
+                       max_steps: int, cls_id: int, sep_id: int, mask_id: int, pad_id: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached greedy decode: the outputs of tasks.captioning.greedy_decode
     (tokens (B, max_steps + 1), summed log-probs)."""
     with profiling.span("decode.cached"):

@@ -8,6 +8,8 @@ Without a card every test skips (the kernels have no CPU mode); the CPU
 parity of the plain versions with aladin_tpu is in tests/test_torch_*.py.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1188,3 +1190,143 @@ def test_task_clis_run_on_the_card(cuda, tmp_path):
                             "1", "--train_batch_size", "8", "--do_test", *dims])
     assert next(res["model"].parameters()).is_cuda
     assert all(math.isfinite(v) for v in res["losses"]) and len(res["losses"]) == 4
+
+
+def _kimi_two_layers(vocab=1024):
+    """Kimi-VL's language model at the published widths, cut to its dense
+    layer 0 and one MoE layer with all 64 experts (and a small vocabulary:
+    the test reads the residual, not the head), bf16 on the card; the
+    published-name weights in float32 (normal(0, 0.02) matrices, a
+    correction bias normal(0, 0.02), unit norms)."""
+    from aladin_torch.models import kimi_vl as K
+    from h100_bench.reference import kimi_vl as ref
+
+    c = dict(dataclasses.asdict(K.KimiVLConfig()), num_hidden_layers=2, vocab_size=vocab)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = {}
+    for name, shape in ref.spec(c):
+        if len(shape) >= 2 or name.endswith("correction_bias"):
+            w[name] = (0.02 * torch.randn(shape, generator=gen, device="cuda")).bfloat16().float()
+        else:
+            w[name] = torch.ones(shape, device="cuda")
+    with torch.device("meta"):
+        model = K.KimiVLForCausalLM(K.KimiVLConfig.from_dict(c))
+    model.to_empty(device="cuda")
+    K.load_published(model, w.items())
+    return model.eval(), w, c
+
+
+def test_kimi_layers_at_published_widths_match_the_reference(cuda):
+    """The dense layer 0 and layer 1's 64-expert MoE at the published
+    widths, bf16 program against the float32 reference, each from the same
+    bf16 input (300 tokens): the routing is the reference's on >= 99% of the
+    tokens (the router runs in float32 on both sides, so only a tie in the
+    last bits can differ), and the outputs lie within 1% of the reference's
+    norm (bf16 rounds each product's operands to 2^-9; observed below)."""
+    from aladin_torch.ops import moe
+    from h100_bench.reference import kimi_vl as ref
+
+    model, w, c = _kimi_two_layers()
+    x = (0.02 * torch.randn(1, 300, 2048, generator=cuda, device="cuda")).bfloat16()
+    ones = torch.ones(1, 300, dtype=torch.long, device="cuda")
+    f32 = ref.Precision("f32")
+    with torch.no_grad():
+        got = model.layers[0](x, model.rope(model.positions(ones)), model.causal_mask(ones))[0]
+        want = ref.layer(w, 0, c, x[0].float(), f32)[0]
+        err_dense = float((got[0].float() - want).norm() / want.norm())
+        layer = model.layers[1]
+        h = layer.post_attention_layernorm(x)
+        got = layer.mlp(h)[0]
+        want, chosen = ref.moe(w, "language_model.model.layers.1.", c, h[0].float(), f32)
+        mine = moe.route(h[0], layer.mlp.gate.weight, layer.mlp.gate.e_score_correction_bias,
+                         6, c["routed_scaling_factor"])[1]
+        same = (mine.sort(dim=1).values == chosen.sort(dim=1).values).all(dim=1)
+        err_moe = float((got[same].float() - want[same]).norm() / want[same].norm())
+    print(f"dense layer {err_dense:.3e}, MoE {err_moe:.3e}, routing agrees on "
+          f"{float(same.float().mean()):.4f}")
+    assert float(same.float().mean()) >= 0.99
+    assert err_dense < 1e-2 and err_moe < 1e-2
+
+
+def test_kimi_decode_step_never_syncs_with_the_host(cuda):
+    """A cached decode step of the latent decoder (MLA absorbed, the MoE's
+    sort, grouped GEMMs and combine, the head) runs under
+    ``set_sync_debug_mode("error")``: nothing in it waits for the card."""
+    from aladin_torch.tasks import decode_latent
+
+    model, _, _ = _kimi_two_layers()
+    b, p = 16, 40
+    ids = torch.randint(0, 1000, (b, p), generator=cuda, device="cuda")
+    mask = (torch.arange(p, device="cuda")[None, :] >= torch.arange(b, device="cuda")[:, None])
+    with torch.no_grad():
+        cache, logits = decode_latent.prefill(model, ids, None, mask.long(), 8)
+        tok = logits.argmax(dim=-1)
+        hits = torch.zeros((), dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for j in range(3):
+                tok = decode_latent.decode_step(model, cache, tok, j, hits).argmax(dim=-1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert 0 < int(hits) <= 3 * 64
+
+
+def test_kimi_step_graphs_equal_the_eager_steps(cuda):
+    """``greedy_decode`` on the card replays one CUDA graph a key count;
+    its tokens and log-probabilities are the eager steps' (the same kernels
+    on the same buffers), and it counts the experts hit on the card."""
+    from aladin_torch.tasks import decode_latent as DL
+
+    model, _, _ = _kimi_two_layers()
+    b, p, n = 16, 40, 24
+    ids = torch.randint(0, 1000, (b, p), generator=cuda, device="cuda")
+    mask = (torch.arange(p, device="cuda")[None, :] >= torch.arange(b, device="cuda")[:, None])
+    mask = mask.long()
+    with torch.no_grad():
+        state = DL.GreedyState(model, b, p, n, "cuda")
+        cache, logits = DL.prefill(model, ids, None, mask, n, latent=state.cache.latent)
+        state.start(cache, logits)
+        for j in range(n - 1):
+            state.j.fill_(j)
+            state.step(model, j)
+        want = state.tokens.clone(), state.logprob.clone(), int(state.hits)
+        got = DL.greedy_decode(model, ids, None, mask, max_steps=n)
+        again = DL.greedy_decode(model, ids, None, mask, max_steps=n)
+    key, graphs = model._step_graphs
+    assert key == (b, p, n)
+    assert len(graphs.graphs) == len({DL.step_keys(graphs.state.cache, j) for j in range(n - 1)})
+    assert torch.equal(got[0], want[0]) and torch.equal(again[0], want[0])
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+    assert int(graphs.state.hits) == want[2]
+
+
+def test_kimi_step_graphs_hold_one_batch_shape(cuda):
+    """A model keeps the step graphs of one batch shape: a batch of another
+    prompt width frees the first set (its latent buffer and graph pool)
+    before capturing its own, so width after width holds the memory of one
+    set, and a width decoded again gives the tokens it gave before."""
+    from aladin_torch.tasks import decode_latent as DL
+
+    model, _, _ = _kimi_two_layers()
+    b, n = 16, 24
+
+    def batch(p):
+        ids = torch.randint(0, 1000, (b, p), generator=cuda, device="cuda")
+        mask = torch.arange(p, device="cuda")[None, :] >= torch.arange(b, device="cuda")[:, None]
+        return ids, None, mask.long()
+
+    narrow, wide = batch(40), batch(72)
+    with torch.no_grad():
+        first = DL.greedy_decode(model, *narrow, max_steps=n)
+        torch.cuda.synchronize()
+        one_set = torch.cuda.memory_allocated()
+        DL.greedy_decode(model, *wide, max_steps=n)
+        again = DL.greedy_decode(model, *narrow, max_steps=n)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    wide_latent = 2 * b * DL.cache_slots(72, n) * 576 * 2  # bytes of the wide set's buffer
+    assert model._step_graphs[0] == (b, 40, n)
+    assert torch.equal(again[0], first[0])
+    # the outputs of the second decode are a few KB; a kept wide set would add its buffer
+    assert after - one_set < wide_latent // 2, (one_set, after, wide_latent)
