@@ -7,37 +7,43 @@
 //     score[i, c] = sum_w max_r <im[i, r], cap[c, w]>
 //
 // over token sets that the Python wrapper has already l2-normalised,
-// stripped of special tokens, zeroed past each length, cast to the operand
-// type (bf16, or int8 with per-tensor scales) and laid out for this kernel
-// (ops/kernels/alignment_kernel.py::_kernel_operands):
+// stripped of special tokens, cast to the operand type (bf16, or int8 with
+// per-tensor or per-bucket scales) and laid out for this kernel
+// (ops/kernels/alignment_kernel.py::_kernel_operands and ::_plan):
 //   * images in groups of 8, rows ordered (group, region slot j, image s),
 //     so row 8j + s of a group is region j of image s (the Pallas kernel's
-//     region packing); R is padded with zero rows to R8, a multiple of 8;
-//   * captions with W padded with zero words to W16, a multiple of 16;
+//     region packing); R is padded with zero rows to R8, a multiple of 8,
+//     and regions past an image's length are zero rows;
+//   * captions packed: only each caption's valid words, back to back, the
+//     captions sorted by word count; a plan cuts them into tiles of 256
+//     word columns that hold whole captions (a tile table: first word row,
+//     first caption, caption count; a caption table: its column in the
+//     tile, its word count, its output column);
 //   * D padded with zeros to a multiple of 128 bytes.
 // The (N_im, N_cap, R, W) alignment tensor never leaves the registers.
 //
 // Bound on an H100 SXM: the kernel is compute-bound. It performs
-// 2 * N_im * R8 * N_cap * W16 * D tensor-core operations (a little more:
-// a 256-column tile holds floor(256 / W16) whole captions) against
-// 989 TFLOP/s dense bf16 or 1979 TOP/s int8, while device memory need only
-// carry the operands and the f32 output (about 2.6 GB at 5k x 25k, under
-// 1 ms at 3.35 TB/s). What limits it is feeding the tensor cores: every
-// operand byte is read from L2 into shared memory many times over. The design:
+// 2 * N_im * R8 * 256 * tiles * D tensor-core operations (the packed words
+// fill about 98% of the columns of COCO-like captions; the rest are the
+// next tile's first words, multiplied and ignored) against 989 TFLOP/s
+// dense bf16 or 1979 TOP/s int8, while device memory need only carry the
+// operands and the f32 output (about 1.2 GB at 5k x 25k, under 1 ms at
+// 3.35 TB/s). What limits it is feeding the tensor cores: every operand
+// byte is read from L2 into shared memory many times over. The design:
 //   * one CTA per SM walks work units in a fixed banded order (kBand image
 //     pairs sweep the caption tiles together, so the units in flight share
 //     their operands in L2; at 5k x 25k a band of 4 pairs ran bf16 in
 //     473-488 ms and one of 16, whose image slabs outgrow what L2 keeps, in
 //     1004 ms: tools/k1_variants.py). A unit is two image groups (one per
-//     consumer warpgroup) x one caption tile of floor(256 / W16) whole
-//     captions, so the max over regions and the sum over words stay inside
-//     the CTA: no split-K, no atomics;
+//     consumer warpgroup) x one caption tile, whose captions are whole, so
+//     the max over regions and the sum over words stay inside the CTA: no
+//     split-K, no atomics;
 //   * one producer thread issues TMA loads (128-byte swizzle, 128 bytes of D
 //     per row per stage) of both 64-row image slabs and the 256-row caption
-//     tile into a 4-stage mbarrier ring (3 stages: bf16 503 ms, int8 277
-//     against 246-251; a bf16 consumer frees a stage only once the next
-//     chunk's wgmma is issued); the producer warpgroup gives its registers
-//     to the consumers (setmaxnreg);
+//     tile at the tile's first word row into a 4-stage mbarrier ring (3
+//     stages: bf16 503 ms, int8 277 against 246-251; a bf16 consumer frees a
+//     stage only once the next chunk's wgmma is issued); the producer
+//     warpgroup gives its registers to the consumers (setmaxnreg);
 //   * each consumer warpgroup runs wgmma m64n256 (bf16 -> f32 k16, or
 //     s8 -> s32 k32) over D for each 64-row slab of its image group, then
 //     folds the slab into a running max in registers. In the accumulator
@@ -48,15 +54,18 @@
 //     2 x 64 x 256 x 2 x 64 bf16 FLOP (85 FLOP a byte) or the same with 128
 //     int8 values of D (171 OP a byte), against about 45 for the earlier
 //     WMMA tiles, which streamed both operands for every 99 x 94 tile;
-//   * the epilogue exchanges the four warps' maxima through shared memory,
-//     128 columns at a time (so the ring keeps 4 stages), sums each 16-word
-//     group by a fixed tree, adds a caption's groups in word order and
-//     writes each score once; the producer is already loading the next
-//     unit's operands.
-// At 5k x 25k bf16 then runs at 0.76 of the bound of the padded operands
-// it multiplies (chip_smoke.py's launched_bound_ms), the card at its power
-// limit; the padding itself (R 33 -> 40, W 47 -> 48, 5 captions in a
-// 256-column tile) is what separates that bound from the valid work.
+//   * the epilogue folds the four warps' maxima into one 8 x 256 buffer a
+//     consumer (each warp a quarter of the columns at a time, rotating, so
+//     no two warps touch one quarter together): a caption may straddle any
+//     column, so the whole tile's column maxima are kept. Then a thread a
+//     (image, caption) sums the caption's words and writes the score once,
+//     to its output column; the producer is already loading the next
+//     unit's operands. The 4-stage ring (192 KB) and the two buffers
+//     (16.5 KB) fit the 227 KB an SM gives a block.
+// Against a padded layout (each caption W16 words, a tile floor(256 /
+// W16) whole captions, bucketed by width: 19.2 columns a COCO-like caption
+// for 11.0 valid words), the packed tiles multiply 0.58 x the columns at
+// 5k x 25k; what remains of the padding is R 33 -> 40.
 //
 // Semantics kept from the reference:
 //   * zero rows inside an image's R-row buffer (regions past its length)
@@ -64,13 +73,16 @@
 //     that the layout adds (slots R..R8-1, images past N_im) never join a
 //     max: slots are excluded by index and padded images are not written,
 //     so an image with a full buffer has no floor;
-//   * padded words are zero and contribute exactly 0 to the word sum;
+//   * a caption's sum reads only its own columns; a caption with no valid
+//     word scores 0;
 //   * every score is the same fixed-order computation whatever N_im, N_cap,
-//     the bucket or the caption's slot in its tile: D is accumulated in
-//     order, each 16-word group is summed by one tree and a caption's groups
-//     are added in order, so trailing zero groups (a wider bucket) leave the
-//     sum unchanged. int8 sums are exact int32 sums; the descale is applied
-//     by the wrapper.
+//     the other captions or the caption's place in its tile: D is
+//     accumulated in order, each 16-word group of the caption's own word
+//     index is summed by one tree (two 8-word trees and their sum; words
+//     past the caption's length enter as 0) and the groups are added in
+//     order, so a score equals that of the padded layout (whose trailing
+//     zero words and zero groups leave the sum unchanged). int8 sums are
+//     exact int32 sums; the descale is applied by the wrapper.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,25 +98,29 @@ constexpr int kConsumers = 2;                     // consumer warpgroups, one im
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kImages = 8;                        // images interleaved in a group
 constexpr int kSlabRows = 64;                     // wgmma M: 8 region slots x 8 images
-constexpr int kTileCols = 256;                    // wgmma N: whole captions of W16 words
+constexpr int kTileCols = 256;                    // wgmma N: whole captions' words
 constexpr int kWordGroup = 16;                    // words summed by one tree
-constexpr int kGroups = kTileCols / kWordGroup;
 constexpr int kRowBytes = 128;                    // bytes of D per row per stage
 constexpr int kStages = 4;                        // 4 x 48 KB ring + the epilogue buffers
 constexpr int kSlabBytes = kSlabRows * kRowBytes;
 constexpr int kStageBytes = kConsumers * kSlabBytes + kTileCols * kRowBytes;
-constexpr int kRedStride = kTileCols / 2 + 1;      // a half tile; odd: 8 images, 8 banks
-constexpr int kRedElems = 4 * kImages * kRedStride;  // per consumer: the 4 warps' maxima
+// a row of column maxima an image; 264 = 8 mod 32, so the 8-byte stores of
+// a half warp (4 images x 4 column pairs) hit 16 distinct bank pairs
+constexpr int kColStride = kTileCols + 8;
+constexpr int kColElems = kImages * kColStride;   // per consumer
 constexpr int kBand = 4;  // image pairs sweeping the caption tiles together (16: L2 thrashes)
 constexpr int kAlign = 1024;                       // 128-byte swizzle atoms are 1024-byte aligned
-constexpr int kSmemBytes = kAlign + kStages * kStageBytes +
-                           kConsumers * (kRedElems + kImages * kGroups) * 4 + 2 * kStages * 8;
+constexpr int kSmemBytes = kAlign + kStages * kStageBytes + kConsumers * kColElems * 4 +
+                           2 * kStages * 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
 template <typename T> struct AccOf;
 template <> struct AccOf<__nv_bfloat16> { using type = float; };
 template <> struct AccOf<signed char> { using type = int; };
+template <typename A> struct PairOf;
+template <> struct PairOf<float> { using type = float2; };
+template <> struct PairOf<int> { using type = int2; };
 
 __device__ __forceinline__ float lowest(float) { return -INFINITY; }
 __device__ __forceinline__ int lowest(int) { return INT_MIN; }
@@ -248,7 +264,9 @@ __device__ __forceinline__ Unit unit_at(long u, int pairs, long tiles) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 mrsw_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-            float* __restrict__ out, int n_im, int r, int r8, int n_cap, int w16, int n_chunks) {
+            float* __restrict__ out, const int4* __restrict__ tiles,
+            const int4* __restrict__ caps, int n_im, int r, int r8, int n_cap, int n_tiles,
+            int n_chunks) {
   using Acc = typename AccOf<T>::type;
   constexpr int kChunkElems = kRowBytes / sizeof(T);
   constexpr int kStepBytes = 32;  // wgmma depth: 16 bf16 or 32 int8
@@ -258,16 +276,13 @@ mrsw_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   constexpr bool kOverlap = sizeof(T) == 2;
   extern __shared__ char smem_raw[];
   char* ring = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
-  Acc* red_all = reinterpret_cast<Acc*>(ring + kStages * kStageBytes);
-  Acc* gsum_all = red_all + kConsumers * kRedElems;
-  uint64_t* full = reinterpret_cast<uint64_t*>(gsum_all + kConsumers * kImages * kGroups);
+  Acc* colmax_all = reinterpret_cast<Acc*>(ring + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(colmax_all + kConsumers * kColElems);
   uint64_t* empty = full + kStages;
 
   const int groups = (n_im + kImages - 1) / kImages;
   const int pairs = (groups + kConsumers - 1) / kConsumers;
-  const int caps_per_tile = kTileCols / w16;
-  const long tiles = (n_cap + caps_per_tile - 1) / caps_per_tile;
-  const long units = static_cast<long>(pairs) * tiles;
+  const long units = static_cast<long>(pairs) * n_tiles;
   const int slabs = r8 / 8;
   const int group_rows = kImages * r8;
 
@@ -287,9 +302,9 @@ mrsw_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
       for (long u = blockIdx.x; u < units; u += gridDim.x) {
-        const Unit unit = unit_at(u, pairs, tiles);
+        const Unit unit = unit_at(u, pairs, n_tiles);
         const int a_row = unit.pair * kConsumers * group_rows;
-        const int b_row = unit.tile * caps_per_tile * w16;
+        const int b_row = __ldg(&tiles[unit.tile]).x;
         for (int k = 0; k < slabs; ++k) {
           for (int c = 0; c < n_chunks; ++c) {
             mbar_wait(&empty[stage], phase ^ 1);
@@ -314,14 +329,13 @@ mrsw_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int img = lane / 4, quad = lane % 4;  // accumulator rows: image img; columns 8i + 2quad
-    Acc* red = red_all + q * kRedElems;
-    Acc* gsum = gsum_all + q * kImages * kGroups;
+    Acc* colmax = colmax_all + q * kColElems;
     Acc acc[128];
     Acc best[64];
     int stage = 0, phase = 0;
 
     for (long u = blockIdx.x; u < units; u += gridDim.x) {
-      const Unit unit = unit_at(u, pairs, tiles);
+      const Unit unit = unit_at(u, pairs, n_tiles);
 #pragma unroll
       for (int i = 0; i < 64; ++i) best[i] = lowest(Acc());
 
@@ -371,46 +385,64 @@ mrsw_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         }
       }
 
-      // epilogue, one 128-column half at a time: the max over the 4 warps'
-      // slots, each 16-word group summed by one tree (two 8-word trees and
-      // their sum), then a caption's groups added in order
+      // epilogue: the max over the 4 warps' slots into colmax, each warp a
+      // quarter of the columns at a time, rotating; a thread's pair of
+      // registers 2i, 2i + 1 is columns 8i + 2quad and + 1 of image img
+      using Pair = typename PairOf<Acc>::type;
+      consumer_sync(1 + q);  // the previous unit's sums have read colmax
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int s = 0; s < 4; ++s) {
+        const int quarter = (warp + s) % 4;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          Acc* p = red + (warp * kImages + img) * kRedStride + 8 * i + 2 * quad;
-          p[0] = best[32 * h + 2 * i];
-          p[1] = best[32 * h + 2 * i + 1];
-        }
-        consumer_sync(1 + q);
-        {
-          const int im_s = tid % kImages, part = tid / kImages;  // 16 eight-word parts
-          Acc m[kWordGroup / 2];
+        for (int qq = 0; qq < 4; ++qq) {
+          if (qq != quarter) continue;
 #pragma unroll
-          for (int j = 0; j < kWordGroup / 2; ++j) {
-            const Acc* p = red + im_s * kRedStride + part * (kWordGroup / 2) + j;
-            m[j] = acc_max(acc_max(p[0], p[kImages * kRedStride]),
-                           acc_max(p[2 * kImages * kRedStride], p[3 * kImages * kRedStride]));
+          for (int i = 8 * qq; i < 8 * qq + 8; ++i) {
+            Pair* p = reinterpret_cast<Pair*>(colmax + img * kColStride + 8 * i + 2 * quad);
+            Pair v = {best[2 * i], best[2 * i + 1]};
+            if (s > 0) {
+              const Pair o = *p;
+              v.x = acc_max(v.x, o.x);
+              v.y = acc_max(v.y, o.y);
+            }
+            *p = v;
           }
-#pragma unroll
-          for (int width = kWordGroup / 4; width >= 1; width /= 2)
-#pragma unroll
-            for (int j = 0; j < width; ++j) m[j] = m[2 * j] + m[2 * j + 1];
-          const Acc upper = __shfl_xor_sync(0xffffffffu, m[0], kImages);  // part + 1
-          if (part % 2 == 0) gsum[im_s * kGroups + kGroups / 2 * h + part / 2] = m[0] + upper;
         }
         consumer_sync(1 + q);
       }
-      if (tid < kImages * caps_per_tile) {
-        const int im_s = tid / caps_per_tile, cc = tid % caps_per_tile;
-        const int per_cap = w16 / kWordGroup;
-        const Acc* p = gsum + im_s * kGroups + cc * per_cap;
-        Acc sum = p[0];
-        for (int j = 1; j < per_cap; ++j) sum += p[j];
-        const int image = (unit.pair * kConsumers + q) * kImages + im_s;
-        const int cap = unit.tile * caps_per_tile + cc;
-        if (image < n_im && cap < n_cap)
-          out[static_cast<long>(image) * n_cap + cap] = static_cast<float>(sum);
+
+      // a thread an (image, caption): each 16-word group of the caption by
+      // one tree (two 8-word trees and their sum, words past its length as
+      // 0), the groups added in order, the score written to its column
+      const int4 tile = __ldg(&tiles[unit.tile]);  // first row, first caption, captions
+      const int image0 = (unit.pair * kConsumers + q) * kImages;
+      for (int p = tid; p < kImages * tile.z; p += 128) {
+        const int im_s = p % kImages;
+        const int4 cap = __ldg(&caps[tile.y + p / kImages]);  // column, words, output column
+        const Acc* row = colmax + im_s * kColStride + cap.x;
+        Acc sum = 0;
+        for (int g = 0; g < cap.y; g += kWordGroup) {
+          Acc half[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            Acc m[kWordGroup / 2];
+#pragma unroll
+            for (int j = 0; j < kWordGroup / 2; ++j) {
+              const int word = g + h * (kWordGroup / 2) + j;
+              m[j] = 0;
+              if (word < cap.y) m[j] = row[word];
+            }
+#pragma unroll
+            for (int width = kWordGroup / 4; width >= 1; width /= 2)
+#pragma unroll
+              for (int j = 0; j < width; ++j) m[j] = m[2 * j] + m[2 * j + 1];
+            half[h] = m[0];
+          }
+          const Acc group = half[0] + half[1];
+          sum = g == 0 ? group : sum + group;
+        }
+        if (image0 + im_s < n_im)
+          out[static_cast<long>(image0 + im_s) * n_cap + cap.z] = static_cast<float>(sum);
       }
     }
   }
@@ -450,17 +482,16 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type, in
 }
 
 template <typename T>
-int launch(const void* im, const void* cap, float* out, int n_im, int r, int n_cap, int w, int d,
-           CUtensorMapDataType type, cudaStream_t stream) {
+int launch(const void* im, const void* cap, const void* plan, float* out, int n_im, int r,
+           int n_cap, int n_tiles, long b_rows, int d, CUtensorMapDataType type,
+           cudaStream_t stream) {
   constexpr int kChunkElems = kRowBytes / sizeof(T);
-  if (r < 1 || r > 128 || w < 1 || w > 128 || d < kChunkElems || d % kChunkElems != 0 ||
-      n_im < 0 || n_cap < 0)
+  if (r < 1 || r > 128 || d < kChunkElems || d % kChunkElems != 0 || n_im < 0 || n_cap < 0 ||
+      n_tiles < 0 || b_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_im == 0 || n_cap == 0) return 0;
+  if (n_im == 0 || n_cap == 0 || n_tiles == 0) return 0;
   const int r8 = (r + 7) / 8 * 8;
-  const int w16 = (w + kWordGroup - 1) / kWordGroup * kWordGroup;
   const long a_rows = static_cast<long>((n_im + kImages - 1) / kImages) * kImages * r8;
-  const long b_rows = static_cast<long>(n_cap) * w16;
   if (a_rows + kConsumers * kImages * r8 > INT_MAX || b_rows + kTileCols > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);  // TMA row coordinates are int32
   EncodeTiled encode = encode_tiled();
@@ -479,12 +510,12 @@ int launch(const void* im, const void* cap, float* out, int n_im, int r, int n_c
                                kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long groups = (n_im + kImages - 1) / kImages;
-  const long caps_per_tile = kTileCols / w16;
-  const long units = (groups + kConsumers - 1) / kConsumers *
-                     ((n_cap + caps_per_tile - 1) / caps_per_tile);
+  const long units = (groups + kConsumers - 1) / kConsumers * n_tiles;
   const unsigned grid = static_cast<unsigned>(units < sms ? units : sms);
-  mrsw_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_b, out, n_im, r, r8, n_cap,
-                                                         w16, d / kChunkElems);
+  const int4* tiles = static_cast<const int4*>(plan);
+  mrsw_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_b, out, tiles,
+                                                         tiles + n_tiles, n_im, r, r8, n_cap,
+                                                         n_tiles, d / kChunkElems);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -495,19 +526,24 @@ extern "C" {
 // dtype: 0 = bf16 operands (f32 scores), 1 = int8 operands (integer scores,
 // returned as f32 before the wrapper's descale). im: the image operand in
 // the kernel's layout, (ceil(n_im / 8) * 8 * R8, d) row-major with rows
-// ordered (group of 8 images, region slot, image); cap: (n_cap * W16, d)
-// row-major; out: (n_im, n_cap) f32 row-major. r and w are the real
-// region and word counts (R8, W16: rounded up to 8 and 16); d must be a
-// multiple of 128 bytes of operand. Returns a cudaError_t code.
-int mrsw_scores_launch(int dtype, const void* im, const void* cap, float* out, int n_im, int r,
-                       int n_cap, int w, int d, void* stream) {
+// ordered (group of 8 images, region slot, image); cap: the packed caption
+// words, (b_rows, d) row-major; plan: int32 on the device, n_tiles rows of
+// {first word row, first caption, caption count, 0}, then n_cap rows of
+// {column in the tile, word count (at most 128), output column, first word
+// row}, the captions of a tile consecutive and whole within its 256
+// columns; out: (n_im, n_cap) f32 row-major. r is the real region count
+// (R8: rounded up to 8); d must be a multiple of 128 bytes of operand.
+// Returns a cudaError_t code.
+int mrsw_scores_launch(int dtype, const void* im, const void* cap, const void* plan, float* out,
+                       int n_im, int r, int n_cap, int n_tiles, long b_rows, int d,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(im, cap, out, n_im, r, n_cap, w, d,
+    return launch<__nv_bfloat16>(im, cap, plan, out, n_im, r, n_cap, n_tiles, b_rows, d,
                                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
   if (dtype == 1)
-    return launch<signed char>(im, cap, out, n_im, r, n_cap, w, d, CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                               s);
+    return launch<signed char>(im, cap, plan, out, n_im, r, n_cap, n_tiles, b_rows, d,
+                               CU_TENSOR_MAP_DATA_TYPE_UINT8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

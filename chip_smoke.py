@@ -394,14 +394,15 @@ def mrsw_bound(args, dtype):
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops else "operations")
 
 
-def launched_bound_ms(im_p, cap_p, dtype) -> float:
-    """Operations of the padded operands the kernel multiplies (its operand
-    layout: regions rounded up to 8, images to groups of 8, words to 16)
-    over the tensor-core peak, in ms."""
+def launched_bound_ms(im_p, plan, dtype) -> float:
+    """Operations the kernel multiplies (its operand layout: regions
+    rounded up to 8, images to groups of 8, D to 128 bytes; the plan's
+    tiles of 256 word columns) over the tensor-core peak, in ms."""
     from aladin_torch.ops.kernels import alignment_kernel as ak
 
-    a, b = ak._kernel_operands(im_p, cap_p)
-    return 1e3 * 2.0 * a.shape[0] * b.shape[0] * a.shape[1] / PEAK_OPS_PER_S[dtype]
+    a, _ = ak._kernel_operands(im_p, im_p[0, :1])
+    cols = len(plan.tiles) * plan.cols
+    return 1e3 * 2.0 * a.shape[0] * cols * a.shape[1] / PEAK_OPS_PER_S[dtype]
 
 
 def phase_env() -> str:
@@ -471,7 +472,8 @@ def phase_k1() -> dict:
         compare("zero floor", ak.mrsw_scores(im, cap, il, sl, compute_dtype=dt),
                 ak.mrsw_scores_plain(im, cap, il, sl, compute_dtype=dt), name)
 
-    # a score does not depend on the corpus shape (bf16: no per-call scales)
+    # a score does not depend on the corpus shape (bf16: no per-call scales),
+    # though the slice's captions pack into other tiles at other columns
     args = corpus(gen, *shapes["1000x5000 S34/50"])
     full = ak.mrsw_scores(*args)
     part = ak.mrsw_scores(args[0][100:300], args[1][1000:2500], args[2][100:300],
@@ -486,13 +488,15 @@ def phase_k1() -> dict:
     # kernel and plain time on the prepared operands of the comparison shape
     timings = {}
     for name, dt in dtypes.items():
-        im_p, cap_p, _ = ak._prepare(*args, dt)
+        im_p, words, _, plan, table = ak._packed(*args, dt)
+        im_r, cap_r, _ = ak._prepare(*args, dt)
         bound_ms, bound_by = mrsw_bound(args, name)
         timings[name] = {
-            "ms": cuda_ms(lambda: ak._launch(im_p, cap_p), 5),
-            "plain_ms": cuda_ms(lambda: ak._plain_core(im_p, cap_p), 2),
+            "ms": cuda_ms(lambda: ak._launch(im_p, words, plan, table), 5),
+            "plain_ms": cuda_ms(lambda: ak._plain_core(im_r, cap_r), 2),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        del im_r, cap_r
     emit({"phase": "k1", "checks": checks, "shape_independent": True,
           "bf16_atol": BF16_ATOL, "int8_rtol": INT8_RTOL, "timings_1000x5000": timings})
 
@@ -502,10 +506,10 @@ def phase_k1() -> dict:
     bench = corpus(gen, n_im, n_cap, 34, 50)
     bench_out = {}
     for name, dt in dtypes.items():
-        im_p, cap_p, _ = ak._prepare(*bench, dt)
-        ms = cuda_ms(lambda: ak._launch(im_p, cap_p), 2)
+        im_p, words, _, plan, table = ak._packed(*bench, dt)
+        ms = cuda_ms(lambda: ak._launch(im_p, words, plan, table), 2)
         bound_ms = mrsw_bound(bench, name)[0]
-        launched_ms = launched_bound_ms(im_p, cap_p, name)
+        launched_ms = launched_bound_ms(im_p, plan, name)
         bench_out[name] = {"ms": ms, "m_pairs_per_s": pairs / ms / 1e3,
                            "bound_ms": bound_ms, "bound_share": bound_ms / ms,
                            "launched_bound_ms": launched_ms, "launched_bound_share": launched_ms / ms,
@@ -514,12 +518,13 @@ def phase_k1() -> dict:
         if name == "bf16":
             # cuBLAS over a 1000 x 1000 slice of the same operands, per pair:
             # a yardstick for the kernel's mainloop (no max, no sum)
+            _, cap_p, _ = ak._prepare(*bench, dt)
             a = im_p[:1000].reshape(-1, im_p.shape[2])
             b = cap_p[:1000].reshape(-1, cap_p.shape[2])
             gemm_ms = cuda_ms(lambda: torch.matmul(a, b.T), 3)
             bench_out[name]["gemm_only_ms"] = gemm_ms * pairs / 1e6
-            del a, b
-        del im_p, cap_p
+            del a, b, cap_p
+        del im_p, words, table
     bucketed_ms = cuda_ms(lambda: ak.mrsw_scores_bucketed(*bench, compute_dtype=torch.int8), 1)
     bench_out["int8_bucketed"] = {"ms": bucketed_ms, "m_pairs_per_s": pairs / bucketed_ms / 1e3,
                                   "reference_m_pairs_per_s": REFERENCE_M_PAIRS_PER_S}

@@ -9,6 +9,7 @@ card (tests/test_torch_gpu.py, chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -192,28 +193,63 @@ _KERNEL_SHAPES = [(7, 11, 5, 6), (37, 53, 34, 50), (5, 9, 129, 20), (9, 13, 2, 4
                   (17, 29, 9, 19), (8, 33, 51, 16), (3, 5, 129, 131), (1001, 70, 34, 50)]
 
 
-def _emulate_kernel(a, b, n_im, r, n_cap, w, pad_slot=float("-inf")):
-    """csrc/mrsw_kernel.cu's reduction on its operand layout: per group of 8
+def _emulate_kernel(a, b, n_im, r, n_cap, w, pad_slot=float("-inf"), plan=None):
+    """csrc/mrsw_kernel.cu's reduction on an operand layout: per group of 8
     images the max over region slots, slots >= r set to ``pad_slot``; then
-    each 16-word group summed by a pairwise tree and a caption's groups
-    added in order. int8 in f64 (exact, as the kernel's int32), else f32."""
-    r8, w16 = -(-r // 8) * 8, -(-w // 16) * 16
-    acc = torch.float64 if a.dtype == torch.int8 else torch.float32
+    each 16-word group of a caption's own words summed by a pairwise tree
+    and its groups added in order. Products in f64: exact for int8 (summed
+    in f64, exact, as the kernel's int32), rounded once to f32 for bf16 (so
+    they do not depend on the layout) and summed in f32.
+
+    ``plan`` None: ``b`` is the padded layout, each caption W16 rows (W
+    padded with zero words to a multiple of 16). Else ``b`` is the packed
+    operand and ``plan`` its tiles of 256 rows from each tile's first word
+    row (rows past ``b`` read as zeros): a caption's words from its column,
+    past its count 0."""
+    r8 = -(-r // 8) * 8
+    red = torch.float64 if a.dtype == torch.int8 else torch.float32
     groups = a.shape[0] // (8 * r8)
-    padded = (torch.arange(r8) >= r)[None, :, None, None, None]
-    out = torch.empty(n_im, n_cap, dtype=torch.float32)
-    for c0 in range(0, n_cap, 16):
-        blk = b[c0 * w16:(c0 + 16) * w16].to(acc)
-        nc = blk.shape[0] // w16
-        align = (a.to(acc) @ blk.T).view(groups, r8, 8, nc, w16).masked_fill(padded, pad_slot)
-        x = align.amax(dim=1).reshape(groups * 8, nc, w16 // 16, 16)[:n_im]
+    padded = (torch.arange(r8) >= r)[None, :, None, None]
+
+    def col_max(rows):
+        align = (a.double() @ rows.double().T).to(red)
+        align = align.view(groups, r8, 8, -1).masked_fill(padded, pad_slot)
+        return align.amax(dim=1).reshape(groups * 8, -1)[:n_im]
+
+    def tree_sum(x):  # (..., groups of 16, 16)
         while x.shape[-1] > 1:
             x = x[..., 0::2] + x[..., 1::2]
         total = x[..., 0, 0]
-        for g in range(1, w16 // 16):
+        for g in range(1, x.shape[-2]):
             total = total + x[..., g, 0]
-        out[:, c0:c0 + nc] = total.float()
+        return total.float()
+
+    out = torch.empty(n_im, n_cap, dtype=torch.float32)
+    if plan is None:
+        w16 = -(-w // 16) * 16
+        for c0 in range(0, n_cap, 16):
+            blk = b[c0 * w16:(c0 + 16) * w16]
+            nc = blk.shape[0] // w16
+            out[:, c0:c0 + nc] = tree_sum(col_max(blk).view(n_im, nc, w16 // 16, 16))
+        return out
+    rows = torch.cat([b, b.new_zeros(plan.cols, b.shape[1])])
+    for first, c0, count, _ in plan.tiles.tolist():
+        m = col_max(rows[first:first + plan.cols])
+        caps = plan.caps[c0:c0 + count]
+        x = m.new_zeros(n_im, count, max(1, -(-int(caps[:, 1].max()) // 16)) * 16)
+        for k, (col, n, _, _) in enumerate(caps.tolist()):
+            x[:, k, :n] = m[:, col:col + n]
+        out[:, torch.as_tensor(caps[:, 2].astype(np.int64))] = tree_sum(
+            x.view(n_im, count, -1, 16))
     return out
+
+
+def _padded_operand(cap):
+    """The padded caption layout of ``_emulate_kernel``: (N_cap * W16, D
+    padded to 128 bytes) from prepared (N_cap, W, D)."""
+    n_cap, w, d = cap.shape
+    d_pad = (-d) % (128 // cap.element_size())
+    return F.pad(cap, (0, d_pad, 0, -w % 16)).reshape(-1, d + d_pad)
 
 
 def _kernel_case(rng, n_im, n_cap, s_im, s_s, d=64):
@@ -231,21 +267,37 @@ def _kernel_case(rng, n_im, n_cap, s_im, s_s, d=64):
     return _torch(im, ss, il, sl)
 
 
+@pytest.mark.parametrize("layout", ["padded", "packed"])
 @pytest.mark.parametrize("shape", _KERNEL_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_kernel_layout_and_reduction_match_plain(rng, shape, dtype):
+def test_kernel_layout_and_reduction_match_plain(rng, shape, dtype, layout):
     """_kernel_operands plus the kernel's reduction order, emulated in torch,
     equal _plain_core: int8 exactly (integer sums); bf16 to atol 1e-4 (the
     same bf16 products, f32 sums over D and words in another order, on
-    scores of at most 128)."""
-    im, cap, _ = tak._prepare(*_kernel_case(rng, *shape), dtype)
-    a, b = tak._kernel_operands(im, cap)
+    scores of at most 128). The packed operand holds exactly the prepared
+    valid words, and its walk equals the padded layout's bit for bit: each
+    caption is summed by the same tree."""
+    case = _kernel_case(rng, *shape)
+    im, cap, _ = tak._prepare(*case, dtype)
     r, w = im.shape[1], cap.shape[1]
     d_pad = 128 // im.element_size()  # D 64 padded to 128 bytes
+    a, _ = tak._kernel_operands(im, cap[0])
     assert a.shape == (-(-shape[0] // 8) * 8 * -(-r // 8) * 8, d_pad)
-    assert b.shape == (shape[1] * -(-w // 16) * 16, d_pad)
-    got = _emulate_kernel(a, b, shape[0], r, shape[1], w)
+    padded = _emulate_kernel(a, _padded_operand(cap), shape[0], r, shape[1], w)
     want = tak._plain_core(im, cap)
+    if layout == "packed":
+        im_p, words, _, plan, _ = tak._packed(*case, dtype)
+        assert torch.equal(im_p, im)
+        caps = torch.as_tensor(plan.caps.astype(np.int64))
+        cap_of = torch.repeat_interleave(caps[:, 2], caps[:, 1])
+        pos = torch.arange(plan.n_words) - torch.repeat_interleave(caps[:, 3], caps[:, 1])
+        assert torch.equal(words, cap[cap_of, pos])
+        _, b = tak._kernel_operands(im_p, words)
+        assert b.shape == (max(plan.n_words, 1), d_pad)
+        got = _emulate_kernel(a, b, shape[0], r, shape[1], w, plan=plan)
+        assert torch.equal(got, padded)
+    else:
+        got = padded
     if dtype == torch.int8:
         assert torch.equal(got, want)
     else:
@@ -258,9 +310,58 @@ def test_kernel_layout_excludes_padded_slots(rng):
     excluded the emulation equals the plain version; letting them join the
     max as the zeros they hold floors image 0 and moves its score."""
     im, cap, _ = tak._prepare(*_kernel_case(rng, 9, 5, 34, 50, d=768), torch.int8)
-    a, b = tak._kernel_operands(im, cap)
-    args = (a, b, 9, im.shape[1], 5, cap.shape[1])
+    a, _ = tak._kernel_operands(im, cap[0])
+    args = (a, _padded_operand(cap), 9, im.shape[1], 5, cap.shape[1])
     want = tak._plain_core(im, cap)
     assert torch.equal(_emulate_kernel(*args), want)
     floored = _emulate_kernel(*args, pad_slot=0.0)
     assert floored[0, 0] > want[0, 0]
+
+
+def _plan_counts(case):
+    """Word counts of a planner case: random COCO-like and wide mixes, zeros
+    among them, one caption, fewer captions than fill a tile."""
+    rng = np.random.RandomState(len(case))
+    if case == "coco":
+        return np.clip(np.round(9 + rng.gamma(2.0, 2.5, 3000)), 8, 50).astype(int) - 3
+    if case == "wide":
+        return rng.randint(0, 129, 1000)
+    if case == "with_zeros":
+        return np.concatenate([rng.randint(0, 30, 400), np.zeros(300, int)])[rng.permutation(700)]
+    if case == "zeros":
+        return np.zeros(600, int)
+    if case == "one":
+        return np.array([37])
+    return rng.randint(1, 20, 7)  # "short": not one full tile
+
+
+@pytest.mark.parametrize("case", ["coco", "wide", "with_zeros", "zeros", "one", "short",
+                                  "uniform"])
+def test_plan_packs_whole_captions_in_length_order(case):
+    """_plan: every caption lands in exactly one tile, whole, the captions
+    in stable length order, no tile past 256 columns or 256 captions, and
+    never more tiles than floor(256 / W16) whole captions a tile need (W16:
+    the longest caption rounded up to 16); "uniform" checks every uniform
+    length from 1 to 128 (100 captions each)."""
+    mixes = ([np.full(100, n) for n in range(1, 129)] if case == "uniform"
+             else [_plan_counts(case)])
+    for counts in mixes:
+        plan = tak._plan(counts)
+        caps, tiles = plan.caps.astype(np.int64), plan.tiles.astype(np.int64)
+        n = len(counts)
+        assert plan.cols == 256 and plan.n_words == counts.sum()
+        assert sorted(caps[:, 2]) == list(range(n))  # each caption once
+        np.testing.assert_array_equal(caps[:, 1], counts[caps[:, 2]])
+        key = caps[:, 1] * n + caps[:, 2]  # by count, then corpus order
+        assert (np.diff(key) > 0).all()
+        np.testing.assert_array_equal(caps[:, 3], np.concatenate([[0], np.cumsum(caps[:-1, 1])]))
+        assert tiles[0, 1] == 0 and tiles[:, 2].sum() == n and (tiles[:, 2] >= 1).all()
+        assert (tiles[:, 2] <= 256).all()
+        np.testing.assert_array_equal(tiles[1:, 1], np.cumsum(tiles[:-1, 2]))
+        for first, c0, count, _ in tiles:
+            mine = caps[c0:c0 + count]
+            assert first == mine[0, 3]
+            np.testing.assert_array_equal(mine[:, 0], mine[:, 3] - first)  # whole, in order
+            assert mine[-1, 0] + mine[-1, 1] <= 256
+        w16 = -(-max(int(counts.max()), 1) // 16) * 16
+        assert len(tiles) <= -(-n // (256 // w16))

@@ -101,6 +101,70 @@ def test_mrsw_kernel_score_is_shape_independent(cuda):
     assert torch.equal(part, full[3:17, 5:61])
 
 
+def _coco_lengths(n, seed=0):
+    """Caption token counts as the score benchmark draws them: round(9 +
+    Gamma(2, 2.5)), clipped to 8..50."""
+    import numpy as np
+
+    g = np.random.RandomState(seed).gamma(2.0, 2.5, n)
+    return torch.as_tensor(np.clip(np.round(9 + g), 8, 50), device="cuda").long()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.int8])
+def test_mrsw_kernel_packed_coco_mix(cuda, dt):
+    """A COCO-like length mix packs several captions a tile, straddling the
+    epilogue's column quarters: K1 against the plain version (tolerances as
+    above), one launch a bucketed call, and bucketed int8 equals a plain
+    call a bucket with that bucket's scale bit for bit but for the sums."""
+    im, cap, il, _ = _corpus(cuda, 45, 2000, 34, 50, 768)
+    sl = _coco_lengths(2000)
+    got = ak.mrsw_scores(im, cap, il, sl, compute_dtype=dt)
+    want = ak.mrsw_scores_plain(im, cap, il, sl, compute_dtype=dt)
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    else:
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    before = _launches("k1.launches")
+    got = ak.mrsw_scores_bucketed(im, cap, il, sl, compute_dtype=dt)
+    assert _launches("k1.launches") == (before[0] + 1,)
+    plain = lambda *a: ak.mrsw_scores_plain(*a, compute_dtype=dt)  # noqa: E731
+    want = ak.mrsw_scores_bucketed(im, cap, il, sl, scorer=plain)
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    else:
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_mrsw_kernel_caption_score_independent_of_its_tile(cuda):
+    """A caption's bf16 score is bitwise the same scored alone, among 700
+    captions of mixed lengths (1..128 words), and with their order
+    reversed: its place in its tile and its neighbours do not enter."""
+    im, cap, il, _ = _corpus(cuda, 19, 700, 34, 131, 768)
+    sl = torch.randint(4, 132, (700,), generator=cuda, device="cuda")
+    mixed = ak.mrsw_scores(im, cap, il, sl)
+    flipped = ak.mrsw_scores(im, cap.flip(0), il, sl.flip(0)).flip(1)
+    assert torch.equal(mixed, flipped)
+    for c in (0, 17, 350, 699):
+        alone = ak.mrsw_scores(im, cap[c:c + 1], il, sl[c:c + 1])
+        assert torch.equal(alone[:, 0], mixed[:, c])
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.int8])
+def test_mrsw_kernel_zero_and_128_word_captions(cuda, dt):
+    """Captions of 0 valid words (3 tokens or fewer) score exactly 0 and
+    those of 128 (a buffer of 131) fill half a tile; both against the plain
+    version, tolerances as above."""
+    im, cap, il, _ = _corpus(cuda, 21, 40, 34, 131, 768)
+    sl = torch.tensor([3, 131, 0, 131, 2] + [131, 40, 3, 17, 1] * 7, device="cuda")
+    got = ak.mrsw_scores(im, cap, il, sl, compute_dtype=dt)
+    want = ak.mrsw_scores_plain(im, cap, il, sl, compute_dtype=dt)
+    assert torch.equal(got[:, sl <= 3], torch.zeros_like(got[:, sl <= 3]))
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    else:
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
 def test_mrsw_kernel_refuses_f32(cuda):
     with pytest.raises(ValueError, match="score_all_pairs"):
         ak.mrsw_scores(*_corpus(cuda, 2, 3, 5, 6, 128), compute_dtype=torch.float32)

@@ -131,17 +131,18 @@ def test_bucketed_scoring_spans_and_launched_ops(tmp_path):
     n_im, r, n_cap, w, d = 3, 6, 12, 40, 8
     im, cap = torch.randn(n_im, r, d, generator=gen), torch.randn(n_cap, w, d, generator=gen)
     il = torch.tensor([6, 4, 5])
-    # four captions each in the 16-, 32- and 40-slot buckets (48 capped at W 40)
+    # four captions each in the 16-, 32- and 40-slot buckets (48 capped at W 40), all in
+    # one call of the packed scorer
     cl = torch.tensor([5, 20, 37] * 4)
     want = ak.mrsw_scores_bucketed(im, cap, il, cl, compute_dtype=torch.bfloat16)
     got, events, counted = traced(
         lambda: ak.mrsw_scores_bucketed(im, cap, il, cl, compute_dtype=torch.bfloat16), tmp_path)
     assert torch.equal(want, got)
     assert len(annotations(events, "mrsw.bucketed")) == 1
-    assert len(annotations(events, "mrsw.call")) == 3
-    # after stripping: R - 1 regions, a bucket's width - 3 words
-    assert counted["mrsw.launched_ops"] == 2 * d * n_im * (r - 1) * 4 * ((16 - 3) + (32 - 3)
-                                                                         + (40 - 3))
+    assert len(annotations(events, "mrsw.call")) == 1
+    # after stripping: R - 1 regions; the 4 x (2 + 17 + 34) valid words fit
+    # one tile of 256 columns
+    assert counted["mrsw.launched_ops"] == 2 * d * n_im * (r - 1) * 1 * 256
     assert counted["k1.launches"] == 0  # CPU tensors launch no kernel
 
 

@@ -2,24 +2,30 @@
 """Time source variants of the MrSw kernel (K1, csrc/mrsw_kernel.cu) on one
 CUDA card, at the 5k x 25k benchmark shape (S_im 34, S_s 50, D 768).
 
-    python3 tools/k1_variants.py
+    python3 tools/k1_variants.py [--lengths uniform|coco]
 
 Each variant is the kernel source with one design constant changed (ring
 depth, band of image pairs, how many chunks of wgmma a consumer keeps in
-flight). All are built with nvcc in parallel, run on the same prepared
-operands, checked bit for bit against the unchanged kernel, and timed with
-CUDA events (mean of 2 launches after one warm-up). The unchanged kernel
-runs first and last, so the two give the run's spread. Prints one JSON line
-per (dtype, variant), then the card's name and power limit.
+flight, the row stride of the epilogue's column maxima). All are built with
+nvcc in parallel, run on the same prepared operands, checked bit for bit
+against the unchanged kernel, and timed with CUDA events (mean of 2
+launches after one warm-up). The unchanged kernel runs first and last, so
+the two give the run's spread. Caption lengths: uniform 4..50 tokens
+(``chip_smoke.corpus``), or ``coco``, round(9 + Gamma(2, 2.5)) clipped to
+8..50 as the score benchmark draws them. Prints one JSON line per (dtype,
+variant), then the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {
@@ -28,6 +34,8 @@ VARIANTS = {
     "band 2": [("constexpr int kBand = 4;", "constexpr int kBand = 2;")],
     "band 8": [("constexpr int kBand = 4;", "constexpr int kBand = 8;")],
     "band 16": [("constexpr int kBand = 4;", "constexpr int kBand = 16;")],
+    "column stride 256": [("constexpr int kColStride = kTileCols + 8;",
+                           "constexpr int kColStride = kTileCols;")],
     "one chunk in flight (both types)": [
         ("constexpr bool kOverlap = sizeof(T) == 2;", "constexpr bool kOverlap = true;")],
     "no chunk in flight (both types)": [
@@ -37,6 +45,9 @@ VARIANTS = {
 
 
 def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--lengths", choices=("uniform", "coco"), default="uniform")
+    lengths = p.parse_args().lengths
     sys.path.insert(0, ROOT)
     import torch
 
@@ -70,33 +81,38 @@ def main() -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log}")
         lib = ctypes.CDLL(lib_path)
-        lib.mrsw_scores_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.mrsw_scores_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                                           + [ctypes.c_int] * 4 + [ctypes.c_long, ctypes.c_int]
+                                           + [ctypes.c_void_p])
         libs[name] = lib
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bench = chip_smoke.corpus(gen, 5000, 25000, 34, 50)
+    if lengths == "coco":
+        tokens = 9 + np.random.RandomState(0).gamma(2.0, 2.5, 25000)
+        bench = (*bench[:3], torch.as_tensor(np.clip(np.round(tokens), 8, 50), device="cuda").long())
     for dname, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
-        im, cap, _ = ak._prepare(*bench, dtype)
-        a, b = ak._kernel_operands(im, cap)
+        im, words, _, plan, table = ak._packed(*bench, dtype)
+        a, b = ak._kernel_operands(im, words)
         n_im, r, _ = im.shape
-        n_cap, w, _ = cap.shape
+        n_cap, n_tiles = len(plan.caps), len(plan.tiles)
         want = None
         for name, lib in libs.items():
             out = torch.empty(n_im, n_cap, device="cuda")
 
             def run(lib=lib, out=out):
                 err = lib.mrsw_scores_launch(ak._DTYPE_CODE[dtype], a.data_ptr(), b.data_ptr(),
-                                             out.data_ptr(), n_im, r, n_cap, w, a.shape[1],
+                                             table.data_ptr(), out.data_ptr(), n_im, r, n_cap,
+                                             n_tiles, b.shape[0], a.shape[1],
                                              torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"variant {name!r} failed to launch: {err}")
 
             ms = chip_smoke.cuda_ms(run, 2)
             want = out.clone() if want is None else want
-            chip_smoke.emit({"dtype": dname, "variant": name, "ms": ms,
+            chip_smoke.emit({"dtype": dname, "lengths": lengths, "variant": name, "ms": ms,
                              "equal_to_as_built": bool(torch.equal(out, want))})
-        del im, cap, a, b
+        del im, words, a, b, table
     print(chip_smoke.nvidia_smi_line(), flush=True)
     return 0
 
