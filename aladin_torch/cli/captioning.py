@@ -59,9 +59,10 @@ from aladin_torch.io.checkpoint import load_state_dict_report
 from aladin_torch.io.convert import load_captioner_checkpoint
 from aladin_torch.models.bert_img import BertImgConfig, init_weights
 from aladin_torch.parallel import distributed
-from aladin_torch.tasks.captioning import (BertImageCaptioner, CaptionTensorizer,
+from aladin_torch.tasks.captioning import (BertImageCaptioner, CaptionTensorizer, StepInputs,
                                            _decode_attention_mask, beam_search_decode,
                                            greedy_decode, make_caption_train_step, sample_decode)
+from aladin_torch.tasks.decode_cache import CachedSteps
 from aladin_torch.tasks.task_inputs import ImageFeatureProvider
 from aladin_torch.utils.device import resolve_device
 
@@ -305,10 +306,16 @@ def run(argv=None) -> Dict[str, Any]:  # noqa: C901 - one CLI: train, SCST, deco
     common = dict(max_steps=ns.max_seq_a_length - 1, cls_id=tok.vocab[tok.cls_token],
                   sep_id=tok.vocab[tok.sep_token], mask_id=tok.vocab[tok.mask_token],
                   pad_id=tz.pad_id)
+    # the step source of every decoding policy below (CBS runs its own, full-recompute loop)
+    steps = StepInputs
+    if ns.kv_cache:
+        steps = CachedSteps
+        if ns.use_cbs:
+            logger.warning("--kv_cache has no effect with --use_cbs: the constrained beam "
+                           "search decoder is full-recompute")
 
     scst_losses = []
     if ns.scst_epochs > 0:
-        from aladin_torch.tasks.decode_cache import greedy_decode_cached, sample_decode_cached
         from aladin_torch.tasks.scst import ScstRewardCriterion, make_scst_step
 
         scst = ScstRewardCriterion()
@@ -325,13 +332,8 @@ def run(argv=None) -> Dict[str, Any]:  # noqa: C901 - one CLI: train, SCST, deco
             for s in range(0, len(keys) - sb + 1, sb):
                 sel = order[s: s + sb]
                 inp = build_inputs([keys[j] for j in sel])
-                if ns.kv_cache:
-                    sampled = sample_decode_cached(model, *inp, gen, top_k=ns.scst_top_k,
-                                                   **common)
-                    greedy, _ = greedy_decode_cached(model, *inp, **common)
-                else:
-                    sampled = sample_decode(model, *inp, gen, top_k=ns.scst_top_k, **common)
-                    greedy, _ = greedy_decode(model, *inp, **common)
+                sampled = sample_decode(steps, model, *inp, gen, top_k=ns.scst_top_k, **common)
+                greedy, _ = greedy_decode(steps, model, *inp, **common)
                 adv = scst.rewards(detokenize(tok, sampled.cpu().numpy()),
                                    detokenize(tok, greedy.cpu().numpy()),
                                    [captions[keys[j]] for j in sel]).astype(np.float32)
@@ -341,9 +343,6 @@ def run(argv=None) -> Dict[str, Any]:  # noqa: C901 - one CLI: train, SCST, deco
             scst_losses.append(vals)
             logger.info(f"scst epoch {epoch} loss {np.mean(vals):.4f} "
                         f"mean-advantage {np.mean(rews):.4f} ({time.time() - t0:.1f}s)")
-    if ns.use_cbs and ns.kv_cache:
-        logger.warning("--kv_cache has no effect with --use_cbs: the constrained beam search "
-                       "decoder is full-recompute")
 
     def decode_chunk(ck):
         """Decode one fixed-size batch of image keys -> (len(ck), L) ids."""
@@ -360,19 +359,9 @@ def run(argv=None) -> Dict[str, Any]:  # noqa: C901 - one CLI: train, SCST, deco
                 ns.min_constraints_to_satisfy)
             return toks
         if ns.num_beams > 1:
-            if ns.kv_cache:
-                from aladin_torch.tasks.decode_cache import beam_search_decode_cached
-
-                toks, _ = beam_search_decode_cached(model, *inp, num_beams=ns.num_beams,
-                                                    **common)
-            else:
-                toks, _ = beam_search_decode(model, *inp, num_beams=ns.num_beams, **common)
-        elif ns.kv_cache:
-            from aladin_torch.tasks.decode_cache import greedy_decode_cached
-
-            toks, _ = greedy_decode_cached(model, *inp, **common)
+            toks, _ = beam_search_decode(steps, model, *inp, num_beams=ns.num_beams, **common)
         else:
-            toks, _ = greedy_decode(model, *inp, **common)
+            toks, _ = greedy_decode(steps, model, *inp, **common)
         return toks.cpu().numpy()
 
     # decode every image once in fixed-size batches (the tail padded to the

@@ -19,7 +19,8 @@ import torch
 
 from aladin_torch.eval.recall import ranks_from_score_matrix, recall_metrics
 from aladin_torch.ops.alignment import score_all_pairs
-from aladin_torch.ops.kernels.alignment_kernel import mrsw_scores, mrsw_scores_bucketed
+from aladin_torch.ops.kernels.alignment_kernel import (caption_buckets, mrsw_scores,
+                                                      mrsw_scores_bucketed)
 
 
 def ndcg_from_scores(scores: torch.Tensor, ndcg_scorer, fold_index: int,
@@ -58,6 +59,25 @@ def retrieval_metrics_from_scores(
     return i2t, t2i
 
 
+def score_by_caption_bucket(score_fn: Callable, ims: torch.Tensor, caps: torch.Tensor,
+                            il: torch.Tensor, cl: torch.Tensor) -> torch.Tensor:
+    """(N_im, N_cap) f32 scores of ``score_fn(ims, caps, il, cl)`` called
+    once a bucket of ``caption_buckets``, narrowest first, on the bucket's
+    captions sliced to its width, the columns put back in corpus order; one
+    call on the whole corpus when a single full-width bucket remains. The
+    calls of aladin_tpu's ``mrsw_scores_bucketed(scorer=...)``."""
+    w = caps.shape[1]
+    _, bucket, kept = caption_buckets(cl.cpu().numpy(), w)
+    if len(kept) == 1 and kept[0] == w:
+        return score_fn(ims, caps, il, cl)
+    out = torch.zeros(ims.shape[0], caps.shape[0], dtype=torch.float32, device=ims.device)
+    for i, width in enumerate(kept):
+        t = torch.as_tensor(np.nonzero(bucket == i)[0], device=ims.device)
+        out[:, t] = score_fn(ims, caps.index_select(0, t)[:, :width], il,
+                             cl.index_select(0, t)).float()
+    return out
+
+
 def evaluate_alignment_head(
         img_sets, cap_seqs, img_lens, cap_lens, aggregation: str = "MrSw",
         captions_per_image: int = 5, compute_dtype=None, device="cuda",
@@ -71,11 +91,11 @@ def evaluate_alignment_head(
     the CPU as the kernel's plain version); otherwise
     ``ops.alignment.score_all_pairs`` scores in f32. ``compute_dtype``:
     torch.bfloat16 (default) or torch.int8. The caption axis is bucketed
-    when that saves >= 25% of the padded word slots. ``ndcg_scorer``: a
-    DCG scorer for the NDCG fields (None: 0). ``score_fn(ims, caps, il,
-    cl)`` replaces the scorer, as in aladin_tpu (a corpus-sharded one:
-    ``parallel/mesh.py::sharded_mrsw_scores``); with bucketing it scores
-    each bucket.
+    (``caption_buckets``) when that saves >= 25% of the padded word slots.
+    ``ndcg_scorer``: a DCG scorer for the NDCG fields (None: 0).
+    ``score_fn(ims, caps, il, cl)`` replaces the scorer, as in aladin_tpu
+    (a corpus-sharded one: ``parallel/mesh.py::sharded_mrsw_scores``);
+    with bucketing it scores each bucket (``score_by_caption_bucket``).
     """
     device = torch.device(device)
     if compute_dtype is None:
@@ -87,13 +107,12 @@ def evaluate_alignment_head(
     caps = torch.as_tensor(np.asarray(cap_seqs), dtype=torch.float32, device=device)
     cl = torch.as_tensor(np.asarray(cap_lens), device=device)
 
-    mean_bucket = np.minimum(
-        np.ceil(np.maximum(np.asarray(cap_lens), 4) / 16.0) * 16, caps.shape[1]).mean()
-    bucket_captions = mean_bucket <= 0.75 * caps.shape[1]
+    bucket_captions = (caption_buckets(cap_lens, caps.shape[1])[0].mean()
+                       <= 0.75 * caps.shape[1])
 
     if score_fn is not None:
         if bucket_captions:
-            scores = mrsw_scores_bucketed(ims, caps, il, cl, scorer=score_fn)
+            scores = score_by_caption_bucket(score_fn, ims, caps, il, cl)
         else:
             scores = score_fn(ims, caps, il, cl)
     elif aggregation == "MrSw" and use_kernel:

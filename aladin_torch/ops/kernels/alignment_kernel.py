@@ -1,5 +1,6 @@
 """Fused MrSw all-pairs scoring: the CUDA kernel, its plain version, and the
-length-bucketed scorer (mirrors aladin_tpu/ops/pallas/alignment_kernel.py).
+caption-length rule of bucketed scoring (mirrors
+aladin_tpu/ops/pallas/alignment_kernel.py).
 
 ``mrsw_scores`` has the contract of ``aladin_tpu``'s ``mrsw_scores_pallas``:
 UN-stripped token sets with lengths that include the special tokens, and a
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,24 +84,6 @@ def _prepare(im_set, s_seq, im_len, s_len, compute_dtype):
 def _check_dtype(compute_dtype):
     if compute_dtype not in (torch.bfloat16, torch.int8, torch.float32):
         raise ValueError(f"compute_dtype must be bfloat16, int8 or float32, got {compute_dtype}")
-
-
-def _plain_core(im: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
-    """sum_w max_r <im[i, r], cap[c, w]> over prepared operands, in f32."""
-    n_im, r, d = im.shape
-    n_cap, w, _ = cap.shape
-    flat = im.float().reshape(n_im * r, d)
-    out = torch.empty(n_im, n_cap, dtype=torch.float32, device=im.device)
-    block = max(1, _PLAIN_BLOCK_ELEMS // max(1, n_im * r * w))
-    for s in range(0, n_cap, block):
-        blk = cap[s:s + block].float()
-        align = (flat @ blk.reshape(-1, d).T).reshape(n_im, r, blk.shape[0], w)
-        word_max = align.amax(dim=1)
-        if im.dtype == torch.int8:  # exact integer sums, as the kernel's int32
-            out[:, s:s + block] = word_max.double().sum(dim=-1).float()
-        else:
-            out[:, s:s + block] = word_max.sum(dim=-1)
-    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -382,108 +365,35 @@ def _packed(im_set, s_seq, im_len, s_len, compute_dtype, groups=None, lens=None)
     return im, words, descale, plan, table
 
 
-def _merge_slivers(widths: np.ndarray, min_count: float) -> list:
-    """Bucket widths to keep: every width holding >= min_count members, plus
-    the widest; members of a dropped width move up to the next kept one
-    (in place)."""
-    uniq, count = np.unique(widths, return_counts=True)
-    keep = [int(u) for u, n in zip(uniq, count) if n >= min_count]
-    if not keep or keep[-1] != int(uniq[-1]):
-        keep.append(int(uniq[-1]))
-    widths[:] = np.asarray(keep)[np.searchsorted(keep, widths)]
-    return keep
+def caption_buckets(lens, w: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The caption-length rule of bucketed MrSw scoring, aladin_tpu's:
+    (width (N,), bucket (N,), kept (K,)) of captions of ``lens`` tokens
+    (special tokens included) in a buffer of ``w`` slots. A caption is
+    ``min(ceil(max(len, 4) / 16) * 16, w)`` slots wide; widths holding
+    under 4% of the captions merge into the next wider kept width, and the
+    widest is always kept. ``bucket`` indexes ``kept``: the narrowest kept
+    width that holds the caption."""
+    width = np.minimum(-(-np.maximum(np.asarray(lens, np.int64), 4) // 16) * 16, w)
+    uniq, count = np.unique(width, return_counts=True)
+    kept = uniq[(count >= 0.04 * width.size) | (uniq == uniq[-1])]
+    return width, np.searchsorted(kept, width), kept
 
 
 def mrsw_scores_bucketed(im_set: torch.Tensor, s_seq: torch.Tensor, im_len: torch.Tensor,
-                         s_len: torch.Tensor, *, bucket_multiple: int = 16,
-                         min_bucket_frac: float = 0.04, scorer=None, bucket_images: bool = False,
-                         image_bucket_multiple: int = 8, **kernel_kw) -> torch.Tensor:
-    """Length-bucketed MrSw scoring.
+                         s_len: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Length-bucketed MrSw scoring: one ``_scores`` call, after one read of
+    the lengths to the host. K1's plan packs only valid words, so how the
+    captions are grouped does not change its work, and bf16 (f32 on the
+    CPU) scores equal ``mrsw_scores``'s bit for bit. The buckets of
+    ``caption_buckets`` survive as int8's caption scales, one a bucket (as
+    a call a bucket has them in aladin_tpu), so int8 agrees with
+    unbucketed scoring only to within rounding.
 
-    Caption axis: captions are grouped by ceil(max(len, 4)/16)*16 slots
-    (capped at the buffer). With the default scorer every caption goes to
-    one ``mrsw_scores`` call, whose plan packs only valid words anyway; the
-    buckets survive as int8's caption scales, one a bucket (as a call a
-    bucket has them in aladin_tpu), so int8 agrees with unbucketed scoring
-    only to within rounding while float scores are identical. A
-    ``scorer`` is called once a bucket, on its columns sliced to that
-    width, and the columns go back to corpus order.
-
-    Image axis (``bucket_images``, off by default as in aladin_tpu): rows
-    are grouped by ceil((stripped + 1)/8)*8 region slots, capped at the
-    buffer, so every image shorter than the buffer keeps at least one zero
-    row and with it the reference's zero floor; a call a row bucket.
-
-    Buckets holding fewer than ``min_bucket_frac`` of their axis merge into
-    the next wider one. ``kernel_kw``: ``compute_dtype`` of the default scorer.
-
-    The call is the span ``mrsw.bucketed``, each scorer call inside it the
+    The call is the span ``mrsw.bucketed``, the scorer call inside it the
     span ``mrsw.call`` (``utils/profiling.py``).
     """
     with profiling.span("mrsw.bucketed"):
-        return _bucketed(im_set, s_seq, im_len, s_len, bucket_multiple, min_bucket_frac, scorer,
-                         bucket_images, image_bucket_multiple, kernel_kw)
-
-
-def _bucketed(im_set, s_seq, im_len, s_len, bucket_multiple, min_bucket_frac, scorer,
-              bucket_images, image_bucket_multiple, kernel_kw, lens=None) -> torch.Tensor:
-    n_cap, w, _ = s_seq.shape
-    n_im = im_set.shape[0]
-    device = im_set.device
-    if lens is None:
         lens = s_len.cpu().numpy()
-
-    if bucket_images and n_im > 1:
-        r_buf = im_set.shape[1]
-        stripped = np.maximum(im_len.cpu().numpy() - 1, 1)
-        iw = np.minimum(
-            np.ceil((stripped + 1) / image_bucket_multiple).astype(np.int64) * image_bucket_multiple,
-            r_buf - 1,
-        )
-        keep_i = _merge_slivers(iw, min_bucket_frac * n_im)
-        if not (len(keep_i) == 1 and keep_i[0] == r_buf - 1):
-            row_blocks, row_order = [], []
-            for width in keep_i:
-                ridx = np.nonzero(iw == width)[0]
-                if ridx.size == 0:
-                    continue
-                t = torch.as_tensor(ridx, device=device)
-                # slot 0 (the stripped special slot) + width region slots
-                row_blocks.append(_bucketed(
-                    im_set.index_select(0, t)[:, :width + 1], s_seq,
-                    im_len.index_select(0, t), s_len, bucket_multiple, min_bucket_frac, scorer,
-                    False, image_bucket_multiple, kernel_kw, lens).float())
-                row_order.append(ridx)
-            inv = np.empty(n_im, np.int64)
-            inv[np.concatenate(row_order)] = np.arange(n_im)
-            return torch.cat(row_blocks, dim=0)[torch.as_tensor(inv, device=device)]
-
-    if set(kernel_kw) - {"compute_dtype"}:
-        raise TypeError(f"unexpected arguments {sorted(set(kernel_kw) - {'compute_dtype'})}")
-    dtype = kernel_kw.get("compute_dtype", torch.bfloat16)
-    if scorer is None and dtype != torch.int8:
+        groups = caption_buckets(lens, s_seq.shape[1])[1] if compute_dtype == torch.int8 else None
         with profiling.span("mrsw.call"):
-            return _scores(im_set, s_seq, im_len, s_len, dtype, None, lens)
-    widths = np.minimum(
-        np.ceil(np.maximum(lens, 4) / bucket_multiple).astype(np.int64) * bucket_multiple, w,
-    )
-    keep = _merge_slivers(widths, min_bucket_frac * n_cap)
-    if scorer is None:
-        with profiling.span("mrsw.call"):
-            return _scores(im_set, s_seq, im_len, s_len, dtype, np.searchsorted(keep, widths),
-                           lens)
-    if len(keep) == 1 and keep[0] == w:
-        with profiling.span("mrsw.call"):
-            return scorer(im_set, s_seq, im_len, s_len)
-
-    out = torch.zeros(n_im, n_cap, dtype=torch.float32, device=device)
-    for width in keep:
-        idx = np.nonzero(widths == width)[0]
-        if idx.size == 0:
-            continue
-        t = torch.as_tensor(idx, device=device)
-        caps, lens_b = s_seq.index_select(0, t)[:, :width], s_len.index_select(0, t)
-        with profiling.span("mrsw.call"):
-            got = scorer(im_set, caps, im_len, lens_b)
-        out[:, t] = got.float()
-    return out
+            return _scores(im_set, s_seq, im_len, s_len, compute_dtype, groups, lens)

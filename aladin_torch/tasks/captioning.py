@@ -21,13 +21,16 @@ CaptionTensorizer):
   * decoding is masked-LM style: position t holds [MASK]; its logits emit
     token t.
 
-Decoding recomputes the whole static forward every step, as aladin_tpu's
+Decoding: one loop a policy (greedy, sampling, fixed-width beam search),
+each over a step source class that gives a step's logits. ``StepInputs``
+recomputes the whole static forward every step, as aladin_tpu's
 ``lax.scan`` decoders do, in a plain Python loop over the same static
 shapes: the caption buffer is pre-filled with [MASK], the causal triangle
 makes the logits at position t depend only on tokens < t, and step t writes
 position t. The MLM head runs only on position t's row (each row's numbers
-are those of taking row t from every text position). The KV-cached engine
-is tasks/decode_cache.py; CBS grafts onto the beam step (tasks/cbs.py).
+are those of taking row t from every text position). The KV-cached source
+is tasks/decode_cache.py's ``CachedSteps``; CBS runs its own
+state-partitioned loop over ``StepInputs`` (tasks/cbs.py).
 
 Ties: ``argmax`` takes the lower index, as ``jnp.argmax``, and every top-k
 goes through ``ops/topk.py::top_k`` (the lower index first on equal
@@ -43,6 +46,7 @@ with the loss sums; drop-worst sorts the global batch's per-token losses
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -348,44 +352,68 @@ def finished_pad_row(v: int, pad_id: int, device) -> torch.Tensor:
 
 
 class StepInputs:
-    """The constant parts of the decode forward: the token types of
-    [caption | OD labels] and the OD-label ids, beside the mask and
-    features."""
+    """The full-recompute step source: the constant parts of the decode
+    forward (the token types of [caption | OD labels] and the OD-label ids,
+    beside the mask and features), each tiled ``beams`` times (the beams of
+    an example are consecutive rows). Puts the model in eval mode.
 
-    def __init__(self, od_ids, od_seg, img_feats, attn_mask, max_seq_a: int):
+    A step source gives the (rows, V) f32 logits at caption position ``t``
+    (``logits(cap, t, prev)``, ``prev`` the token at t - 1) and follows a
+    beam expansion (``reorder(rows)``); ``span()`` is the context a whole
+    decode over it runs in. The full step reads the whole (reordered)
+    ``cap``, and its inputs are beam-invariant within an example, so its
+    reorder does nothing and ``prev`` is not read. ``mask_id`` is the
+    cached source's (the [MASK] probes are already in ``cap`` here)."""
+
+    span = contextlib.nullcontext  # a full-recompute decode is no span of its own
+
+    def __init__(self, model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
+                 max_seq_a: int, *, mask_id: Optional[int] = None, beams: int = 1):
+        if beams > 1:
+            od_ids, od_seg, img_feats, attn_mask = (
+                x.repeat_interleave(beams, dim=0) for x in (od_ids, od_seg, img_feats, attn_mask))
         b = od_ids.shape[0]
+        self.model = model.eval()
         self.od_ids = od_ids.long()
         self.seg = torch.cat([torch.zeros(b, max_seq_a, dtype=torch.long, device=od_ids.device),
                               od_seg.long()], dim=1)
         self.feats, self.mask = img_feats, attn_mask
 
-    def logits(self, model: BertImageCaptioner, cap: torch.Tensor, t: int) -> torch.Tensor:
-        """(B, V) f32 logits at caption position ``t``."""
+    def logits(self, cap: torch.Tensor, t: int, prev: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """(rows, V) f32 logits at caption position ``t`` of ``cap``."""
         ids = torch.cat([cap, self.od_ids], dim=1)
-        return model(ids, self.mask, self.seg, self.feats, positions=t)
+        return self.model(ids, self.mask, self.seg, self.feats, positions=t)
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        pass
 
 
 @torch.no_grad()
-def greedy_decode(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask, *,
+def greedy_decode(steps, model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask, *,
                   max_steps: int, cls_id: int, sep_id: int, mask_id: int, pad_id: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy masked-LM decode in eval mode (the model is left in it).
-    Returns (tokens (B, max_steps + 1), summed log-probs (B,))."""
-    model.eval()
+    """Greedy masked-LM decode over the step source class ``steps``
+    (``StepInputs``, or ``tasks/decode_cache.py::CachedSteps``) in eval mode
+    (the model is left in it). Returns (tokens (B, max_steps + 1), summed
+    log-probs (B,))."""
     b, s = img_feats.shape[0], max_steps + 1
-    inp = StepInputs(od_ids, od_seg, img_feats, attn_mask, s)
-    cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
-    finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
-    logprob = torch.zeros(b, device=cap.device)
-    for t in range(1, s):
-        logp = F.log_softmax(inp.logits(model, cap, t), dim=-1)
-        tok = logp.argmax(dim=-1)
-        tok_lp = logp.gather(1, tok[:, None])[:, 0]
-        tok = torch.where(finished, pad_id, tok)
-        logprob += torch.where(finished, 0.0, tok_lp)
-        cap[:, t] = tok  # PAD for finished rows
-        finished |= tok == sep_id
-    return cap, logprob
+    with steps.span():
+        src = steps(model, od_ids, od_seg, img_feats, attn_mask, s, mask_id=mask_id)
+        cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
+        finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
+        logprob = torch.zeros(b, device=cap.device)
+        prev = cap[:, 0].clone()
+        for t in range(1, s):
+            logp = F.log_softmax(src.logits(cap, t, prev), dim=-1)
+            tok = logp.argmax(dim=-1)
+            tok_lp = logp.gather(1, tok[:, None])[:, 0]
+            tok = torch.where(finished, pad_id, tok)
+            logprob += torch.where(finished, 0.0, tok_lp)
+            cap[:, t] = tok  # PAD for finished rows
+            finished |= tok == sep_id
+            prev = tok
+        return cap, logprob
 
 
 def beam_step(scores: torch.Tensor, step_logp: torch.Tensor, finished: torch.Tensor,
@@ -417,31 +445,35 @@ def best_beam(cap, scores, lengths, b: int, k: int, length_penalty: float):
 
 
 @torch.no_grad()
-def beam_search_decode(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask, *,
-                       max_steps: int, num_beams: int = 5, cls_id: int, sep_id: int,
+def beam_search_decode(steps, model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
+                       *, max_steps: int, num_beams: int = 5, cls_id: int, sep_id: int,
                        mask_id: int, pad_id: int, length_penalty: float = 1.0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fixed-width beam search (beams folded into the batch) in eval mode.
-    Returns the best (tokens (B, max_steps + 1), length-normalized score)
-    per example - the capability of the reference's _generate_beam_search
-    (ref:oscar/modeling/modeling_utils.py) with static shapes."""
-    model.eval()
+    """Fixed-width beam search (beams folded into the batch) over the step
+    source class ``steps`` in eval mode; the source follows each expansion's
+    source rows. Returns the best (tokens (B, max_steps + 1),
+    length-normalized score) per example - the capability of the
+    reference's _generate_beam_search (ref:oscar/modeling/modeling_utils.py)
+    with static shapes."""
     b, k, s = img_feats.shape[0], num_beams, max_steps + 1
-    tile = lambda x: x.repeat_interleave(k, dim=0)  # noqa: E731
-    inp = StepInputs(tile(od_ids), tile(od_seg), tile(img_feats), tile(attn_mask), s)
-    cap = initial_caption(b * k, s, cls_id, mask_id, img_feats.device)
-    scores = initial_beam_scores(b, k, cap.device)
-    finished = torch.zeros(b * k, dtype=torch.bool, device=cap.device)
-    lengths = torch.ones(b * k, dtype=torch.long, device=cap.device)
-    for t in range(1, s):
-        logp = F.log_softmax(inp.logits(model, cap, t), dim=-1)
-        top_scores, rows, tok = beam_step(scores, logp, finished, b, k, pad_id)
-        cap, finished, lengths = cap[rows], finished[rows], lengths[rows]
-        cap[:, t] = torch.where(finished, pad_id, tok)
-        lengths = torch.where(finished, lengths, lengths + 1)
-        finished = finished | (tok == sep_id)
-        scores = top_scores.reshape(-1)
-    return best_beam(cap, scores, lengths, b, k, length_penalty)
+    with steps.span():
+        src = steps(model, od_ids, od_seg, img_feats, attn_mask, s, mask_id=mask_id, beams=k)
+        cap = initial_caption(b * k, s, cls_id, mask_id, img_feats.device)
+        scores = initial_beam_scores(b, k, cap.device)
+        finished = torch.zeros(b * k, dtype=torch.bool, device=cap.device)
+        lengths = torch.ones(b * k, dtype=torch.long, device=cap.device)
+        prev = cap[:, 0].clone()
+        for t in range(1, s):
+            logp = F.log_softmax(src.logits(cap, t, prev), dim=-1)
+            top_scores, rows, tok = beam_step(scores, logp, finished, b, k, pad_id)
+            cap, finished, lengths = cap[rows], finished[rows], lengths[rows]
+            src.reorder(rows)
+            prev = torch.where(finished, pad_id, tok)
+            cap[:, t] = prev
+            lengths = torch.where(finished, lengths, lengths + 1)
+            finished = finished | (tok == sep_id)
+            scores = top_scores.reshape(-1)
+        return best_beam(cap, scores, lengths, b, k, length_penalty)
 
 
 def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -454,26 +486,30 @@ def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tenso
 
 
 @torch.no_grad()
-def sample_decode(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
+def sample_decode(steps, model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
                   generator: torch.Generator, *, max_steps: int, cls_id: int, sep_id: int,
                   mask_id: int, pad_id: int, top_k: int = 0, top_p: float = 1.0,
                   temperature: float = 1.0) -> torch.Tensor:
-    """Stochastic masked-LM decode in eval mode (the SCST sampling pass,
-    ref:oscar/run_captioning.py:522-580 capability): like greedy_decode but
-    each step draws from the (top-k / top-p filtered) softmax. Returns token
-    rows (B, max_steps + 1); the policy gradient's log-probs come from
-    token_logprobs."""
-    model.eval()
+    """Stochastic masked-LM decode over the step source class ``steps`` in
+    eval mode (the SCST sampling pass, ref:oscar/run_captioning.py:522-580
+    capability): like greedy_decode but each step draws from the (top-k /
+    top-p filtered) softmax, one uniform row a step from ``generator``, so
+    the same generator state and the same logits give the same caption
+    whatever the source. Returns token rows (B, max_steps + 1); the policy
+    gradient's log-probs come from token_logprobs."""
     b, s = img_feats.shape[0], max_steps + 1
-    inp = StepInputs(od_ids, od_seg, img_feats, attn_mask, s)
-    cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
-    finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
-    for t in range(1, s):
-        logits = top_k_top_p_filtering(inp.logits(model, cap, t) / temperature, top_k, top_p)
-        tok = torch.where(finished, pad_id, categorical(logits, generator))
-        cap[:, t] = tok
-        finished |= tok == sep_id
-    return cap
+    with steps.span():
+        src = steps(model, od_ids, od_seg, img_feats, attn_mask, s, mask_id=mask_id)
+        cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
+        finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
+        prev = cap[:, 0].clone()
+        for t in range(1, s):
+            logits = top_k_top_p_filtering(src.logits(cap, t, prev) / temperature, top_k, top_p)
+            tok = torch.where(finished, pad_id, categorical(logits, generator))
+            cap[:, t] = tok
+            finished |= tok == sep_id
+            prev = tok
+        return cap
 
 
 def token_logprobs(model: BertImageCaptioner, tokens: torch.Tensor, od_ids, od_seg, img_feats,
@@ -487,15 +523,14 @@ def token_logprobs(model: BertImageCaptioner, tokens: torch.Tensor, od_ids, od_s
     (B, T)) over positions 1..max_seq_a-1; padding tokens are masked out.
     This is the gradient path of SCST: loss = -advantage * sum(logprobs *
     mask)."""
-    model.eval()
     tokens = tokens.long()
-    b, s = tokens.shape
-    inp = StepInputs(od_ids, od_seg, img_feats, attn_mask, s)
+    s = tokens.shape[1]
+    inp = StepInputs(model, od_ids, od_seg, img_feats, attn_mask, s)
     pos = torch.arange(s, device=tokens.device)[None, :]
 
     def logp_at(t: int) -> torch.Tensor:
         cap = torch.where(pos < t, tokens, mask_id)
-        step_logp = F.log_softmax(inp.logits(model, cap, t), dim=-1)
+        step_logp = F.log_softmax(inp.logits(cap, t), dim=-1)
         return step_logp.gather(1, tokens[:, t:t + 1])[:, 0]
 
     lps = torch.stack([checkpoint(logp_at, t, use_reentrant=False) for t in range(1, s)], dim=1)

@@ -221,12 +221,10 @@ def cbs_decode(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
     ``next_state`` (B, S, V). Returns (tokens (B, S, K, L), scores (B, S, K),
     finished (B, S, K)); callers pick the best beam among sufficiently
     constrained states with select_best_beam_with_constraints."""
-    model.eval()
     b = img_feats.shape[0]
     s, k = num_states, num_beams
     g, length = b * s * k, max_steps + 1
-    tile = lambda x: x.repeat_interleave(s * k, dim=0)  # noqa: E731
-    inp = StepInputs(tile(od_ids), tile(od_seg), tile(img_feats), tile(attn_mask), length)
+    inp = StepInputs(model, od_ids, od_seg, img_feats, attn_mask, length, beams=s * k)
     dev = img_feats.device
     cap = initial_caption(g, length, cls_id, mask_id, dev).reshape(b, s, k, length)
     scores = torch.full((b, s, k), -1e9, device=dev)
@@ -236,7 +234,7 @@ def cbs_decode(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
     own_state = torch.arange(s, device=dev)[None, :, None, None]
     bidx = torch.arange(b, device=dev)[:, None, None]
     for t in range(1, length):
-        logp = F.log_softmax(inp.logits(model, cap.reshape(g, length), t), dim=-1)
+        logp = F.log_softmax(inp.logits(cap.reshape(g, length), t), dim=-1)
         v = logp.shape[-1]
         logp = logp.reshape(b, s, k, v)
         logp = torch.where(finished[..., None], finished_pad_row(v, pad_id, dev), logp)

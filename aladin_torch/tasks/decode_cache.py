@@ -47,27 +47,31 @@ rejected at prefill.
 Beam search gathers the caption slots by source beam each step; the
 context slots are beam-invariant and never reordered.
 
-``greedy_decode_cached`` is the one entry point of cached greedy
-captioning, whatever the model: a model with a latent cache (Kimi-VL) goes
-to ``tasks/decode_latent.py`` (imported at its first call), the BertImg
-captioner to ``greedy_decode_bert``. A change to cached decoding made
-behind this name reaches both models' callers.
+``CachedSteps`` is the cache as a step source: the decoding policies of
+``tasks/captioning.py`` (greedy, sampling, beam search) run over it as
+they run over the full recompute. ``greedy_decode_cached`` is the one
+entry point of cached greedy captioning, whatever the model: a model with
+a latent cache (Kimi-VL) goes to ``tasks/decode_latent.py`` (imported at
+its first call), the BertImg captioner to the greedy policy over
+``CachedSteps``. A change to cached decoding made behind this name reaches
+both models' callers.
 
-Spans (``utils/profiling.py``): ``decode.cached`` around each decoder's
-body, ``decode.prefill`` and ``decode.step``; ``decode.kv_bytes`` counts
+Spans (``utils/profiling.py``): ``decode.cached`` around each cached
+decode, ``decode.prefill`` and ``decode.step``; ``decode.kv_bytes`` counts
 the bytes of cached K and V each step's attention reads.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from aladin_torch.tasks.captioning import (BertImageCaptioner, beam_step, best_beam, categorical,
-                                           initial_beam_scores, initial_caption,
-                                           top_k_top_p_filtering)
+# initial_caption stays a name of this module: h100_bench's caption faults
+# build their captions with it
+from aladin_torch.tasks.captioning import (BertImageCaptioner, greedy_decode,  # noqa: F401
+                                           initial_caption)
 from aladin_torch.utils import profiling
 
 NEG_BIAS = -10000.0  # additive mask constant (ref:modeling_bert.py:226)
@@ -171,100 +175,46 @@ def decode_step(model: BertImageCaptioner, cache: DecodeCache, prev_tok: torch.T
         return model.head(x[:, 1])  # the MASK probe -> (B, V)
 
 
+class CachedSteps:
+    """The KV-cache step source of the decoding policies in
+    ``tasks/captioning.py`` (see ``StepInputs`` for the protocol): prefills
+    at construction, then runs ``decode_step`` once a step on ``prev``,
+    looked up in this module at each call. With ``beams`` > 1 the prefill
+    runs on the B originals (the context is beam-invariant) and its K/V are
+    repeated across the beams; ``reorder`` is ``reorder_caption_slots``. A
+    decode over it is one ``decode.cached`` span."""
+
+    span = functools.partial(profiling.span, "decode.cached")
+
+    def __init__(self, model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
+                 max_seq_a: int, *, mask_id: int, beams: int = 1):
+        cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, max_seq_a)
+        if beams > 1:
+            cache = DecodeCache(cache.k.repeat_interleave(beams, dim=1),
+                                cache.v.repeat_interleave(beams, dim=1),
+                                cache.ctx_mask.repeat_interleave(beams, dim=0),
+                                cache.key_pos.repeat_interleave(beams, dim=0))
+        self.model, self.cache, self.mask_id = model, cache, mask_id
+
+    def logits(self, cap: torch.Tensor, t: int, prev: torch.Tensor) -> torch.Tensor:
+        return decode_step(self.model, self.cache, prev, t, mask_id=self.mask_id)
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        reorder_caption_slots(self.cache, rows)
+
+
 def greedy_decode_cached(model, *inputs, **options) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached greedy decode by the model's kind of cache: a model with a
     latent cache (``latent_cache``, Kimi-VL's language model) goes to
     ``tasks/decode_latent.py::greedy_decode`` (input_ids, image_embeds,
     attention_mask; max_steps), the BertImg captioner to
-    ``greedy_decode_bert``."""
+    ``tasks/captioning.py::greedy_decode`` over ``CachedSteps`` (the inputs
+    and outputs of that decoder)."""
     if getattr(model, "latent_cache", False):
         from aladin_torch.tasks import decode_latent
 
         return decode_latent.greedy_decode(model, *inputs, **options)
-    return greedy_decode_bert(model, *inputs, **options)
-
-
-@torch.no_grad()
-def greedy_decode_bert(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask, *,
-                       max_steps: int, cls_id: int, sep_id: int, mask_id: int, pad_id: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """KV-cached greedy decode: the outputs of tasks.captioning.greedy_decode
-    (tokens (B, max_steps + 1), summed log-probs)."""
-    with profiling.span("decode.cached"):
-        b, s = img_feats.shape[0], max_steps + 1
-        cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-        cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
-        finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
-        logprob = torch.zeros(b, device=cap.device)
-        prev = cap[:, 0].clone()
-        for t in range(1, s):
-            logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
-            tok = logp.argmax(dim=-1)
-            tok_lp = logp.gather(1, tok[:, None])[:, 0]
-            tok = torch.where(finished, pad_id, tok)
-            logprob += torch.where(finished, 0.0, tok_lp)
-            cap[:, t] = tok
-            finished |= tok == sep_id
-            prev = tok
-        return cap, logprob
-
-
-@torch.no_grad()
-def sample_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
-                         generator: torch.Generator, *, max_steps: int, cls_id: int,
-                         sep_id: int, mask_id: int, pad_id: int, top_k: int = 0,
-                         top_p: float = 1.0, temperature: float = 1.0) -> torch.Tensor:
-    """KV-cached stochastic decode: the same draws from ``generator`` (one
-    uniform row a step) as tasks.captioning.sample_decode, so the same
-    generator state and the same logits give the same caption. Returns
-    token rows (B, max_steps + 1)."""
-    with profiling.span("decode.cached"):
-        b, s = img_feats.shape[0], max_steps + 1
-        cache = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-        cap = initial_caption(b, s, cls_id, mask_id, img_feats.device)
-        finished = torch.zeros(b, dtype=torch.bool, device=cap.device)
-        prev = cap[:, 0].clone()
-        for t in range(1, s):
-            logits = decode_step(model, cache, prev, t, mask_id=mask_id)
-            logits = top_k_top_p_filtering(logits / temperature, top_k, top_p)
-            tok = torch.where(finished, pad_id, categorical(logits, generator))
-            cap[:, t] = tok
-            finished |= tok == sep_id
-            prev = tok
-        return cap
-
-
-@torch.no_grad()
-def beam_search_decode_cached(model: BertImageCaptioner, od_ids, od_seg, img_feats, attn_mask,
-                              *, max_steps: int, num_beams: int = 5, cls_id: int, sep_id: int,
-                              mask_id: int, pad_id: int, length_penalty: float = 1.0
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """KV-cached fixed-width beam search: the outputs of
-    tasks.captioning.beam_search_decode. The prefill runs on the B
-    originals (the context is beam-invariant) and its K/V are repeated
-    across the beams."""
-    with profiling.span("decode.cached"):
-        b, k, s = img_feats.shape[0], num_beams, max_steps + 1
-        c = prefill(model, od_ids, od_seg, img_feats, attn_mask, s)
-        cache = DecodeCache(c.k.repeat_interleave(k, dim=1), c.v.repeat_interleave(k, dim=1),
-                            c.ctx_mask.repeat_interleave(k, dim=0),
-                            c.key_pos.repeat_interleave(k, dim=0))
-        cap = initial_caption(b * k, s, cls_id, mask_id, img_feats.device)
-        scores = initial_beam_scores(b, k, cap.device)
-        finished = torch.zeros(b * k, dtype=torch.bool, device=cap.device)
-        lengths = torch.ones(b * k, dtype=torch.long, device=cap.device)
-        prev = cap[:, 0].clone()
-        for t in range(1, s):
-            logp = F.log_softmax(decode_step(model, cache, prev, t, mask_id=mask_id), dim=-1)
-            top_scores, rows, tok = beam_step(scores, logp, finished, b, k, pad_id)
-            cap, finished, lengths = cap[rows], finished[rows], lengths[rows]
-            reorder_caption_slots(cache, rows)
-            prev = torch.where(finished, pad_id, tok)
-            cap[:, t] = prev
-            lengths = torch.where(finished, lengths, lengths + 1)
-            finished = finished | (tok == sep_id)
-            scores = top_scores.reshape(-1)
-        return best_beam(cap, scores, lengths, b, k, length_penalty)
+    return greedy_decode(CachedSteps, model, *inputs, **options)
 
 
 def reorder_caption_slots(cache: DecodeCache, rows: torch.Tensor) -> None:

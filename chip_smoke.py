@@ -430,6 +430,7 @@ def phase_build() -> None:
 def phase_k1() -> dict:
     import torch
 
+    from aladin_torch.eval.retrieval import score_by_caption_bucket
     from aladin_torch.ops.kernels import alignment_kernel as ak
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -460,7 +461,7 @@ def phase_k1() -> dict:
             max_err[name] = max(max_err[name], compare(tag, got, want, name))
             got = ak.mrsw_scores_bucketed(*args, compute_dtype=dt)
             plain = lambda *a, dt=dt: ak.mrsw_scores_plain(*a, compute_dtype=dt)  # noqa: E731
-            want = ak.mrsw_scores_bucketed(*args, scorer=plain)
+            want = score_by_caption_bucket(plain, *args)
             max_err[name] = max(max_err[name], compare(tag + " bucketed", got, want, name))
 
     # zero floor: word 0 of caption 0 points against every region of images
@@ -3350,14 +3351,14 @@ def decision_margins(model, toks, inp, common) -> float:
     from aladin_torch.tasks.captioning import StepInputs
 
     s = toks.shape[1]
-    step_inp = StepInputs(*inp, s)
+    step_inp = StepInputs(model, *inp, s)
     pos = torch.arange(s, device=toks.device)[None]
     alive = torch.ones(toks.shape[0], dtype=torch.bool, device=toks.device)
     least = float("inf")
     with torch.no_grad():
         for t in range(1, s):
             cap = torch.where(pos < t, toks, common["mask_id"])
-            top2 = F.log_softmax(step_inp.logits(model, cap, t), -1).topk(2).values
+            top2 = F.log_softmax(step_inp.logits(cap, t), -1).topk(2).values
             if alive.any():
                 least = min(least, float((top2[:, 0] - top2[:, 1])[alive].min()))
             alive &= toks[:, t] != common["sep_id"]
@@ -3487,12 +3488,12 @@ def phase_caption(tmp: str, vocab_dir: str) -> dict:
     common = dict(max_steps=DECODE_STEPS, cls_id=tz.cls_id, sep_id=tz.sep_id,
                   mask_id=tz.mask_id, pad_id=tz.pad_id)
     decoders = {
-        "greedy_full": lambda: cap.greedy_decode(model, *inp, **common),
+        "greedy_full": lambda: cap.greedy_decode(cap.StepInputs, model, *inp, **common),
         "greedy_cached": lambda: dc.greedy_decode_cached(model, *inp, **common),
-        "beam5_full": lambda: cap.beam_search_decode(model, *inp, num_beams=DECODE_BEAMS,
-                                                     **common),
-        "beam5_cached": lambda: dc.beam_search_decode_cached(model, *inp,
-                                                             num_beams=DECODE_BEAMS, **common)}
+        "beam5_full": lambda: cap.beam_search_decode(cap.StepInputs, model, *inp,
+                                                     num_beams=DECODE_BEAMS, **common),
+        "beam5_cached": lambda: cap.beam_search_decode(dc.CachedSteps, model, *inp,
+                                                       num_beams=DECODE_BEAMS, **common)}
     got = {k: fn() for k, fn in decoders.items()}
     margin = decision_margins(model, got["greedy_full"][0], inp, common)
     decode = {"batch": DECODE_IMAGES, "steps": DECODE_STEPS, "f32": {},
@@ -3519,18 +3520,19 @@ def phase_caption(tmp: str, vocab_dir: str) -> dict:
         m = cap.BertImageCaptioner(dataclasses.replace(cfg, fused_attention=fused))
         m.load_state_dict(state)
         bf16[fused] = m.to(device="cuda", dtype=torch.bfloat16).eval()
-    (ft, fl), launches_d = counted(lambda: cap.greedy_decode(bf16[True], *inp, **common))
-    pt, pl = cap.greedy_decode(bf16[False], *inp, **common)
+    (ft, fl), launches_d = counted(
+        lambda: cap.greedy_decode(cap.StepInputs, bf16[True], *inp, **common))
+    pt, pl = cap.greedy_decode(cap.StepInputs, bf16[False], *inp, **common)
     want_k2 = cfg.num_hidden_layers * DECODE_STEPS
     diff = (fl.float() - pl.float()).abs().max().item()
     decode["bf16_fused_vs_plain"] = {
         "tokens_equal": bool(torch.equal(ft, pt)), "logp_max_abs_diff": diff,
         "logp_atol": DECODE_BF16_ATOL, "k2_forward_launches": launches_d["k2_fwd"],
         "plain_min_top1_margin": decision_margins(bf16[False], pt, inp, common),
-        "fused_time": timed_decode(lambda: cap.greedy_decode(bf16[True], *inp, **common),
-                                   DECODE_STEPS),
-        "plain_time": timed_decode(lambda: cap.greedy_decode(bf16[False], *inp, **common),
-                                   DECODE_STEPS)}
+        "fused_time": timed_decode(
+            lambda: cap.greedy_decode(cap.StepInputs, bf16[True], *inp, **common), DECODE_STEPS),
+        "plain_time": timed_decode(
+            lambda: cap.greedy_decode(cap.StepInputs, bf16[False], *inp, **common), DECODE_STEPS)}
     if not (torch.equal(ft, pt) and diff <= DECODE_BF16_ATOL
             and launches_d["k2_fwd"] == want_k2 and launches_d["k2_bwd"] == 0):
         raise AssertionError(f"caption: bf16 decode with K2 disagrees: {decode} "

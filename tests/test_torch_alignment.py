@@ -90,8 +90,7 @@ def test_mrsw_bf16_plain_rounds_operands_like_pallas(rng):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-@pytest.mark.parametrize("bucket_images", [False, True])
-def test_bucketed_equals_unbucketed_f32(rng, bucket_images):
+def test_bucketed_equals_unbucketed_f32(rng):
     """Bucketing drops only zeroed slots, so f32 scores agree; atol 1e-6
     because the CPU matmul sums in a shape-dependent order (the kernel's
     bitwise shape independence is checked on the card)."""
@@ -103,12 +102,10 @@ def test_bucketed_equals_unbucketed_f32(rng, bucket_images):
     sl = np.concatenate([rng.randint(4, 18, n_cap - 3), [4, w, w]]).astype(np.int32)
     args = _torch(im, ss, il, sl)
     full = tak.mrsw_scores(*args, compute_dtype=torch.float32).numpy()
-    got = tak.mrsw_scores_bucketed(*args, compute_dtype=torch.float32,
-                                   bucket_images=bucket_images, image_bucket_multiple=4).numpy()
+    got = tak.mrsw_scores_bucketed(*args, compute_dtype=torch.float32).numpy()
     np.testing.assert_allclose(got, full, atol=1e-6)
     want = np.asarray(jax_bucketed(*_jax(im, ss, il, sl), interpret=True,
-                                   compute_dtype=jnp.float32, bucket_images=bucket_images,
-                                   image_bucket_multiple=4))
+                                   compute_dtype=jnp.float32))
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 

@@ -214,14 +214,14 @@ def test_full_recompute_decoders_match_jax(mode):
     inp = decode_case()
     if mode == "greedy":
         want = jcap.greedy_decode(jm, params, *inp, **KW)
-        got = cap.greedy_decode(tm, *_t(*inp), **KW)
+        got = cap.greedy_decode(cap.StepInputs, tm, *_t(*inp), **KW)
         assert (got[0] == IDS["sep_id"]).any(1).sum() >= 1  # some caption ends early
     else:
         k = int(mode[-1])
         want = jcap.beam_search_decode(jm, params, *inp, num_beams=k, **KW)
-        got = cap.beam_search_decode(tm, *_t(*inp), num_beams=k, **KW)
+        got = cap.beam_search_decode(cap.StepInputs, tm, *_t(*inp), num_beams=k, **KW)
         if k == 1:
-            greedy = cap.greedy_decode(tm, *_t(*inp), **KW)[0]
+            greedy = cap.greedy_decode(cap.StepInputs, tm, *_t(*inp), **KW)[0]
             np.testing.assert_array_equal(got[0].numpy(), greedy.numpy())
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     _close(got[1], want[1])
@@ -232,10 +232,10 @@ def test_top1_sampling_equals_greedy_in_both():
     packages, whatever the draws."""
     jm, params, tm = captioner_pair()
     inp = decode_case()
-    greedy = cap.greedy_decode(tm, *_t(*inp), **KW)[0].numpy()
+    greedy = cap.greedy_decode(cap.StepInputs, tm, *_t(*inp), **KW)[0].numpy()
     for seed in (0, 1):
         gen = torch.Generator().manual_seed(seed)
-        got = cap.sample_decode(tm, *_t(*inp), gen, top_k=1, **KW)
+        got = cap.sample_decode(cap.StepInputs, tm, *_t(*inp), gen, top_k=1, **KW)
         want = jcap.sample_decode(jm, params, *inp, jax.random.PRNGKey(seed), top_k=1, **KW)
         np.testing.assert_array_equal(got.numpy(), greedy)
         np.testing.assert_array_equal(np.asarray(want), greedy)
@@ -246,7 +246,11 @@ def test_sampling_draws_from_the_generator():
     captions, another state other ones."""
     _, _, tm = captioner_pair()
     inp = _t(*decode_case())
-    draw = lambda s: cap.sample_decode(tm, *inp, torch.Generator().manual_seed(s), **KW)  # noqa
+
+    def draw(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return cap.sample_decode(cap.StepInputs, tm, *inp, gen, **KW)
+
     a, b, c = draw(0), draw(0), draw(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
 
@@ -287,7 +291,7 @@ def test_token_logprobs_and_scst_gradient_match_jax():
     want_g = task_state_dict_from_flax(jax.tree.map(np.asarray, grads))
     for name, p in tm.named_parameters():  # the pooler takes no gradient
         _close(torch.zeros_like(p) if p.grad is None else p.grad, want_g[name], atol=ATOL)
-    toks, logp = cap.greedy_decode(tm, *_t(*inp), **KW)
+    toks, logp = cap.greedy_decode(cap.StepInputs, tm, *_t(*inp), **KW)
     lp, m = cap.token_logprobs(tm, toks, *_t(*inp), mask_id=IDS["mask_id"], pad_id=IDS["pad_id"])
     _close((lp * m).sum(1), logp)
 
@@ -363,7 +367,10 @@ CLI_DIMS = ["--synthetic", "--device", "cpu", "--epochs", "1", "--train_batch_si
             "--max_seq_length", "24", "--max_seq_a_length", "12", "--max_img_seq_length", "8",
             "--img_feature_dim", "16", "--learning_rate", "3e-3"]
 CLI_MODES = {"greedy": [], "kv_cache": ["--kv_cache"], "beam3": ["--num_beams", "3"],
-             "cbs": ["--use_cbs"], "scst": ["--scst_epochs", "1"]}
+             "beam3_kv_cache": ["--num_beams", "3", "--kv_cache"], "cbs": ["--use_cbs"],
+             "scst": ["--scst_epochs", "1"], "scst_kv_cache": ["--scst_epochs", "1", "--kv_cache"]}
+# each --kv_cache mode and the full-recompute mode whose outputs it gives
+KV_CACHE_TWIN = {"kv_cache": "greedy", "beam3_kv_cache": "beam3", "scst_kv_cache": "scst"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -375,8 +382,9 @@ def _cli_run(mode, out_dir):
 def test_captioning_cli_synthetic_cpu(tmp_path_factory, mode):
     """cli/captioning --synthetic --device cpu for one epoch: finite
     losses, one prediction an image in predictions.json, finite
-    metrics in metrics.json; --kv_cache gives greedy's captions; --use_cbs
-    captions hold a detected class word; SCST logs finite losses."""
+    metrics in metrics.json; --kv_cache gives the full recompute's captions
+    (and SCST losses) under greedy, beam 3 and SCST; --use_cbs captions
+    hold a detected class word; SCST logs finite losses."""
     out = str(tmp_path_factory.mktemp(mode))
     res = _cli_run(mode, out)
     assert len(res["losses"]) == 1 and len(res["losses"][0]) == 5
@@ -389,10 +397,12 @@ def test_captioning_cli_synthetic_cpu(tmp_path_factory, mode):
         metrics = json.load(f)
     assert all(np.isfinite(metrics[k]) for k in ("Bleu_1", "ROUGE_L", "CIDEr"))
     assert res["model"].bert.cfg.num_hidden_layers == 2
-    if mode == "kv_cache":
-        greedy = _cli_run("greedy", str(tmp_path_factory.mktemp("greedy_ref")))
-        assert res["predictions"] == greedy["predictions"]
-    if mode == "scst":
+    if mode in KV_CACHE_TWIN:
+        twin = KV_CACHE_TWIN[mode]
+        full = _cli_run(twin, str(tmp_path_factory.mktemp(twin + "_ref")))
+        assert res["predictions"] == full["predictions"]
+        assert res["scst_losses"] == full["scst_losses"]
+    if mode.startswith("scst"):
         assert len(res["scst_losses"]) == 1 and all(np.isfinite(res["scst_losses"][0]))
     if mode == "cbs":
         from aladin_torch.tasks.task_inputs import ImageFeatureProvider

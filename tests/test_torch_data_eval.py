@@ -156,6 +156,43 @@ def test_alignment_head_matches(rng, dtype):
     assert ti2t == ji2t and tt2i == jt2i
 
 
+# caption lengths (specials included) in a 50-slot buffer: "buckets" fills the 16- and
+# 32-slot widths, has a 48-slot sliver (2 of 60, under 4%) that merges into the widest,
+# 50; "one_call" is long enough that bucketing would save under 25%
+SCORE_FN_LENGTHS = {"buckets": [5] * 10 + [16] * 20 + [17] * 7 + [32] * 20 + [40, 48, 50],
+                    "one_call": [45] * 30 + [50] * 30}
+
+
+@pytest.mark.parametrize("case", sorted(SCORE_FN_LENGTHS))
+def test_score_fn_called_as_in_jax(rng, case):
+    """A custom score_fn gets the same calls from both packages'
+    evaluate_alignment_head: the same caption widths and lengths, in the
+    same order; the scores within 1e-5 (f32 MrSw in each package)."""
+    from aladin_tpu.ops import alignment as jal
+    from aladin_torch.ops import alignment as tal
+
+    cl = rng.permutation(SCORE_FN_LENGTHS[case]).astype(np.int32)
+    img = np.repeat(rng.randn(12, 9, 16), 5, axis=0).astype(np.float32)
+    cap = rng.randn(60, 50, 16).astype(np.float32)
+    il = np.repeat(rng.randint(2, 10, 12), 5).astype(np.int32)
+    calls = {"jax": [], "torch": []}
+
+    def recorder(name, score):
+        def score_fn(ims, caps, im_len, cap_len):
+            calls[name].append((ims.shape[0], caps.shape[1], np.asarray(cap_len).tolist()))
+            return score(ims, caps, im_len, cap_len, "MrSw")
+        return score_fn
+
+    _, _, js = jret.evaluate_alignment_head(img, cap, il, cl, use_pallas=False,
+                                            score_fn=recorder("jax", jal.alignment_scores))
+    _, _, ts = tret.evaluate_alignment_head(img, cap, il, cl, device="cpu",
+                                            score_fn=recorder("torch", tal.alignment_scores))
+    assert calls["torch"] == calls["jax"]
+    want_widths = [16, 32, 50] if case == "buckets" else [50]
+    assert [w for _, w, _ in calls["torch"]] == want_widths
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
+
+
 def test_encode_buffers_match(corpus, rng):
     """encode_data over the same loader rows with carried weights: global
     embedding packed in slot 0, buffers within 1e-4, lengths equal."""

@@ -39,7 +39,7 @@ def test_cached_greedy_equals_full_recompute_across_variants(variant):
     equal and log-probs within 1e-5 of the full-recompute decoder."""
     _, _, tm = captioner_pair(variant)
     inp = _t(*decode_case())
-    full_toks, full_lp = cap.greedy_decode(tm, *inp, **KW)
+    full_toks, full_lp = cap.greedy_decode(cap.StepInputs, tm, *inp, **KW)
     toks, lp = dc.greedy_decode_cached(tm, *inp, **KW)
     np.testing.assert_array_equal(toks.numpy(), full_toks.numpy())
     _close(lp, full_lp)
@@ -98,21 +98,21 @@ def test_beam_reorder_moves_caption_slots_only():
         assert torch.equal(got[:, :, :, c:], was[:, rows, :, c:])
 
 
-@pytest.mark.parametrize("mode", ["greedy", "beam1", "beam3"])
+@pytest.mark.parametrize("mode", ["greedy", "beam1", "beam3", "beam5"])
 def test_cached_decoders_match_jax_and_full(mode):
-    """Cached greedy and beam (1, 3): tokens equal to aladin_tpu's cached
+    """Cached greedy and beam (1, 3, 5): tokens equal to aladin_tpu's cached
     decoders and to the port's full-recompute ones; scores within 1e-5."""
     jm, params, tm = captioner_pair()
     inp = decode_case()
     jcfg = jm.cfg
     if mode == "greedy":
         got = dc.greedy_decode_cached(tm, *_t(*inp), **KW)
-        full = cap.greedy_decode(tm, *_t(*inp), **KW)
+        full = cap.greedy_decode(cap.StepInputs, tm, *_t(*inp), **KW)
         want = jdc.greedy_decode_cached(params, *inp, cfg=jcfg, **KW)
     else:
         k = int(mode[-1])
-        got = dc.beam_search_decode_cached(tm, *_t(*inp), num_beams=k, **KW)
-        full = cap.beam_search_decode(tm, *_t(*inp), num_beams=k, **KW)
+        got = cap.beam_search_decode(dc.CachedSteps, tm, *_t(*inp), num_beams=k, **KW)
+        full = cap.beam_search_decode(cap.StepInputs, tm, *_t(*inp), num_beams=k, **KW)
         want = jdc.beam_search_decode_cached(params, *inp, cfg=jcfg, num_beams=k, **KW)
     for ref in (full, want):
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
@@ -121,13 +121,14 @@ def test_cached_decoders_match_jax_and_full(mode):
 
 def test_cached_sampling_equals_full_recompute_sampling():
     """The same generator state and the same logits draw the same caption,
-    with and without a top-k filter."""
+    with and without a top-k filter, and under a top-p filter at a
+    temperature."""
     _, _, tm = captioner_pair()
     inp = _t(*decode_case())
-    for top_k in (0, 4):
-        full = cap.sample_decode(tm, *inp, torch.Generator().manual_seed(3), top_k=top_k, **KW)
-        cached = dc.sample_decode_cached(tm, *inp, torch.Generator().manual_seed(3),
-                                         top_k=top_k, **KW)
+    for opts in (dict(top_k=0), dict(top_k=4), dict(top_p=0.9, temperature=0.7)):
+        full, cached = (cap.sample_decode(steps, tm, *inp, torch.Generator().manual_seed(3),
+                                          **opts, **KW)
+                        for steps in (cap.StepInputs, dc.CachedSteps))
         np.testing.assert_array_equal(cached.numpy(), full.numpy())
 
 

@@ -13,6 +13,7 @@ import dataclasses
 import pytest
 import torch
 
+from aladin_torch.eval.retrieval import score_by_caption_bucket
 from aladin_torch.ops.kernels import alignment_kernel as ak
 from aladin_torch.ops.kernels import attention_kernel as at
 from aladin_torch.ops.kernels import layernorm as lk
@@ -128,7 +129,7 @@ def test_mrsw_kernel_packed_coco_mix(cuda, dt):
     got = ak.mrsw_scores_bucketed(im, cap, il, sl, compute_dtype=dt)
     assert _launches("k1.launches") == (before[0] + 1,)
     plain = lambda *a: ak.mrsw_scores_plain(*a, compute_dtype=dt)  # noqa: E731
-    want = ak.mrsw_scores_bucketed(im, cap, il, sl, scorer=plain)
+    want = score_by_caption_bucket(plain, im, cap, il, sl)
     if dt == torch.bfloat16:
         torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
     else:
