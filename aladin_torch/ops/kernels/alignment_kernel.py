@@ -45,7 +45,8 @@ _KERNEL_SOURCE = "mrsw_kernel.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1}
 _MAX_ROWS = 128  # the kernel's limit: at most 128 region rows / words a caption
 _IMAGE_GROUP = 8  # images interleaved in one group of the kernel's image operand
-_SLOT_MULTIPLE = 8  # region slots per image are padded to a multiple of this
+_SLAB_SLOTS = 8  # region slots of an image in one of the kernel's 64-row slabs
+_TAIL_SLOTS = 2  # region slots of an image in the kernel's 16-row tail pass
 _TILE_COLS = 256  # word columns of one caption tile (the kernel's wgmma N)
 _ROW_BYTES = 128  # bytes of D the kernel loads per row and stage
 _PLAIN_BLOCK_ELEMS = 64 << 20  # f32 alignment elements per plain-version block
@@ -91,8 +92,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib = build.load_library(_KERNEL_SOURCE)
     lib.mrsw_scores_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_long,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.mrsw_scores_launch.restype = ctypes.c_int
     lib.mrsw_error_string.argtypes = [ctypes.c_int]
@@ -248,26 +249,39 @@ def _plain_core(im: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _group_slots(r: int) -> int:
+    """Region slots an image holds in the kernel's operand: R rounded up to
+    a whole 64-row slab's 8, or, where R mod 8 is 1 or 2 past the first
+    slab, rounded up to 2, and the kernel multiplies the last two slots in
+    its 16-row tail pass (the tail layout; bf16 and int8 alike: both run
+    faster so than through one more slab, tools/k1_variants.py)."""
+    whole = r // _SLAB_SLOTS * _SLAB_SLOTS
+    if whole and 0 < r - whole <= _TAIL_SLOTS:
+        return whole + _TAIL_SLOTS
+    return -(-r // _SLAB_SLOTS) * _SLAB_SLOTS
+
+
 def _kernel_operands(im: torch.Tensor, words: torch.Tensor):
     """The operand layout of csrc/mrsw_kernel.cu, from prepared (N_im, R, D)
     images and the packed (n_words, D) caption words: (a, b), both 2-D
     row-major.
 
     ``a`` holds the images in groups of 8, rows ordered (group, region slot
-    j, image s), R padded with zero rows to a multiple of 8 and N_im with
-    zero images to a multiple of 8: row (g * R8 + j) * 8 + s is region j of
-    image 8g + s. ``b`` is the packed words (at least one row). Both pad D
-    with zeros to a multiple of 128 bytes. The kernel excludes the padded
-    slots (j >= R) from the max by index and writes no score for a padded
-    image; the zero coordinates change no sum.
+    j, image s), R padded with zero rows to ``_group_slots(R)`` and N_im
+    with zero images to a multiple of 8: row (g * slots + j) * 8 + s is
+    region j of image 8g + s.
+    ``b`` is the packed words (at least one row). Both pad D with zeros to
+    a multiple of 128 bytes. The kernel excludes the padded slots (j >= R)
+    from the max by index and writes no score for a padded image; the zero
+    coordinates change no sum.
     """
     n_im, r, d = im.shape
     d_pad = (-d) % (_ROW_BYTES // im.element_size())
-    r8 = -(-r // _SLOT_MULTIPLE) * _SLOT_MULTIPLE
+    slots = _group_slots(r)
     groups = -(-n_im // _IMAGE_GROUP)
-    a = im.new_zeros(groups * _IMAGE_GROUP, r8, d + d_pad)
+    a = im.new_zeros(groups * _IMAGE_GROUP, slots, d + d_pad)
     a[:n_im, :r, :d] = im
-    a = a.view(groups, _IMAGE_GROUP, r8, d + d_pad).transpose(1, 2).reshape(-1, d + d_pad)
+    a = a.view(groups, _IMAGE_GROUP, slots, d + d_pad).transpose(1, 2).reshape(-1, d + d_pad)
     b = F.pad(words, (0, d_pad, 0, max(0, 1 - words.shape[0])))
     return a, b.contiguous()
 
@@ -287,16 +301,21 @@ def _launch(im: torch.Tensor, words: torch.Tensor, plan: _Plan,
     out = torch.empty(n_im, n_cap, dtype=torch.float32, device=im.device)
     if n_im == 0 or n_cap == 0:
         return out
+    slots = _group_slots(r)
     a, b = _kernel_operands(im, words)
     lib = _kernel_library()
     with torch.cuda.device(im.device):
         stream = torch.cuda.current_stream(im.device).cuda_stream
         err = lib.mrsw_scores_launch(_DTYPE_CODE[im.dtype], a.data_ptr(), b.data_ptr(),
-                                     table.data_ptr(), out.data_ptr(), n_im, r, n_cap,
+                                     table.data_ptr(), out.data_ptr(), n_im, r, slots, n_cap,
                                      len(plan.tiles), b.shape[0], a.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"MrSw kernel launch failed: {lib.mrsw_error_string(err).decode()}")
     profiling.count("k1.launches")
+    profiling.count("mrsw.valid_slots", n_im * r)
+    # the image operand's rows (8 x groups x slots): the layout, which K1
+    # multiplies row for row, the last two slots of a tail layout in its tail pass
+    profiling.count("mrsw.multiplied_slots", a.shape[0])
     return out
 
 

@@ -192,7 +192,8 @@ _KERNEL_SHAPES = [(7, 11, 5, 6), (37, 53, 34, 50), (5, 9, 129, 20), (9, 13, 2, 4
 
 def _emulate_kernel(a, b, n_im, r, n_cap, w, pad_slot=float("-inf"), plan=None):
     """csrc/mrsw_kernel.cu's reduction on an operand layout: per group of 8
-    images the max over region slots, slots >= r set to ``pad_slot``; then
+    images the max over its region slots (the slabs' and the tail's, as
+    many as ``a`` holds), slots >= r set to ``pad_slot``; then
     each 16-word group of a caption's own words summed by a pairwise tree
     and its groups added in order. Products in f64: exact for int8 (summed
     in f64, exact, as the kernel's int32), rounded once to f32 for bf16 (so
@@ -203,14 +204,14 @@ def _emulate_kernel(a, b, n_im, r, n_cap, w, pad_slot=float("-inf"), plan=None):
     operand and ``plan`` its tiles of 256 rows from each tile's first word
     row (rows past ``b`` read as zeros): a caption's words from its column,
     past its count 0."""
-    r8 = -(-r // 8) * 8
     red = torch.float64 if a.dtype == torch.int8 else torch.float32
-    groups = a.shape[0] // (8 * r8)
-    padded = (torch.arange(r8) >= r)[None, :, None, None]
+    groups = -(-n_im // 8)
+    slots = a.shape[0] // (8 * groups)  # the slots a group holds
+    padded = (torch.arange(slots) >= r)[None, :, None, None]
 
     def col_max(rows):
         align = (a.double() @ rows.double().T).to(red)
-        align = align.view(groups, r8, 8, -1).masked_fill(padded, pad_slot)
+        align = align.view(groups, slots, 8, -1).masked_fill(padded, pad_slot)
         return align.amax(dim=1).reshape(groups * 8, -1)[:n_im]
 
     def tree_sum(x):  # (..., groups of 16, 16)
@@ -279,7 +280,7 @@ def test_kernel_layout_and_reduction_match_plain(rng, shape, dtype, layout):
     r, w = im.shape[1], cap.shape[1]
     d_pad = 128 // im.element_size()  # D 64 padded to 128 bytes
     a, _ = tak._kernel_operands(im, cap[0])
-    assert a.shape == (-(-shape[0] // 8) * 8 * -(-r // 8) * 8, d_pad)
+    assert a.shape == (-(-shape[0] // 8) * 8 * _slots(r), d_pad)
     padded = _emulate_kernel(a, _padded_operand(cap), shape[0], r, shape[1], w)
     want = tak._plain_core(im, cap)
     if layout == "packed":
@@ -301,18 +302,73 @@ def test_kernel_layout_and_reduction_match_plain(rng, shape, dtype, layout):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
-def test_kernel_layout_excludes_padded_slots(rng):
-    """The zero-floor trap at R 33 (7 padded slots; D 768, where the trap
-    word is negative against every real region): with padded slots
-    excluded the emulation equals the plain version; letting them join the
-    max as the zeros they hold floors image 0 and moves its score."""
-    im, cap, _ = tak._prepare(*_kernel_case(rng, 9, 5, 34, 50, d=768), torch.int8)
+def _slots(r):
+    """The slots an image holds in K1's operand: R rounded up to 8, or to 2
+    where R mod 8 is 1 or 2 past the first 8 (the kernel's tail pass)."""
+    return -(-r // 2) * 2 if r > 8 and r % 8 in (1, 2) else -(-r // 8) * 8
+
+
+@pytest.mark.parametrize("r", [16, 33, 34, 35, 37])  # R mod 8: 0, 1, 2, 3, 5
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_kernel_operand_layout_by_r_mod_8(rng, r, dtype):
+    """Row (g * slots + j) * 8 + s of the image operand is region j of image
+    8g + s; slots j >= R and images past N_im are zero; a group holds 8
+    floor(R / 8) + 2 slots for R mod 8 in {1, 2} (the tail) and R rounded
+    up to 8 else. The emulated reduction on it equals the plain version."""
+    case = _kernel_case(rng, 11, 7, r + 1, 20)
+    im, cap, _ = tak._prepare(*case, dtype)
     a, _ = tak._kernel_operands(im, cap[0])
+    slots = tak._group_slots(r)
+    assert slots == _slots(r) and a.shape == (16 * slots, 128 // im.element_size())
+    rows = a[:, :im.shape[2]].view(2, slots, 8, -1).transpose(1, 2).reshape(16, slots, -1)
+    assert torch.equal(rows[:11, :r], im)
+    assert not rows[:11, r:].any() and not rows[11:].any() and not a[:, im.shape[2]:].any()
+    got = _emulate_kernel(a, _padded_operand(cap), 11, r, 7, cap.shape[1])
+    want = tak._plain_core(im, cap)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _tail_trap(rng, n_im=9, d=768):
+    """R 33 sets (the score cell's), int8: image 0 fills its 33 slots, image
+    2 has 32 regions, so its only zero slot inside R is slot 32, the tail's
+    first; word 1 of caption 0 points against every real region of both."""
+    im = rng.randn(n_im, 34, d).astype(np.float32)
+    ss = rng.randn(5, 50, d).astype(np.float32)
+    il = rng.randint(2, 35, n_im).astype(np.int32)
+    sl = rng.randint(4, 51, 5).astype(np.int32)
+    il[0], il[2] = 34, 33
+    ss[0, 1] = -(im[0, 1:].sum(0) + im[2, 1:33].sum(0))
+    im_p, cap, _ = tak._prepare(*_torch(im, ss, il, sl), torch.int8)
+    a, _ = tak._kernel_operands(im_p, cap[0])
+    return im_p, cap, a
+
+
+def test_kernel_layout_excludes_padded_slots(rng):
+    """The zero-floor trap at R 33 (D 768, where the trap word is negative
+    against every real region): the tail layout pads one slot, 33; with it
+    excluded the emulation equals the plain version; letting it join the
+    max as the zero it holds floors image 0 and moves its score."""
+    im, cap, a = _tail_trap(rng)
+    assert a.shape[0] == 16 * 34
     args = (a, _padded_operand(cap), 9, im.shape[1], 5, cap.shape[1])
     want = tak._plain_core(im, cap)
     assert torch.equal(_emulate_kernel(*args), want)
     floored = _emulate_kernel(*args, pad_slot=0.0)
     assert floored[0, 0] > want[0, 0]
+
+
+def test_kernel_layout_keeps_the_zero_floor_in_the_tail(rng):
+    """Image 2 of the R 33 trap has 32 regions: its zero slot 32 lies in the
+    tail rows and floors its max at 0, as in the plain version; a reduction
+    that stopped at slot 32 would drop its score."""
+    im, cap, a = _tail_trap(rng)
+    want = tak._plain_core(im, cap)
+    b = _padded_operand(cap)
+    assert torch.equal(_emulate_kernel(a, b, 9, 33, 5, cap.shape[1]), want)
+    assert _emulate_kernel(a, b, 9, 32, 5, cap.shape[1])[2, 0] < want[2, 0]
 
 
 def _plan_counts(case):

@@ -44,12 +44,15 @@ def _corpus(gen, n_im, n_cap, s_im, s_s, d):
             torch.randint(4, s_s + 1, (n_cap,), generator=gen, device="cuda"))
 
 
-# (n_im, n_cap, S_im, S_s, D): small, the benchmark's widths, D off 128 bytes;
-# R 1 / W 1; R 8 / W 16; the main path's R 50 / W 13; R 128 / W 128; an image
-# count that is no multiple of a group
+# (n_im, n_cap, S_im, S_s, D): small, the benchmark's widths (R 33: the tail
+# pass), D off 128 bytes; R 1 / W 1; R 8 / W 16; the main path's R 50 / W 13
+# (the tail); R 128 / W 128; an image count that is no multiple of a group;
+# R 34 (the tail, no padded slot) and R 35 (a slab for 3 slots); R 10 (one
+# slab, then the tail), D off 128 bytes
 _MRSW_SHAPES = [(7, 11, 5, 6, 128), (37, 53, 34, 50, 768), (5, 9, 129, 20, 200),
                 (9, 13, 2, 4, 768), (17, 29, 9, 19, 768), (8, 33, 51, 16, 768),
-                (3, 5, 129, 131, 768), (1001, 70, 34, 50, 768)]
+                (3, 5, 129, 131, 768), (1001, 70, 34, 50, 768), (37, 53, 35, 50, 768),
+                (37, 53, 36, 50, 768), (13, 17, 11, 20, 200)]
 
 
 @pytest.mark.parametrize("shape", _MRSW_SHAPES)
@@ -86,10 +89,43 @@ def test_mrsw_kernel_zero_floor(cuda, dt):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
-def test_mrsw_kernel_bucketed_equals_unbucketed(cuda):
+def test_mrsw_kernel_zero_floor_in_the_tail(cuda):
+    """R 33: image 2 has 32 regions, so its one zero slot inside R, slot 32,
+    lies in the tail pass; word 1 of caption 0 points against its regions
+    and image 0's (full, no floor). Tolerances as above."""
+    im, cap, il, sl = _corpus(cuda, 11, 3, 34, 50, 768)
+    il[0], il[2] = 34, 33
+    cap[0, 1] = -(im[0, 1:].sum(0) + im[2, 1:33].sum(0))
+    for dt in (torch.bfloat16, torch.int8):
+        got = ak.mrsw_scores(im, cap, il, sl, compute_dtype=dt)
+        want = ak.mrsw_scores_plain(im, cap, il, sl, compute_dtype=dt)
+        if dt == torch.bfloat16:
+            torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+        else:
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("r", [1, 8, 10, 33, 34, 35, 50])
+def test_mrsw_kernel_counts_slots(cuda, r):
+    """One launch a call; ``mrsw.valid_slots`` counts N_im x R and
+    ``mrsw.multiplied_slots`` 8 x groups x the slots a group multiplies: 8
+    floor(R / 8) + 2 through the tail for R mod 8 in {1, 2} past the first
+    8, R rounded up to 8 else."""
+    args = _corpus(cuda, 21, 30, r + 1, 20, 768)
+    slots = -(-r // 2) * 2 if r > 8 and r % 8 in (1, 2) else -(-r // 8) * 8
+    for dt in (torch.bfloat16, torch.int8):
+        names = ("k1.launches", "mrsw.valid_slots", "mrsw.multiplied_slots")
+        before = _launches(*names)
+        ak.mrsw_scores(*args, compute_dtype=dt)
+        after = _launches(*names)
+        assert tuple(b - a for a, b in zip(before, after)) == (1, 21 * r, 24 * slots)
+
+
+@pytest.mark.parametrize("s_im", [34, 35])  # R 33 and 34: the tail pass
+def test_mrsw_kernel_bucketed_equals_unbucketed(cuda, s_im):
     """bf16 bucketing drops only zero words, which the kernel sums after the
     real ones: the scores are bitwise equal."""
-    im, cap, il, _ = _corpus(cuda, 300, 700, 34, 50, 768)
+    im, cap, il, _ = _corpus(cuda, 300, 700, s_im, 50, 768)
     sl = torch.randint(4, 51, (700,), generator=cuda, device="cuda")
     full = ak.mrsw_scores(im, cap, il, sl)
     assert torch.equal(ak.mrsw_scores_bucketed(im, cap, il, sl), full)

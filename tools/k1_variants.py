@@ -6,14 +6,20 @@ CUDA card, at the 5k x 25k benchmark shape (S_im 34, S_s 50, D 768).
 
 Each variant is the kernel source with one design constant changed (ring
 depth, band of image pairs, how many chunks of wgmma a consumer keeps in
-flight, the row stride of the epilogue's column maxima). All are built with
-nvcc in parallel, run on the same prepared operands, checked bit for bit
-against the unchanged kernel, and timed with CUDA events (mean of 2
-launches after one warm-up). The unchanged kernel runs first and last, so
-the two give the run's spread. Caption lengths: uniform 4..50 tokens
-(``chip_smoke.corpus``), or ``coco``, round(9 + Gamma(2, 2.5)) clipped to
-8..50 as the score benchmark draws them. Prints one JSON line per (dtype,
-variant), then the card's name and power limit.
+flight, the row stride of the epilogue's column maxima, the last region
+slots through a 64-row slab in place of the 16-row tail pass). All are
+built with nvcc in parallel, run on the same prepared operands (R 33 as
+34 slots, the tail layout), checked against the unchanged kernel (bit for
+bit, and the largest gap), and timed with CUDA events (mean of 2 launches
+after one warm-up; the median of 5 rounds, each round every variant in
+turn). The unchanged kernel runs first and last, so the two give the
+run's spread. Beside them the unchanged kernel runs the same operands cut
+to R 32 (no tail): the tail's cost as a share of the slab it replaces is
+(as built - R 32) / (tail through a slab - R 32). Caption lengths:
+uniform 4..50 tokens (``chip_smoke.corpus``), or ``coco``, round(9 +
+Gamma(2, 2.5)) clipped to 8..50 as the score benchmark draws them. Prints
+one JSON line per (dtype, variant) and the tail's cost a type, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -40,8 +46,12 @@ VARIANTS = {
         ("constexpr bool kOverlap = sizeof(T) == 2;", "constexpr bool kOverlap = true;")],
     "no chunk in flight (both types)": [
         ("constexpr bool kOverlap = sizeof(T) == 2;", "constexpr bool kOverlap = false;")],
+    "tail through a slab": [("constexpr bool kTailPass = true;",
+                             "constexpr bool kTailPass = false;")],
     "as built, again": [],
 }
+REGIONS_32 = "as built, R 32 (no tail)"
+ROUNDS = 5
 
 
 def main() -> int:
@@ -82,7 +92,7 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log}")
         lib = ctypes.CDLL(lib_path)
         lib.mrsw_scores_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                                           + [ctypes.c_int] * 4 + [ctypes.c_long, ctypes.c_int]
+                                           + [ctypes.c_int] * 5 + [ctypes.c_long, ctypes.c_int]
                                            + [ctypes.c_void_p])
         libs[name] = lib
 
@@ -93,26 +103,46 @@ def main() -> int:
         bench = (*bench[:3], torch.as_tensor(np.clip(np.round(tokens), 8, 50), device="cuda").long())
     for dname, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
         im, words, _, plan, table = ak._packed(*bench, dtype)
-        a, b = ak._kernel_operands(im, words)
-        n_im, r, _ = im.shape
         n_cap, n_tiles = len(plan.caps), len(plan.tiles)
-        want = None
-        for name, lib in libs.items():
-            out = torch.empty(n_im, n_cap, device="cuda")
+        runs = {}  # name -> (launch, output)
 
-            def run(lib=lib, out=out):
+        def launcher(lib, r, slots, a, b, out):
+            def run():
                 err = lib.mrsw_scores_launch(ak._DTYPE_CODE[dtype], a.data_ptr(), b.data_ptr(),
-                                             table.data_ptr(), out.data_ptr(), n_im, r, n_cap,
-                                             n_tiles, b.shape[0], a.shape[1],
+                                             table.data_ptr(), out.data_ptr(), len(im), r, slots,
+                                             n_cap, n_tiles, b.shape[0], a.shape[1],
                                              torch.cuda.current_stream().cuda_stream)
                 if err:
-                    raise RuntimeError(f"variant {name!r} failed to launch: {err}")
+                    raise RuntimeError(f"a K1 variant failed to launch: {err}")
+            return run
 
-            ms = chip_smoke.cuda_ms(run, 2)
-            want = out.clone() if want is None else want
-            chip_smoke.emit({"dtype": dname, "lengths": lengths, "variant": name, "ms": ms,
-                             "equal_to_as_built": bool(torch.equal(out, want))})
-        del im, words, a, b, table
+        r = im.shape[1]
+        slots = ak._group_slots(r)
+        a, b = ak._kernel_operands(im, words)
+        for name, lib in libs.items():
+            out = torch.empty(len(im), n_cap, device="cuda")
+            runs[name] = (launcher(lib, r, slots, a, b, out), out)
+        # the floor of the tail's cost: the slabs alone, slot 32 left out
+        a32, _ = ak._kernel_operands(im[:, :32].contiguous(), words)
+        out = torch.empty(len(im), n_cap, device="cuda")
+        runs[REGIONS_32] = (launcher(libs["as built"], 32, 32, a32, b, out), out)
+        times = {name: [] for name in runs}
+        for _ in range(ROUNDS):  # interleaved, so drift reaches every variant alike
+            for name, (run, _) in runs.items():
+                times[name].append(chip_smoke.cuda_ms(run, 2))
+        want = runs["as built"][1]
+        for name, (_, out) in runs.items():
+            line = {"dtype": dname, "lengths": lengths, "variant": name,
+                    "ms": sorted(times[name])[ROUNDS // 2], "ms_rounds": times[name]}
+            if name != REGIONS_32:  # other scores: nothing to compare
+                line.update(slots=slots, equal_to_as_built=bool(torch.equal(out, want)),
+                            max_gap_to_as_built=float((out - want).abs().max()))
+            chip_smoke.emit(line)
+        tail, slab, floor = (sorted(times[n])[ROUNDS // 2] for n in
+                             ("as built", "tail through a slab", REGIONS_32))
+        chip_smoke.emit({"dtype": dname, "lengths": lengths,
+                         "tail_cost_of_a_slab": (tail - floor) / (slab - floor)})
+        del im, words, a, b, a32, table, runs
     print(chip_smoke.nvidia_smi_line(), flush=True)
     return 0
 
