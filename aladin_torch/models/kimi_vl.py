@@ -98,6 +98,12 @@ class KimiVLConfig:
     max_position_embeddings: int = 131072
     media_placeholder_token_id: int = 163605
     dtype: str = "bfloat16"
+    # shared with models/kimi_linear.py: MLA without rotation, and a share
+    # of the routed experts held (``held_experts`` of them from
+    # ``expert_offset``; None: all of them)
+    mla_use_nope: bool = False
+    held_experts: Optional[int] = None
+    expert_offset: int = 0
 
     def __post_init__(self):
         if self.q_lora_rank is not None:
@@ -110,6 +116,10 @@ class KimiVLConfig:
     @property
     def qk_head_dim(self) -> int:
         return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def experts_held(self) -> int:
+        return self.n_routed_experts if self.held_experts is None else self.held_experts
 
     @classmethod
     def from_dict(cls, d: dict) -> "KimiVLConfig":
@@ -172,11 +182,11 @@ class Gate(nn.Module):
 
 
 class Experts(nn.Module):
-    """The routed experts stacked for the grouped GEMMs."""
+    """The held routed experts stacked for the grouped GEMMs."""
 
     def __init__(self, cfg: KimiVLConfig, dtype):
         super().__init__()
-        e, h, i = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size
+        e, h, i = cfg.experts_held, cfg.hidden_size, cfg.moe_intermediate_size
         self.gate_up_proj = nn.Parameter(torch.empty(e, 2 * i, h, dtype=dtype))
         self.down_proj = nn.Parameter(torch.empty(e, h, i, dtype=dtype))
 
@@ -190,18 +200,22 @@ class MoE(nn.Module):
         self.shared_experts = SwiGLU(cfg.hidden_size,
                                      cfg.moe_intermediate_size * cfg.n_shared_experts, dtype)
 
-    def forward(self, h: torch.Tensor, hits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, hits: Optional[torch.Tensor] = None,
+                pairs: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         flat = h.reshape(-1, h.shape[-1])
         out = moe.moe_forward(flat, self.gate.weight, self.gate.e_score_correction_bias,
                               self.experts.gate_up_proj, self.experts.down_proj,
                               top_k=c.num_experts_per_tok, scale=c.routed_scaling_factor,
-                              hits=hits)
+                              hits=hits, first=c.expert_offset, pairs=pairs)
         return (out + self.shared_experts(flat)).reshape(h.shape)
 
 
 class Attention(nn.Module):
-    """Multi-head latent attention (module doc)."""
+    """Multi-head latent attention (module doc). With ``mla_use_nope``
+    (Kimi-Linear's MLA layers) ``q_pe`` and ``k_pe`` enter unrotated: the
+    scale stays 1 / sqrt(nope + rope), the latent holds the unrotated
+    ``k_pe``, and ``rot`` is not read (None will do)."""
 
     def __init__(self, cfg: KimiVLConfig, dtype):
         super().__init__()
@@ -224,6 +238,8 @@ class Attention(nn.Module):
         c = self.cfg
         q = self.q_proj(h).unflatten(-1, (self.heads, c.qk_head_dim))
         q_nope, q_pe = q.split([c.qk_nope_head_dim, c.qk_rope_head_dim], dim=-1)
+        if c.mla_use_nope:
+            return q_nope, q_pe
         return q_nope, apply_rope(q_pe, rot[..., None, :])
 
     def latent(self, h, rot) -> torch.Tensor:
@@ -231,7 +247,9 @@ class Attention(nn.Module):
         of rows ``h`` (..., hidden), what the cache holds."""
         c = self.cfg
         c_kv, k_pe = self.kv_a_proj_with_mqa(h).split([c.kv_lora_rank, c.qk_rope_head_dim], -1)
-        return torch.cat([self.kv_a_layernorm(c_kv), apply_rope(k_pe, rot)], dim=-1)
+        if not c.mla_use_nope:
+            k_pe = apply_rope(k_pe, rot)
+        return torch.cat([self.kv_a_layernorm(c_kv), k_pe], dim=-1)
 
     def _kv_b(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """W_UK (H, nope, rank) and W_UV (H, v, rank), views of ``kv_b_proj``."""
@@ -242,7 +260,8 @@ class Attention(nn.Module):
     def attend(self, q_nope, q_pe, latent, mask) -> torch.Tensor:
         """The plain form over a whole sequence: keys and values from the
         latent through ``kv_b_proj``; ``mask`` (B, 1, S, S) bool, True where
-        a query sees a key. Returns the o_proj output (B, S, hidden)."""
+        a query sees a key, or None: causal. Returns the o_proj output (B, S,
+        hidden)."""
         c = self.cfg
         b, s = latent.shape[:2]
         c_kv, k_pe = latent.split([c.kv_lora_rank, c.qk_rope_head_dim], dim=-1)
@@ -252,7 +271,7 @@ class Attention(nn.Module):
         k = torch.cat([k_nope, k_pe[:, :, None].expand(b, s, self.heads, -1)],
                       dim=-1).transpose(1, 2)
         o = F.scaled_dot_product_attention(q, k, v.transpose(1, 2), attn_mask=mask,
-                                           scale=self.scale)
+                                           is_causal=mask is None, scale=self.scale)
         return self.o_proj(o.transpose(1, 2).flatten(2))
 
     def attend_absorbed(self, q_nope, q_pe, latent, bias) -> torch.Tensor:
@@ -282,9 +301,10 @@ class DecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
 
-    def feed_forward(self, x: torch.Tensor, hits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def feed_forward(self, x: torch.Tensor, hits: Optional[torch.Tensor] = None,
+                     pairs: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.post_attention_layernorm(x)
-        return x + (self.mlp(h) if self.dense else self.mlp(h, hits))
+        return x + (self.mlp(h) if self.dense else self.mlp(h, hits, pairs))
 
     def forward(self, x, rot, mask, hits: Optional[torch.Tensor] = None):
         """The plain form over whole sequences ``x`` (B, S, hidden): (x after
@@ -327,6 +347,11 @@ class KimiVLForCausalLM(nn.Module):
     @property
     def layers(self):
         return self.language_model.model.layers
+
+    @property
+    def latent_layers(self) -> int:
+        """Layers whose latent rows the decode cache holds: every one."""
+        return self.cfg.num_hidden_layers
 
     def embed(self, input_ids: torch.Tensor, image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         """Token embeddings with the image rows in the placeholders' places."""

@@ -24,7 +24,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__
 BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("mrsw_kernel.cu", "attention_kernel.cu", "quant_matmul.cu", "layernorm_kernel.cu")
+SOURCES = ("mrsw_kernel.cu", "attention_kernel.cu", "quant_matmul.cu", "layernorm_kernel.cu",
+           "kda_kernel.cu")
 
 
 def _nvcc() -> str:

@@ -51,10 +51,11 @@ context slots are beam-invariant and never reordered.
 ``tasks/captioning.py`` (greedy, sampling, beam search) run over it as
 they run over the full recompute. ``greedy_decode_cached`` is the one
 entry point of cached greedy captioning, whatever the model: a model with
-a latent cache (Kimi-VL) goes to ``tasks/decode_latent.py`` (imported at
+a latent cache (Kimi-VL) goes to ``tasks/decode_latent.py``, one with a
+hybrid cache (Kimi-Linear) to ``tasks/decode_hybrid.py`` (each imported at
 its first call), the BertImg captioner to the greedy policy over
 ``CachedSteps``. A change to cached decoding made behind this name reaches
-both models' callers.
+every model's callers.
 
 Spans (``utils/profiling.py``): ``decode.cached`` around each cached
 decode, ``decode.prefill`` and ``decode.step``; ``decode.kv_bytes`` counts
@@ -207,13 +208,19 @@ def greedy_decode_cached(model, *inputs, **options) -> Tuple[torch.Tensor, torch
     """KV-cached greedy decode by the model's kind of cache: a model with a
     latent cache (``latent_cache``, Kimi-VL's language model) goes to
     ``tasks/decode_latent.py::greedy_decode`` (input_ids, image_embeds,
-    attention_mask; max_steps), the BertImg captioner to
+    attention_mask; max_steps), one with a hybrid cache (``hybrid_cache``,
+    Kimi-Linear) to ``tasks/decode_hybrid.py::greedy_decode`` (packed
+    input_ids, lengths; max_steps), the BertImg captioner to
     ``tasks/captioning.py::greedy_decode`` over ``CachedSteps`` (the inputs
     and outputs of that decoder)."""
     if getattr(model, "latent_cache", False):
         from aladin_torch.tasks import decode_latent
 
         return decode_latent.greedy_decode(model, *inputs, **options)
+    if getattr(model, "hybrid_cache", False):
+        from aladin_torch.tasks import decode_hybrid
+
+        return decode_hybrid.greedy_decode(model, *inputs, **options)
     return greedy_decode(CachedSteps, model, *inputs, **options)
 
 

@@ -41,6 +41,9 @@ graphs of one batch shape: a batch of another shape frees them (with their
 latent buffer) and captures its own. Elsewhere (the
 CPU tests) the same step runs eagerly.
 
+``tasks/decode_hybrid.py`` (Kimi-Linear) keeps this cache for its MLA
+layers and reuses ``GreedyState`` and ``StepGraphs``.
+
 Spans (``utils/profiling.py``): ``decode.cached`` around a batch,
 ``decode.prefill``, ``decode.step`` (the eager step, or a replay): the
 names and roles of the BertImg decoder's. Counters: ``decode.latent_bytes``,
@@ -58,8 +61,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from aladin_torch.models.kimi_vl import KimiVLForCausalLM
+from aladin_torch.models.kimi_vl import DTYPES, KimiVLForCausalLM
 from aladin_torch.utils import profiling
+from aladin_torch.utils.device import graph_capture
 
 PREFILL_ROWS = 64  # prompts a prefill chunk
 KEY_ALIGN = 16  # a step reads the latent slots in multiples of this: aligned GEMM operands
@@ -163,9 +167,9 @@ class GreedyState:
 
     def __init__(self, model: KimiVLForCausalLM, b: int, p: int, max_new: int, device):
         cfg = model.cfg
-        dtype = model.language_model.lm_head.weight.dtype
+        dtype = DTYPES[cfg.dtype]
         self.cache = LatentCache(
-            torch.zeros(cfg.num_hidden_layers, b, cache_slots(p, max_new),
+            torch.zeros(model.latent_layers, b, cache_slots(p, max_new),
                         cfg.kv_lora_rank + cfg.qk_rope_head_dim, dtype=dtype, device=device),
             torch.zeros(b, dtype=torch.long, device=device),
             torch.zeros(b, dtype=torch.long, device=device),
@@ -186,11 +190,14 @@ class GreedyState:
         self.tokens[:, 0] = self.tok
         self.hits.zero_()
 
+    def logits(self, model: KimiVLForCausalLM, j: int) -> torch.Tensor:
+        """The (B, vocab) float32 logits of step ``j``, fed ``self.tok``."""
+        return decode_step(model, self.cache, self.tok, j, self.hits, self.j)
+
     def step(self, model: KimiVLForCausalLM, j: int) -> None:
         """Step ``j`` (``self.j`` holds it on the device) and the greedy
         choice: the next token, its log-probability, the token's column."""
-        logp = F.log_softmax(decode_step(model, self.cache, self.tok, j, self.hits, self.j),
-                             dim=-1)
+        logp = F.log_softmax(self.logits(model, j), dim=-1)
         tok = logp.argmax(dim=-1)
         self.logprob += logp.gather(1, tok[:, None])[:, 0]
         self.tokens.index_copy_(1, self.j + 1, tok[:, None])
@@ -228,7 +235,7 @@ class StepGraphs:
                 state.step(model, j)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=side):
+            with graph_capture(graph, pool=pool, stream=side):
                 state.step(model, j)
             self.graphs[keys] = graph
 
@@ -236,16 +243,18 @@ class StepGraphs:
         self.graphs[step_keys(self.state.cache, j)].replay()
 
 
-def _graphed(model: KimiVLForCausalLM, b: int, p: int, max_new: int, device) -> StepGraphs:
-    """The model's step graphs for this batch shape. A model holds one set:
-    a new shape releases the old set (``release_graphs``) before its own is
-    captured."""
+def _graphed(model: KimiVLForCausalLM, b: int, p: int, max_new: int, device,
+             state_cls: type = GreedyState) -> StepGraphs:
+    """The model's step graphs for this batch shape, over a ``state_cls``
+    state (``tasks/decode_hybrid.py`` passes its own). A model holds one
+    set: a new shape releases the old set (``release_graphs``) before its
+    own is captured."""
     key = (b, p, max_new)
     held = model.__dict__.get("_step_graphs")
     if held is not None and held[0] == key:
         return held[1]
     release_graphs(model)
-    graphs = StepGraphs(model, GreedyState(model, b, p, max_new, device), max_new)
+    graphs = StepGraphs(model, state_cls(model, b, p, max_new, device), max_new)
     model.__dict__["_step_graphs"] = (key, graphs)
     return graphs
 

@@ -76,6 +76,7 @@ from aladin_torch.ops.alignment import alignment_scores, alignment_scores_chunke
 from aladin_torch.parallel.mesh import Mesh, all_gather_cat, all_reduce_sum_, gather_rows
 from aladin_torch.train.state import TrainState
 from aladin_torch.utils import profiling
+from aladin_torch.utils.device import graph_capture
 
 
 def compute_autocast(device: torch.device, dtype: Optional[torch.dtype]):
@@ -356,7 +357,7 @@ class CapturedWindow:
             # the captured steps' grads live in the pool
             state.optimizer.zero_grad(set_to_none=True)
             try:
-                with torch.cuda.graph(self.graph, stream=self.stream):
+                with graph_capture(self.graph, stream=self.stream):
                     rows = [_update(model, loss_fn, state, self.inputs[i], 0, self.lrs[i],
                                     self.gate, mesh) for i in range(self.n)]
                     self.names = list(rows[0])

@@ -1,6 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and CUDA graph capture."""
 
 from __future__ import annotations
+
+import contextlib
+import gc
 
 import torch
 
@@ -14,3 +17,20 @@ def resolve_device(name: str = "cuda") -> torch.device:
             f"device {name!r} requested but no CUDA device is available; "
             "pass --device cpu (or device='cpu') to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def graph_capture(graph: "torch.cuda.CUDAGraph", **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` with Python's cyclic garbage
+    collector paused: a collection inside the capture can finalize garbage
+    left by earlier work (an autograd checkpoint's hooks, another CUDA
+    graph's reset) with calls a capturing stream does not permit, which
+    invalidates the capture. The garbage is collected after it instead."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -242,11 +242,31 @@ corpus is kept for them):
               partial product (bf16 operands, f32 result) on the tensor
               cores against the f32 product of the upcast operands.
 
+Since the Kimi-Linear configuration, one more phase after those:
+
+  kda       - K5 and K6 (csrc/kda_kernel.cu) at the condense cell's shapes:
+              the 64 documents of h100_bench's condense_doc64 traffic packed
+              end to end (258,984 tokens, 32 heads of 128, raw inputs in
+              bf16). K5 against its plain version on two documents (output
+              within KDA_O_RTOL, final states within KDA_PLAIN_S_RTOL) and,
+              on the full batch, the longest document and three others
+              against reference/kimi_linear.py::kda_chunked (KDA_O_RTOL,
+              KDA_CHUNKED_S_RTOL), every document's tails equal to its last
+              3 raw rows; K6 at batch 64 from those states, three steps
+              against its plain version (KDA_O_RTOL, KDA_STEP_S_RTOL; tails
+              equal). Card ms of both (CUDA events) beside
+              h100_bench/lib/kda_bounds.py's bounds and the plain versions'
+              ms; then the main path: greedy_decode_cached on Kimi-Linear
+              cut to layers K K K M at the published widths (64 of 256
+              experts), whose second batch must launch K5 once a KDA layer
+              and replay K6 once a KDA layer and step, by the launch
+              counters and by name in a device trace.
+
 Then the total seconds, the kernels line ({"kernels": [...]}; K2 and K3a
 also with their launches in one remat step, one pretraining step, one
 caption step and one pair step, K2's forward in one caption decode batch,
 K2's times at the captioning step's and the decoder's shapes, and K2 on
-one tp rank's heads),
+one tp rank's heads; K5 and K6 from the kda phase),
 the card's name and power limit
 as nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
 phase raises, so the script exits nonzero without that last line. It also
@@ -293,6 +313,17 @@ K4_F32_ACT_RTOL = 1e-5
 # K3b's q against its plain version: the statistics are summed in another
 # order, so a y on a .5 boundary of its scale may round the other way.
 K3B_Q_EQUAL_SHARE = 0.999
+# K5 / K6 against their plain versions and the chunked reference: o is
+# bf16 on the card, so a value may round one bf16 unit apart (2^-8 of it)
+# where the f32 values differ in their last bits; 2^-7 of the norm leaves
+# room. The states are f32 on both sides: summed in another order (and the
+# exponentials approximated) they drift ~1e-6 a token over a document
+# against the plain version's token loop, and further against the chunked
+# reference's other grouping at 16 k tokens; one step stays near one ulp.
+KDA_O_RTOL = 2.0 ** -7
+KDA_PLAIN_S_RTOL = 1e-4
+KDA_CHUNKED_S_RTOL = 1e-3
+KDA_STEP_S_RTOL = 1e-5
 # alignment scores of the int8 encoder against the bf16 encoder's (the bound
 # tests/test_quant.py puts on the encoder output cosine)
 INT8_ENCODER_CORR = 0.99
@@ -3645,6 +3676,188 @@ def phase_retrieval_oscar(tmp: str, vocab_dir: str) -> dict:
     return {"launches": launches}
 
 
+def _kda_inputs(gen, lengths, h=32, d=128):
+    """Raw KDA inputs at the published widths for documents packed end to
+    end, in bf16 (projections of unit rows through normal(0, 0.02) matrices
+    of width 2304: ~0.96 rms; f as the low-rank decay projection, ~0.4),
+    and the layer's per-channel weights as the benchmark draws them."""
+    import torch
+    from aladin_torch.ops.kernels import kda
+
+    n = sum(lengths)
+    q, k, v = (torch.randn(n, h * d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    f = (0.4 * torch.randn(n, h * d, generator=gen, device="cuda")).bfloat16()
+    b = torch.randn(n, h, generator=gen, device="cuda").bfloat16()
+    conv = (torch.rand(3, h * d, 4, generator=gen, device="cuda") - 0.5).bfloat16()
+    a_log = torch.log(1 + 15 * torch.rand(h, generator=gen, device="cuda"))
+    dt = torch.exp(math.log(1e-3) + torch.rand(h * d, generator=gen, device="cuda")
+                   * math.log(100.0))
+    return q, k, v, f, b, kda.Weights(conv, a_log, dt + torch.log(-torch.expm1(-dt)))
+
+
+def _kda_ref_features(ref, q, k, v, f, b, w, d=128):
+    """The reference's KDA inputs in float32 from one document's raw
+    projections: ``reference/kimi_linear.py``'s convolution, then the norms,
+    decay and beta as its layer computes them."""
+    import torch
+
+    t, width = q.shape
+    h = width // d
+    qf, kf, vf = (ref.short_conv(x.float(), w.conv[i].float()).reshape(t, h, d)
+                  for i, x in enumerate((q, k, v)))
+    qf = qf * torch.rsqrt(qf.pow(2).sum(-1, keepdim=True) + 1e-6) / math.sqrt(d)
+    kf = kf * torch.rsqrt(kf.pow(2).sum(-1, keepdim=True) + 1e-6)
+    g = (-torch.exp(w.a_log)[:, None]
+         * torch.nn.functional.softplus(f.float() + w.dt_bias).reshape(t, h, d))
+    return qf, kf, vf, g, torch.sigmoid(b.float())
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def phase_kda() -> dict:
+    import torch
+    from aladin_torch.ops.kernels import kda
+    from aladin_torch.tasks import decode_cache
+    from aladin_torch.utils import profiling
+    from h100_bench.lib import harness, kda_bounds
+    from h100_bench.reference import kimi_linear as ref
+
+    dc = harness.load_runner(ROOT, "doc_condense")
+    bench = os.path.join(ROOT, "h100_bench")
+    with open(os.path.join(bench, "configs", "kimi-linear-48b-a3b-ep4.json")) as fh:
+        c = json.load(fh)
+    with open(os.path.join(bench, "traffic", "condense_doc64.json")) as fh:
+        tr = json.load(fh)
+    lengths = [int(x) + tr["instruction_tokens"]
+               for x in dc.document_lengths(tr["document_tokens"], tr["batch"])]
+    docs, tokens = len(lengths), sum(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    q, k, v, f, b, w = _kda_inputs(gen, lengths)
+    perm = torch.randperm(docs, generator=torch.Generator().manual_seed(25)).tolist()
+    lengths = [lengths[i] for i in perm]  # the packed order of a batch: mixed
+    cu_host = [0]
+    for x in lengths:
+        cu_host.append(cu_host[-1] + x)
+    cu = torch.tensor(cu_host, dtype=torch.int32, device="cuda")
+    rows = torch.arange(docs, device="cuda")
+    state = torch.full((docs, 32, 128, 128), float("nan"), device="cuda")
+    tails = torch.zeros(docs, 3, 3 * 4096, dtype=torch.bfloat16, device="cuda")
+    out = {"tokens": tokens, "docs": docs, "longest": max(lengths)}
+    with torch.no_grad():
+        o = kda.kda_prefill(q, k, v, f, b, w, cu, rows, state, tails)
+        torch.cuda.synchronize()
+        # the plain version on the two shortest documents (a token loop)
+        short = sorted(range(docs), key=lambda i: lengths[i])[:2]
+        sel = torch.cat([torch.arange(cu_host[i], cu_host[i + 1], device="cuda") for i in short])
+        sub = [x[sel].contiguous() for x in (q, k, v, f, b)]
+        sub_cu = torch.tensor([0, lengths[short[0]], lengths[short[0]] + lengths[short[1]]],
+                              dtype=torch.int32, device="cuda")
+        p_state = torch.empty(2, 32, 128, 128, device="cuda")
+        p_tails = torch.empty(2, 3, 3 * 4096, dtype=torch.bfloat16, device="cuda")
+        t0 = time.perf_counter()
+        p_o = kda.kda_prefill_plain(*sub, w, sub_cu, torch.arange(2, device="cuda"), p_state,
+                                    p_tails)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = {"k5_o_plain": _rel(o[sel], p_o),
+               "k5_state_plain": max(_rel(state[i], p_state[j]) for j, i in enumerate(short))}
+        if not all(torch.equal(tails[i], p_tails[j]) for j, i in enumerate(short)):
+            raise AssertionError("kda: K5's tails differ from the plain version's")
+        # the chunked reference on the longest document and three others
+        longest = max(range(docs), key=lambda i: lengths[i])
+        err["k5_o_chunked"] = err["k5_state_chunked"] = 0.0
+        for i in [longest] + [x for x in perm[:4] if x != longest][:3]:
+            s = slice(cu_host[i], cu_host[i + 1])
+            feats = _kda_ref_features(ref, q[s], k[s], v[s], f[s], b[s], w)
+            want_o, want_s = ref.kda_chunked(*(x[None] for x in feats))
+            err["k5_o_chunked"] = max(err["k5_o_chunked"],
+                                      _rel(o[s].reshape(want_o.shape[1:]), want_o[0]))
+            err["k5_state_chunked"] = max(err["k5_state_chunked"],
+                                          _rel(state[i].transpose(-1, -2), want_s[0]))
+        for i in range(docs):
+            raw = torch.cat([q[cu_host[i]:cu_host[i + 1]], k[cu_host[i]:cu_host[i + 1]],
+                             v[cu_host[i]:cu_host[i + 1]]], dim=1)[-3:]
+            if not torch.equal(tails[i], raw):
+                raise AssertionError(f"kda: document {i}'s tails are not its last 3 raw rows")
+        # K6 at batch 64 from those states, three steps against the plain version
+        s_plain, t_plain = state.clone(), tails.clone()
+        err["k6_o_plain"] = err["k6_state_plain"] = 0.0
+        step_in = None
+        for _ in range(3):
+            step_in = _kda_inputs(gen, [docs])[:5]
+            o6 = kda.kda_step(*step_in, w, state, tails)
+            want6 = kda.kda_step_plain(*step_in, w, s_plain, t_plain)
+            torch.cuda.synchronize()
+            err["k6_o_plain"] = max(err["k6_o_plain"], _rel(o6, want6))
+            err["k6_state_plain"] = max(err["k6_state_plain"], _rel(state, s_plain))
+            if not torch.equal(tails, t_plain):
+                raise AssertionError("kda: K6's tails differ from the plain version's")
+        out["max_rel_err"] = err
+        limits = {"k5_o_plain": KDA_O_RTOL, "k5_state_plain": KDA_PLAIN_S_RTOL,
+                  "k5_o_chunked": KDA_O_RTOL, "k5_state_chunked": KDA_CHUNKED_S_RTOL,
+                  "k6_o_plain": KDA_O_RTOL, "k6_state_plain": KDA_STEP_S_RTOL}
+        over = {n: (err[n], lim) for n, lim in limits.items() if not err[n] <= lim}
+        if over:
+            raise AssertionError(f"kda: over the tolerances {over}")
+        # times at the cell's shapes beside the bounds
+        k5_ms = cuda_ms(lambda: kda.kda_prefill(q, k, v, f, b, w, cu, rows, state, tails), 3)
+        k6_ms = device_ms(lambda: kda.kda_step(*step_in, w, state, tails), 50)
+        sp, tp = state[:1].clone(), tails[:1].clone()
+        one = [x[:1].contiguous() for x in step_in]
+        t0 = time.perf_counter()
+        kda.kda_step_plain(*one, w, sp, tp)
+        torch.cuda.synchronize()
+        k6_plain_ms = 1e3 * (time.perf_counter() - t0) * docs
+    out["timings"] = {
+        "k5": {"ms": k5_ms, "bound_ms": 1e3 * kda_bounds.k5_bound_s(c, tokens, docs),
+               "bound_by": "bytes",
+               # the plain version's seconds on the two documents, scaled by tokens
+               "plain_ms": 1e3 * plain_s * tokens / sel.numel(), "library_ms": None,
+               "shape": f"{docs} documents, {tokens} tokens packed, H32 d128 bf16"},
+        "k6": {"ms": k6_ms, "bound_ms": 1e3 * kda_bounds.k6_bound_s(c, docs),
+               "bound_by": "bytes", "plain_ms": k6_plain_ms, "library_ms": None,
+               "shape": f"B{docs} H32 d128, state f32"}}
+    del q, k, v, f, b, o, state, tails, s_plain, t_plain
+    fresh_memory()
+    # the main path: a cut Kimi-Linear through greedy_decode_cached
+    cut = dict(c, num_hidden_layers=4, vocab_size=1024,
+               linear_attn_config=dict(c["linear_attn_config"], full_attn_layers=[4],
+                                       kda_layers=[1, 2, 3]))
+    model = dc.port_model(cut, 25, torch.device("cuda"))
+    mixed = [700, 40, 2100, 7, 65, 1300, 23, 511]
+    ids = torch.randint(0, 1000, (sum(mixed),), generator=gen, device="cuda")
+    steps = 16
+    with torch.no_grad():
+        first = decode_cache.greedy_decode_cached(model, ids, mixed, max_steps=steps)
+        before = profiling.counters()
+        again = decode_cache.greedy_decode_cached(model, ids, mixed, max_steps=steps)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        launches = {n: after[n] - before.get(n, 0)
+                    for n in ("k5.launches", "k6.launches", "decode.prefill_pad_tokens")}
+        card = device_profile(lambda: decode_cache.greedy_decode_cached(
+            model, ids, mixed, max_steps=steps), 1, top=60)
+    kda_layers = model.kda_layers
+    by_name = {pat: sum(r["calls"] for r in card["top"] if pat in r["name"])
+               for pat in ("kda_prefill_k5", "kda_step_k6")}
+    want = {"k5.launches": kda_layers, "k6.launches": kda_layers * (steps - 1),
+            "decode.prefill_pad_tokens": 0}
+    if launches != want or by_name != {"kda_prefill_k5": want["k5.launches"],
+                                       "kda_step_k6": want["k6.launches"]}:
+        raise AssertionError(f"kda: main-path launches {launches}, traced {by_name}; "
+                             f"expected {want}")
+    if not torch.equal(first[0], again[0]):
+        raise AssertionError("kda: the second batch's tokens differ from the first's")
+    out["main_path"] = {"launches": launches, "traced_calls": by_name, "steps": steps,
+                        "documents": mixed}
+    emit({"phase": "kda", **out})
+    del model
+    fresh_memory()
+    return {"timings": out["timings"], "max_rel_err": err, "launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "aladin_torch")):
         print("chip_smoke.py must run from a checkout of the repository (aladin_torch/ "
@@ -3693,6 +3906,7 @@ def main() -> int:
     corpus_dir.cleanup()
     with tempfile.TemporaryDirectory() as tmp:
         tp = phase_tensor_parallel(tmp)
+    kda_out = phase_kda()
     # K1 runs on four paths: cli/test's scoring, cli/parity's, streaming
     # alignment recall, and the sharded scorer and mesh sweep of the
     # parallel phase
@@ -3783,6 +3997,19 @@ def main() -> int:
             "max_abs_err": k4["max_err"][key], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": "M2688 K768 N2304 bf16 out"})
+    # K5 and K6 at the condense cell's shapes; launches of one main-path batch
+    # of the cut model (K6: replays of the step graphs)
+    for name, key, counter, err_o, err_s in (
+            ("kda_prefill", "k5", "k5.launches", "k5_o_chunked", "k5_state_chunked"),
+            ("kda_step", "k6", "k6.launches", "k6_o_plain", "k6_state_plain")):
+        t = kda_out["timings"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "aladin_torch/csrc/kda_kernel.cu",
+            "replaces": None, "launches": kda_out["launches"][counter],
+            "max_rel_err": {"o": kda_out["max_rel_err"][err_o],
+                            "state": kda_out["max_rel_err"][err_s]},
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     print(smi, flush=True)

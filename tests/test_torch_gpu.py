@@ -9,6 +9,8 @@ parity of the plain versions with aladin_tpu is in tests/test_torch_*.py.
 """
 
 import dataclasses
+import itertools
+import math
 
 import pytest
 import torch
@@ -1431,3 +1433,243 @@ def test_kimi_step_graphs_hold_one_batch_shape(cuda):
     assert torch.equal(again[0], first[0])
     # the outputs of the second decode are a few KB; a kept wide set would add its buffer
     assert after - one_set < wide_latent // 2, (one_set, after, wide_latent)
+
+
+def _kda_raw(gen, lengths, h=32, d=128):
+    """Raw KDA inputs at the published widths for documents packed end to
+    end: q, k, v, f (N, h x d) and b (N, h) in bf16 (projections of unit
+    rows through normal(0, 0.02) matrices of width 2304: ~0.96 rms; f as
+    the low-rank decay projection, ~0.4), and the layer's per-channel
+    weights as the benchmark draws them."""
+    from aladin_torch.ops.kernels import kda
+
+    n = sum(lengths)
+    q, k, v = (torch.randn(n, h * d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    f = (0.4 * torch.randn(n, h * d, generator=gen, device="cuda")).bfloat16()
+    b = torch.randn(n, h, generator=gen, device="cuda").bfloat16()
+    conv = (torch.rand(3, h * d, 4, generator=gen, device="cuda") - 0.5).bfloat16()
+    a_log = torch.log(1 + 15 * torch.rand(h, generator=gen, device="cuda"))
+    dt = torch.exp(math.log(1e-3) + torch.rand(h * d, generator=gen, device="cuda")
+                   * math.log(100.0))
+    return q, k, v, f, b, kda.Weights(conv, a_log, dt + torch.log(-torch.expm1(-dt)))
+
+
+def _kda_ref_features(q, k, v, f, b, w, d=128, window=None):
+    """The reference's KDA inputs in float32 from raw projections (one
+    document): ``reference/kimi_linear.py``'s convolution, norms, decay and
+    beta, the convolution started from ``window`` (3, 3D) if given."""
+    from h100_bench.reference import kimi_linear as ref
+
+    t, width = q.shape
+    h = width // d
+    feats = []
+    for i, x in enumerate((q, k, v)):
+        x = x.float()
+        if window is not None:
+            x = torch.cat([window[:, i * width:(i + 1) * width].float(), x])
+        feats.append(ref.short_conv(x, w.conv[i].float())[-t:].reshape(t, h, d))
+    qf, kf, vf = feats
+    qf = qf * torch.rsqrt(qf.pow(2).sum(-1, keepdim=True) + 1e-6) / math.sqrt(d)
+    kf = kf * torch.rsqrt(kf.pow(2).sum(-1, keepdim=True) + 1e-6)
+    g = (-torch.exp(w.a_log)[:, None]
+         * torch.nn.functional.softplus(f.float() + w.dt_bias).reshape(t, h, d))
+    return qf, kf, vf, g, torch.sigmoid(b.float())
+
+
+def test_k5_kda_prefill_matches_the_chunked_reference(cuda):
+    """K5 at the published widths (32 heads of 128) on a packed batch that
+    holds a 16,384-token document: each document's output and final state
+    against ``reference/kimi_linear.py::kda_chunked`` on the same raw
+    inputs, and the tails equal to each document's last 3 raw rows. The
+    output is bf16 (2^-9 relative a value: 1e-2 on the norm leaves room);
+    the state float32 on both sides, summed in other orders (observed
+    below)."""
+    from aladin_torch.ops.kernels import kda
+    from h100_bench.reference import kimi_linear as ref
+
+    lengths = [700, 16384, 2, 1500]
+    q, k, v, f, b, w = _kda_raw(cuda, lengths)
+    cu = torch.tensor([0] + list(itertools.accumulate(lengths)), dtype=torch.int32,
+                      device="cuda")
+    rows = torch.tensor([2, 0, 3, 1], device="cuda")
+    state = torch.full((4, 32, 128, 128), float("nan"), device="cuda")
+    tails = torch.zeros(4, 3, 3 * 4096, dtype=torch.bfloat16, device="cuda")
+    (launches,) = _launches("k5.launches")
+    o = kda.kda_prefill(q, k, v, f, b, w, cu, rows, state, tails)
+    torch.cuda.synchronize()
+    assert _launches("k5.launches")[0] == launches + 1
+    worst_o = worst_s = 0.0
+    with torch.no_grad():
+        for d, row in enumerate(rows.tolist()):
+            s = slice(int(cu[d]), int(cu[d + 1]))
+            feats = _kda_ref_features(q[s], k[s], v[s], f[s], b[s], w)
+            want_o, want_s = ref.kda_chunked(*(x[None] for x in feats))
+            got_o = o[s].float().reshape(want_o.shape[1:])
+            worst_o = max(worst_o, float((got_o - want_o[0]).norm() / want_o.norm()))
+            got_s = state[row].transpose(-1, -2)  # the cache holds S transposed
+            worst_s = max(worst_s, float((got_s - want_s[0]).norm() / want_s.norm()))
+            raw = torch.cat([q[s], k[s], v[s]], dim=1)
+            last = torch.cat([raw.new_zeros(3, raw.shape[1]), raw])[-3:]
+            assert torch.equal(tails[row], last)
+    print(f"K5 against kda_chunked: o {worst_o:.3e}, state {worst_s:.3e}")
+    assert worst_o < 1e-2 and worst_s < 1e-3
+
+
+def test_k6_kda_step_matches_the_recurrence(cuda):
+    """K6 at the published widths, batch 64, three steps from a state and
+    tails that K5 left: outputs, states and tails against
+    ``reference/kimi_linear.py::kda_recurrent`` on the same raw inputs."""
+    from aladin_torch.ops.kernels import kda
+    from h100_bench.reference import kimi_linear as ref
+
+    bsz, steps = 64, 3
+    lengths = [int(x) for x in torch.randint(3, 40, (bsz,), generator=cuda,
+                                             device="cuda").tolist()]
+    q, k, v, f, b, w = _kda_raw(cuda, lengths)
+    cu = torch.tensor([0] + list(itertools.accumulate(lengths)), dtype=torch.int32,
+                      device="cuda")
+    rows = torch.arange(bsz, device="cuda")
+    state = torch.empty(bsz, 32, 128, 128, device="cuda")
+    tails = torch.empty(bsz, 3, 3 * 4096, dtype=torch.bfloat16, device="cuda")
+    kda.kda_prefill(q, k, v, f, b, w, cu, rows, state, tails)
+    want_s, window = state.transpose(-1, -2).clone(), tails.clone()  # S, not S transposed
+    worst_o = worst_s = 0.0
+    for _ in range(steps):
+        q1, k1, v1, f1, b1, _ = _kda_raw(cuda, [bsz])
+        o = kda.kda_step(q1, k1, v1, f1, b1, w, state, tails)
+        torch.cuda.synchronize()
+        for r in range(bsz):
+            feats = _kda_ref_features(q1[r:r + 1], k1[r:r + 1], v1[r:r + 1], f1[r:r + 1],
+                                      b1[r:r + 1], w, window=window[r])
+            want_o, s_r = ref.kda_recurrent(*(x[None] for x in feats), state=want_s[r:r + 1])
+            want_s[r] = s_r[0]
+            worst_o = max(worst_o, float((o[r].float() - want_o.flatten()).norm()
+                                         / want_o.norm()))
+        raw = torch.cat([q1, k1, v1], dim=1)
+        window = torch.cat([window[:, 1:], raw[:, None]], dim=1)
+        assert torch.equal(tails, window)
+        got_s = state.transpose(-1, -2)
+        worst_s = max(worst_s, float((got_s - want_s).norm() / want_s.norm()))
+    print(f"K6 against kda_recurrent: o {worst_o:.3e}, state {worst_s:.3e}")
+    assert worst_o < 1e-2 and worst_s < 1e-4
+
+
+def test_held_expert_moe_at_published_widths(cuda):
+    """``moe_forward`` holding experts 64-127 of a 256-output router, 2304
+    x 1024, top-8, bf16: the held pairs (and only those) computed, against
+    a float32 loop over the held experts on the same picks (the router is
+    float32 on both sides); the pairs counted on the card."""
+    from aladin_torch.ops import moe
+
+    t, hid, width, first, held = 1024, 2304, 1024, 64, 64
+    h = (torch.randn(t, hid, generator=cuda, device="cuda")).bfloat16()
+    gw = 0.02 * torch.randn(256, hid, generator=cuda, device="cuda")
+    bias = 0.02 * torch.randn(256, generator=cuda, device="cuda")
+    gate_up = (0.02 * torch.randn(held, 2 * width, hid, generator=cuda, device="cuda")).bfloat16()
+    down = (0.02 * torch.randn(held, hid, width, generator=cuda, device="cuda")).bfloat16()
+    pairs = torch.zeros((), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        got = moe.moe_forward(h, gw, bias, gate_up, down, top_k=8, scale=2.446, first=first,
+                              pairs=pairs)
+        w, picked = moe.route(h, gw, bias, 8, 2.446)
+        want = torch.zeros(t, hid, device="cuda")
+        for e in range(held):
+            tok, slot = (picked == first + e).nonzero(as_tuple=True)
+            gu = h[tok].float() @ gate_up[e].float().t()
+            y = (torch.nn.functional.silu(gu[:, :width]) * gu[:, width:]) @ down[e].float().t()
+            want.index_add_(0, tok, w[tok, slot, None] * y)
+    inside = ((picked >= first) & (picked < first + held)).sum()
+    err = float((got.float() - want).norm() / want.norm())
+    print(f"held MoE: {int(inside)} of {t * 8} pairs held, error {err:.3e}")
+    assert int(pairs) == int(inside) and 0 < int(inside) < t * 8
+    assert err < 1e-2
+
+
+def _kimi_linear_cut(vocab=1024):
+    """Kimi-Linear at the published widths, cut to layers K K K M (layer 0
+    dense) with 64 of 256 experts held and a small vocabulary, bf16 on the
+    card, weights as the benchmark draws their kinds."""
+    from aladin_torch.models import kimi_linear as KL
+    from h100_bench.reference import kimi_linear as ref
+
+    c = dict(dataclasses.asdict(KL.KimiLinearConfig()), num_hidden_layers=4, vocab_size=vocab,
+             num_experts=64, router_experts=256,
+             linear_attn_config={"full_attn_layers": [4], "kda_layers": [1, 2, 3],
+                                 "head_dim": 128, "num_heads": 32, "short_conv_kernel_size": 4})
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    w = {}
+    for name, shape in ref.spec(c):
+        if name.endswith("A_log"):
+            w[name] = torch.log(1 + 15 * torch.rand(shape, generator=gen, device="cuda"))
+        elif name.endswith("dt_bias"):
+            dt = torch.exp(math.log(1e-3) + torch.rand(shape, generator=gen, device="cuda")
+                           * math.log(100.0))
+            w[name] = dt + torch.log(-torch.expm1(-dt))
+        elif "_conv1d." in name:
+            w[name] = torch.rand(shape, generator=gen, device="cuda") - 0.5
+        elif name.endswith("g_b_proj.bias"):
+            w[name] = torch.zeros(shape, device="cuda")
+        elif len(shape) >= 2 or name.endswith("correction_bias"):
+            w[name] = 0.02 * torch.randn(shape, generator=gen, device="cuda")
+        else:
+            w[name] = torch.ones(shape, device="cuda")
+    with torch.device("meta"):
+        model = KL.KimiLinearForCausalLM(KL.KimiLinearConfig.from_dict(c))
+    model.to_empty(device="cuda")
+    KL.load_named(model, w.items())
+    return model.eval()
+
+
+def test_kimi_linear_decode_step_never_syncs_with_the_host(cuda):
+    """A hybrid decode step (K6 and the KDA output stage, the NoPE MLA
+    absorbed over the latent rows, the held-expert MoE, the head) runs
+    under ``set_sync_debug_mode("error")``: nothing in it waits for the
+    card."""
+    from aladin_torch.tasks import decode_hybrid as DH
+
+    model = _kimi_linear_cut()
+    lengths = [40, 7, 65, 23, 51, 12, 33, 64]
+    ids = torch.randint(0, 1000, (sum(lengths),), generator=cuda, device="cuda")
+    with torch.no_grad():
+        state = DH.HybridState(model, len(lengths), max(lengths), 8, "cuda")
+        tok = DH.prefill(model, ids, lengths, state).argmax(dim=-1)
+        state.start(state.cache, torch.zeros(len(lengths), 1024, device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for j in range(3):
+                tok = DH.decode_step(model, state, tok, j, state.hits, None,
+                                     state.pairs).argmax(dim=-1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert 0 < int(state.hits) <= 3 * 64 and int(state.pairs) > 0
+    assert bool(torch.isfinite(state.kda).all())
+
+
+def test_kimi_linear_step_graphs_equal_the_eager_steps(cuda):
+    """``greedy_decode`` on the card replays one CUDA graph a key count over
+    the hybrid state; its tokens and log-probabilities are the eager
+    steps', and a second batch of the same shape reuses the graphs and
+    gives the same tokens (the prefill rewrites every state and tail)."""
+    from aladin_torch.tasks import decode_hybrid as DH
+    from aladin_torch.tasks import decode_latent as DL
+
+    model = _kimi_linear_cut()
+    lengths, n = [40, 7, 65, 23, 51, 12, 33, 64], 20
+    ids = torch.randint(0, 1000, (sum(lengths),), generator=cuda, device="cuda")
+    other = torch.randint(0, 1000, (sum(lengths),), generator=cuda, device="cuda")
+    with torch.no_grad():
+        state = DH.HybridState(model, len(lengths), max(lengths), n, "cuda")
+        state.start(state.cache, DH.prefill(model, ids, lengths, state))
+        for j in range(n - 1):
+            state.j.fill_(j)
+            state.step(model, j)
+        want = state.tokens.clone(), state.logprob.clone()
+        got = DH.greedy_decode(model, ids, lengths, max_steps=n)
+        DH.greedy_decode(model, other, lengths, max_steps=n)
+        again = DH.greedy_decode(model, ids, lengths, max_steps=n)
+    key, graphs = model._step_graphs
+    assert key == (len(lengths), max(lengths), n)
+    assert len(graphs.graphs) == len({DL.step_keys(graphs.state.cache, j) for j in range(n - 1)})
+    assert torch.equal(got[0], want[0]) and torch.equal(again[0], want[0])
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
